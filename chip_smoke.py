@@ -1,0 +1,655 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (hybridsearch_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py                   # the card run
+    python3 chip_smoke.py --cpu-rehearsal   # tiny sizes on the CPU
+
+The card run builds the CUDA kernels from ``hybridsearch_tpu_torch/csrc``,
+holds each against its plain PyTorch version at the slice's shapes, then
+drives the main path through the entry points a user calls: a synthetic,
+topic-correlated corpus of 524,288 docs (BEIR Quora's 522,931 rounded up to
+32 supertiles of 16,384) is indexed with ``Indexer.index_documents``
+(clustered layout, 384-wide hashing encoder, float32), and 8 batches of 256
+queries go through ``Searcher.search_batch`` after one warm-up batch. That
+route is the supertile ladder: the stats sweep (K1, tile_stats), resident
+scores (K2, super_scores) and resident placement (K3, place_windows). The
+run fails unless each kernel launched during the timed batches, the batches
+reached the ladder's last rung, and every certified query matches a plain
+exact fused reference computed on the card. Each kernel is then timed on
+the main path's own inputs (K2 at every probe count the ladder gave it),
+and a second corpus with larger topics is served and checked the same way.
+Neither corpus's topic structure comes from a published source, so their
+qps describe these corpora only.
+
+Every phase prints one line with its elapsed seconds before the next
+starts. The last two lines are a JSON object of per-kernel numbers and the
+device line; per-batch details go to ``chiprun_out/chip_smoke_detail.json``.
+Without a CUDA card the run exits non-zero and prints no result;
+``--cpu-rehearsal`` runs the same phases on the CPU at tiny sizes,
+with the plain versions standing in for the kernels, and prints no device
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BUDGET_S = 600.0  # the whole card run, build included
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+# (main-path shapes, rehearsal shapes)
+SIZES = {
+    "card": dict(n_docs=524_288, dim=384, batch=256, n_batches=8,
+                 n_background=30_000, s_max=16),
+    "cpu": dict(n_docs=9_216, dim=128, batch=32, n_batches=2,
+                n_background=2_000, s_max=1),
+}
+# Two synthetic corpora, neither taken from a published source. Each is
+# (docs a topic, words a doc from its topic's vocabulary,
+# words from the Zipf background, size of a topic's vocabulary). The main
+# path runs "small-topic": small topics drawn in background-heavy docs
+# scatter over the supertiles, so batches climb the whole probe ladder.
+# "large-topic" gathers each topic in few supertiles and mostly certifies
+# at the first rung.
+CORPORA = {
+    "small-topic": (128, 16, 32, 12),
+    "large-topic": (512, 32, 16, 24),
+}
+DETAIL_PATH = "chiprun_out/chip_smoke_detail.json"
+TOP_K = 10
+EPS_NUM = 1e-4  # the certificate margin (ops/supertile.py)
+
+KERNEL_META = {
+    "tile_stats": ("hybridsearch_tpu_torch/csrc/tile_stats.cu",
+                   "hybridsearch_tpu/ops/pallas_topk.py:124"),
+    "super_scores": ("hybridsearch_tpu_torch/csrc/super_scores.cu",
+                     "hybridsearch_tpu/ops/pallas_supertile.py:33"),
+    "place_windows": ("hybridsearch_tpu_torch/csrc/place_windows.cu",
+                      "hybridsearch_tpu/ops/pallas_supertile.py:394"),
+}
+
+
+class Clock:
+    def __init__(self, budget_s: float):
+        self.t0 = time.perf_counter()
+        self.budget_s = budget_s
+
+    def phase(self, name: str, detail: str = "") -> None:
+        el = time.perf_counter() - self.t0
+        print(f"[{el:8.1f}s] {name}{': ' + detail if detail else ''}", flush=True)
+        if el > self.budget_s:
+            raise RuntimeError(f"over the {self.budget_s:.0f} s budget at {name}")
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def time_ms(fn, dev: torch.device, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call: CUDA events around ``reps`` calls on the
+    card, the host clock after a synchronize elsewhere."""
+    for _ in range(warmup):
+        fn()
+    sync(dev)
+    if dev.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def max_err(got, want) -> float:
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        same_inf = torch.isinf(g) & (g == w)
+        d = torch.where(same_inf, 0.0, (g - w).abs())
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
+def unit_rows(gen: torch.Generator, n: int, d: int, dev) -> torch.Tensor:
+    x = torch.randn((n, d), generator=gen, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+# -- phase 3: kernels at the slice's shapes on synthetic inputs -----------------
+
+def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
+    """Each kernel against its plain version at the slice's widths, float32
+    and (K1, K2) bf16, with K2 at the deepest rung's probe count."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        place_windows, place_windows_plain, super_scores, super_scores_plain)
+    from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    N, D, B = sz["n_docs"], sz["dim"], sz["batch"]
+    docs = unit_rows(gen, N, D, dev)
+    q = unit_rows(gen, B, D, dev)
+    bias = torch.zeros(N, device=dev)
+    bias[torch.randperm(N, generator=gen, device=dev)[: N // 100]] = float("-inf")
+    sd = 16384 if N >= 16384 else 1024
+    n_sup = N // sd
+    S = min(sz["s_max"], n_sup)
+    sup = torch.sort(torch.stack([torch.randperm(n_sup, generator=gen, device=dev)[:S]
+                                  for _ in range(B)]), dim=1).values.int()
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-3)):
+        d_t, q_t = docs.to(dt), q.to(dt)
+        e1 = max_err(tile_stats(q_t, d_t, bias, N - 77, True),
+                     tile_stats_plain(q_t, d_t, bias, N - 77, True))
+        e2 = max_err(super_scores(q_t, d_t, sup, sd), super_scores_plain(q_t, d_t, sup, sd))
+        print(f"    {str(dt)[6:]}: tile_stats err {e1:.3g}, super_scores "
+              f"(S={S}) err {e2:.3g} (tol {tol:g})", flush=True)
+        if not (e1 <= tol and e2 <= tol):
+            raise AssertionError(f"kernel disagrees with its plain version ({dt})")
+    # windows as the path lays them out: whole 1024-entry chunks (one 8192
+    # slot + seven 1024 slots), no cell twice in a chunk, a margin of
+    # out-of-range ids; then kernel and plain version sum in one order
+    R, M = 128 * 128, 128 * 128 + 128
+    TE, rows = 23_552, B * 2
+    start = torch.randint(0, M, (rows, TE // 1024, 1), generator=gen, device=dev)
+    step = 1021 * torch.arange(1024, device=dev)  # 1021 is prime to M
+    l = ((start + step) % M - 64).reshape(rows, TE).int()
+    w = torch.rand((rows, TE), generator=gen, device=dev)
+    w[:, ::3] = 0.0
+    e3 = max_err(place_windows(l, w), place_windows_plain(l, w))
+    print(f"    place_windows err {e3:.3g} (tol 1e-6)", flush=True)
+    if not e3 <= 1e-6:
+        raise AssertionError("place_windows disagrees with its plain version")
+    sync(dev)
+
+
+# -- phase 4: the corpus -------------------------------------------------------
+
+def make_corpus(sz: dict, corpus: str, seed: int):
+    """Topic-correlated synthetic corpus (``CORPORA``): each doc draws its
+    topic words from its topic's vocabulary and its other words from a
+    Zipf(1.1) background of ``n_background`` words, shuffled. Queries: 2-4
+    words of one topic plus one background word."""
+    rng = np.random.default_rng(seed)
+    topic_docs, n_tw, n_bw, tv = CORPORA[corpus]
+    n, V = sz["n_docs"], sz["n_background"]
+    T = max(1, n // topic_docs)
+    words = [f"t{t}x{j}" for t in range(T) for j in range(tv)]
+    words += [f"w{r}" for r in range(V)]
+    zipf = 1.0 / np.arange(1, V + 1) ** 1.1
+    zipf /= zipf.sum()
+    topic = rng.integers(0, T, n)
+    tw = topic[:, None] * tv + rng.integers(0, tv, (n, n_tw))
+    bw = T * tv + rng.choice(V, size=(n, n_bw), p=zipf)
+    mat = rng.permuted(np.concatenate([tw, bw], axis=1), axis=1)
+    docs = [" ".join([words[i] for i in row]) for row in mat.tolist()]
+
+    def queries(count: int):
+        out = []
+        qt = rng.integers(0, T, count)
+        nw = rng.integers(2, 5, count)
+        bg = rng.choice(V, size=count, p=zipf)
+        for t, m, b in zip(qt.tolist(), nw.tolist(), bg.tolist()):
+            js = rng.choice(tv, size=m, replace=False)
+            out.append(" ".join([f"t{t}x{j}" for j in js] + [f"w{b}"]))
+        return out
+
+    return docs, queries
+
+
+# -- phase 4: the plain exact reference -----------------------------------------
+
+def reference_topk(searcher, queries, k: int, sw: float, lw: float):
+    """Exact fused top-k with no kernel: full [B, n] cosine, BM25 summed
+    from the CSR term by term, alive-masked min-max fusion, top-k. Also
+    returns the [B, n] fused scores for tie checks."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+    from hybridsearch_tpu_torch.text.extractor import extract_tokens
+
+    idx = searcher.indexer
+    snap = idx.dense._snap
+    n = snap.n
+    st = idx.bm25._state
+    po = st.postings
+    q = l2_normalize(idx.encoder.encode(list(queries)).float())
+    sem = q @ snap.docs[:n].T
+    lex = torch.zeros_like(sem)
+    indptr = po.indptr.cpu().numpy()
+    for b, text in enumerate(queries):
+        for t in st.vocab.encode(extract_tokens(text)):
+            lo, hi = int(indptr[t]), int(indptr[t + 1])
+            lex[b].index_add_(0, po.doc_ids[lo:hi].long(), po.weights[lo:hi])
+    bias = snap.bias[:n]
+    alive = (bias >= 0)[None, :]
+
+    def norm(x):
+        mn = torch.where(alive, x, float("inf")).amin(1, keepdim=True)
+        mx = torch.where(alive, x, float("-inf")).amax(1, keepdim=True)
+        r = mx - mn
+        return torch.where(r > 1e-12, (x - mn) / r.clamp_min(1e-12), torch.ones_like(x))
+
+    fused = sw * norm(sem) + lw * norm(lex) + bias[None, :]
+    vals, ids = torch.topk(fused, k, dim=1)
+    return vals, ids, fused
+
+
+def _row_mismatch(res, ref_vals, ref_ids, fused_row):
+    """Why a served row differs from the reference, or None: ids must be
+    equal except where the two scores at a slot lie within EPS_NUM (a
+    near-tie the float32 summation order may swap); values within EPS_NUM."""
+    got_ids = [i for _v, _c, i in res]
+    got_vals = np.array([v for v, _c, _i in res])
+    if len(got_ids) != len(ref_ids):
+        return f"{len(got_ids)} results"
+    if np.abs(got_vals - ref_vals).max() > EPS_NUM:
+        return f"values {got_vals} vs {ref_vals}"
+    for j, (g, r) in enumerate(zip(got_ids, ref_ids)):
+        if g != r and abs(float(fused_row[g]) - ref_vals[j]) > EPS_NUM:
+            return f"slot {j}: doc {g} ({float(fused_row[g])}) vs {r} ({ref_vals[j]})"
+    return None
+
+
+def check_against_reference(results, exact_rows, ref_vals, ref_ids, fused):
+    """(certified rows checked, uncertified rows that match anyway). A
+    certified row that differs from the reference fails the run."""
+    ref_vals, ref_ids = ref_vals.cpu().numpy(), ref_ids.cpu().numpy()
+    checked = best_effort_ok = 0
+    for b in range(len(results)):
+        why = _row_mismatch(results[b], ref_vals[b], ref_ids[b], fused[b])
+        if exact_rows[b]:
+            if why is not None:
+                raise AssertionError(f"certified row {b}: {why}")
+            checked += 1
+        elif why is None:
+            best_effort_ok += 1
+    return checked, best_effort_ok
+
+
+# -- phase 5: the kernels on the main path's own inputs -------------------------
+
+class Capture:
+    """Wraps a module-level kernel wrapper to keep the arguments of its
+    first call for each value of ``key(args)`` (the main path's own
+    inputs), then calls it unchanged."""
+
+    def __init__(self, module, name: str, key=lambda args: None):
+        self.module, self.name, self.key = module, name, key
+        self.real = getattr(module, name)
+        self.calls: dict = {}
+        setattr(module, name, self)
+
+    @property
+    def args(self):
+        return next(iter(self.calls.values()), None)
+
+    def __call__(self, *args, **kwargs):
+        self.calls.setdefault(self.key(args), (args, kwargs))
+        return self.real(*args, **kwargs)
+
+    def restore(self) -> None:
+        setattr(self.module, self.name, self.real)
+
+
+KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6}
+
+
+def kernel_row(name: str, args, kwargs, dev: torch.device, plain_reps: int = 3) -> dict:
+    """One kernel call of the main path against its plain version: error,
+    kernel, plain and library times, and the bound, all on these inputs."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+
+    plain = {"tile_stats": cuda_topk.tile_stats_plain,
+             "super_scores": cuda_supertile.super_scores_plain,
+             "place_windows": cuda_supertile.place_windows_plain}[name]
+    kernel = {"tile_stats": cuda_topk.tile_stats,
+              "super_scores": cuda_supertile.super_scores,
+              "place_windows": cuda_supertile.place_windows}[name]
+    fk = lambda: kernel(*args, **kwargs)  # noqa: E731
+    fp = lambda: plain(*args, **kwargs)  # noqa: E731
+    before = kernel.launches
+    got, want = fk(), fp()
+    sync(dev)
+    err = max_err(got, want)
+    del got, want
+    if not err <= KERNEL_TOL[name]:
+        raise AssertionError(f"{name}: error {err} > {KERNEL_TOL[name]} on "
+                             "main-path inputs")
+    ms = time_ms(fk, dev, reps=10, warmup=2)
+    kernel.launches = before  # these launches are not the path's
+    plain_ms = time_ms(fp, dev, reps=plain_reps)
+    bound_ms, bound_by, library = _bound_and_library(name, args, kwargs)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(library, dev, reps=5) if library else None}
+
+
+def kernel_numbers(captures: dict, launches: dict, dev: torch.device) -> list:
+    out = []
+    for name, cap in captures.items():
+        if cap.args is None:
+            raise AssertionError(f"{name} was never called on the main path")
+        args, kwargs = cap.args
+        row = {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
+               "replaces": KERNEL_META[name][1], "launches": launches[name]}
+        row.update(kernel_row(name, args, kwargs, dev))
+        out.append(row)
+    return out
+
+
+def super_scores_by_probe(cap: Capture, dev: torch.device) -> list:
+    """K2 at every probe count S the warm-up batch's rungs gave it."""
+    rows = []
+    for S, (args, kwargs) in sorted(cap.calls.items()):
+        row = {"S": S, "B": int(args[0].shape[0])}
+        row.update(kernel_row("super_scores", args, kwargs, dev, plain_reps=1))
+        rows.append(row)
+        print(f"    super_scores S={S} B={row['B']}: {row['ms']:.3f} ms, bound "
+              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms, "
+              f"err {row['max_abs_err']:.3g}", flush=True)
+    return rows
+
+
+def _bound_and_library(name, args, kwargs):
+    """(least time the card could take for this call's work in ms, what
+    bounds it, a PyTorch yardstick computing the same function or None)."""
+    if name == "tile_stats":
+        q, docs, bias = args[0], args[1], args[2]
+        with_min = kwargs.get("with_min", args[4] if len(args) > 4 else False)
+        B, D = q.shape
+        N = docs.shape[0]
+        nbytes = (N * D * docs.element_size() + B * D * q.element_size()
+                  + (N * 4 if bias is not None else 0)
+                  + (2 if with_min else 1) * (N // 128) * B * 4)
+        flops = 2.0 * N * D * B
+
+        def library():
+            s = torch.matmul(docs, q.T).view(N // 128, 128, B)
+            s.amax(dim=1), s.amin(dim=1)
+    elif name == "super_scores":
+        from hybridsearch_tpu_torch.ops.cuda_supertile import _chunk_rows
+
+        q, docs, sup, sd = args[0], args[1], args[2], args[3]
+        ch = kwargs.get("ch", args[4] if len(args) > 4 else 1024)
+        B, D = q.shape
+        S = sup.shape[1]
+        rows = _chunk_rows(sup, docs.shape[0], sd, ch)  # [B, S*sd] rows read
+        unique_rows = int(torch.unique(rows).numel())
+        nbytes = (unique_rows * D * docs.element_size() + B * D * q.element_size()
+                  + sup.numel() * 4 + B * S * sd * 4)
+        flops = 2.0 * B * S * sd * D
+
+        def library():
+            # the whole corpus by cuBLAS float32, then the probed columns
+            torch.gather(torch.matmul(q, docs.T), 1, rows)
+    else:
+        l, w = args[0], args[1]
+        st = args[2] if len(args) > 2 else kwargs.get("super_tiles", 128)
+        R = st * 128
+        BS, TE = l.shape
+        ok = (l >= 0) & (l < R) & (w != 0)
+        nbytes = BS * TE * 8 + BS * R * 4
+        flops = float(ok.sum())
+        flat = (l.long() + torch.arange(BS, device=l.device)[:, None] * R)[ok]
+        wf = w[ok]
+        buf = torch.zeros(BS * R, device=l.device)
+
+        def library():
+            buf.zero_().index_add_(0, flat, wf)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), library
+
+
+def profile_batch(searcher, queries) -> str:
+    """One more batch under torch.profiler: the summed time of the device's
+    kernels and copies against the batch's wall time (taken inside the
+    profiled region, so profiler start-up is not counted), and the kernels
+    that took the most device time. ``trace_span`` ranges also show up on
+    the device timeline; they overlap the kernels and are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        searcher.search_batch(queries, top_k=TOP_K, log=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    per_name: dict = {}
+    for e in prof.events():
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            n, us = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not per_name:
+        return f"wall {wall_ms:.2f} ms; device time not measured (no device events)"
+    busy_ms = sum(us for _n, us in per_name.values()) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]
+    top_s = "; ".join(f"{name[:40]} {us / 1e3:.3f} ms x{n}" for name, (n, us) in top)
+    return (f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+            f"({100 * busy_ms / wall_ms:.1f}%), {sum(n for n, _u in per_name.values())} "
+            f"device ops; top: {top_s}")
+
+
+def nvidia_smi_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return proc.stdout.strip().splitlines()[0]
+
+
+# -- main ----------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run every phase on the CPU at tiny sizes")
+    args = ap.parse_args(argv)
+    rehearsal = args.cpu_rehearsal
+    clock = Clock(BUDGET_S if not rehearsal else 1e9)
+
+    # -- 1. device
+    if not rehearsal and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    import hybridsearch_tpu_torch  # noqa: F401  (pins full float32 matmuls)
+    from hybridsearch_tpu_torch.ops import cuda_build
+    from hybridsearch_tpu_torch.ops import dense as dense_mod
+    from hybridsearch_tpu_torch.ops import supertile as supertile_mod
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    sz = SIZES["cpu" if rehearsal else "card"]
+    if rehearsal:
+        dev = torch.device("cpu")
+        kind, count, smi = "cpu", 0, "nvidia-smi: not run (cpu rehearsal)"
+        # take the kernel routes, with the plain versions behind the wrappers
+        dense_mod._on_card = supertile_mod._on_card = lambda t: True
+        searcher_mod.SPARSE_HYBRID_MIN_DOCS = 0
+    else:
+        dev = torch.device("cuda")
+        kind, count, smi = (torch.cuda.get_device_name(0),
+                            torch.cuda.device_count(), nvidia_smi_line())
+    clock.phase("device", f"{kind} x{count}; {smi}; torch {torch.__version__}")
+
+    # -- 2. build
+    if not rehearsal:
+        cuda_build.library()
+        info = cuda_build.last_build
+        for line in info["log"].splitlines():
+            if "Compiling entry" in line or "registers" in line:
+                print("    " + line.strip(), flush=True)
+        clock.phase("build", f"nvcc {info['seconds']:.1f} s "
+                    f"({'cached' if info['cached'] else 'fresh'}) -> {info['path']}")
+    else:
+        clock.phase("build", "skipped (cpu rehearsal: plain versions)")
+
+    # -- 3. kernels
+    check_kernels(sz, dev, args.seed)
+    clock.phase("kernels", "K1-K3 match their plain versions at the slice's shapes")
+
+    # -- 4. end to end: the main path on the small-topic corpus, then
+    # -- 5. its kernels on their own inputs, then the large-topic corpus
+    detail = {"device": smi, "corpora": {}}
+    run = serve_corpus("small-topic", sz, dev, args.seed, clock, kind, smi,
+                       main_path=True)
+    detail["corpora"]["small-topic"] = run["stats"]
+    numbers = kernel_numbers(run["captures"], run["launches"], dev)
+    if rehearsal:
+        clock.phase("kernel timing", f"{len(numbers)} wrappers checked on "
+                    "main-path inputs; times not reported (cpu rehearsal)")
+    else:
+        detail["super_scores_by_probe"] = super_scores_by_probe(
+            run["captures"]["super_scores"], dev)
+        clock.phase("kernel timing", "main-path inputs")
+    del run
+    detail["corpora"]["large-topic"] = serve_corpus(
+        "large-topic", sz, dev, args.seed + 1, clock, kind, smi,
+        main_path=False)["stats"]
+
+    if rehearsal:
+        # plain versions on the host: no device numbers to report
+        print(json.dumps({"ok": True, "rehearsal": "cpu"}), flush=True)
+        return 0
+    detail["kernels"] = numbers
+    detail["nvcc_log"] = cuda_build.last_build["log"]
+    os.makedirs(os.path.dirname(DETAIL_PATH), exist_ok=True)
+    with open(DETAIL_PATH, "w") as f:
+        json.dump(detail, f, indent=1)
+    clock.phase("done", f"details in {DETAIL_PATH}")
+    print(smi, flush=True)
+    print(json.dumps({"kernels": numbers}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+def serve_corpus(corpus: str, sz: dict, dev: torch.device, seed: int,
+                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
+    """Index one corpus through ``Indexer.index_documents``, serve one
+    warm-up and ``n_batches`` timed batches through ``search_batch``, and
+    hold every certified row against the plain exact reference. On the
+    main path the kernels' counts are set to 0 just before the timed
+    batches and read just after, and the warm-up batch's kernel calls are
+    captured. Returns {"stats", "launches", "captures"}."""
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+    from hybridsearch_tpu_torch.ops import dense as dense_mod
+    from hybridsearch_tpu_torch.ops import supertile as supertile_mod
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    on_card = dev.type == "cuda"
+    docs, make_queries = make_corpus(sz, corpus, seed)
+    clock.phase("corpus", f"{corpus}: {len(docs)} docs, "
+                f"{sum(len(d) for d in docs)} chars")
+    cfg = EngineConfig()
+    cfg.index.layout = "clustered"
+    cfg.index.dim = sz["dim"]
+    searcher = Searcher(config=cfg, use_query_memory=False, device=dev)
+    built = searcher.indexer.index_documents(docs)
+    del docs
+    stages = ", ".join(f"{k} {v:.1f}" for k, v in built["timings_s"].items())
+    clock.phase("index_documents", f"{corpus}: {stages}")
+    t = time.perf_counter()
+    sp = searcher.indexer.bm25.super_postings()
+    sync(dev)
+    clock.phase("super_postings", f"{corpus}: {time.perf_counter() - t:.1f} s, "
+                f"{sp.n_super} supertiles, {sp.ids_rows.shape[0] * 128} CSR slots")
+
+    ladders = []
+    real_ladder = searcher_mod.supertile_ladder
+
+    def recording_ladder(*a, **kw):
+        st, rungs = real_ladder(*a, **kw)
+        ladders.append((st.exact.copy(), rungs))
+        return st, rungs
+
+    searcher_mod.supertile_ladder = recording_ladder
+    captures = {}
+    if main_path:
+        captures = {"tile_stats": Capture(dense_mod, "tile_stats"),
+                    "super_scores": Capture(supertile_mod, "super_scores",
+                                            key=lambda a: int(a[2].shape[1])),
+                    "place_windows": Capture(supertile_mod, "place_windows")}
+    searcher.search_batch(make_queries(sz["batch"]), top_k=TOP_K, log=False)
+    for cap in captures.values():
+        cap.restore()
+    clock.phase("warm-up batch", f"{corpus}: {sz['batch']} queries")
+
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+    ladders.clear()
+    kernels = {"tile_stats": cuda_topk.tile_stats,
+               "super_scores": cuda_supertile.super_scores,
+               "place_windows": cuda_supertile.place_windows}
+    for fn in kernels.values():
+        fn.launches = 0
+    lat, results = [], []
+    for qs in batches:
+        t = time.perf_counter()
+        results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
+        lat.append(time.perf_counter() - t)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    searcher_mod.supertile_ladder = real_ladder
+    if len(ladders) != len(batches):
+        raise AssertionError("search_batch did not take the supertile ladder")
+    if on_card and min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    rungs = [r for _e, r in ladders]
+    if on_card and main_path and max(rungs) < len(searcher_mod._SUPER_LADDER):
+        raise AssertionError(f"the main path never reached the ladder's last "
+                             f"rung: rungs {rungs}")
+    n_q = sz["batch"] * len(batches)
+    qps = n_q / sum(lat)
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    exact = np.concatenate([e for e, _r in ladders])
+    clock.phase("search_batch", f"{corpus}: {len(batches)} x {sz['batch']} "
+                f"queries, rungs {rungs}, launches {json.dumps(launches)}")
+
+    if on_card and main_path:
+        clock.phase("profile", f"{corpus}: " + profile_batch(searcher, batches[0]))
+
+    sw, lw = cfg.fusion.semantic_weight, cfg.fusion.lexical_weight
+    checked = best_effort_ok = 0
+    for qs, res, (ex, _r) in zip(batches, results, ladders):
+        rv, ri, fused = reference_topk(searcher, qs, TOP_K, sw, lw)
+        c, b = check_against_reference(res, ex, rv, ri, fused)
+        checked, best_effort_ok = checked + c, best_effort_ok + b
+        del fused
+    clock.phase("reference", f"{corpus}: {checked} certified rows match the "
+                f"plain exact fused reference; {best_effort_ok} of "
+                f"{n_q - checked} uncertified rows match it too")
+    print(f"    {corpus}: certified {exact.mean():.4f} ({int(exact.sum())}/"
+          f"{exact.size}), rungs mean {np.mean(rungs):.2f}, qps {qps:.1f}, batch "
+          f"latency p50 {p50:.2f} ms p99 {p99:.2f} ms (B={sz['batch']}, {kind}; "
+          f"{smi}; unsourced synthetic corpus)", flush=True)
+    if not exact.any():
+        raise AssertionError("no query was certified")
+    stats = {"certified": float(exact.mean()), "n_certified": int(exact.sum()),
+             "n_queries": int(exact.size), "best_effort_match": best_effort_ok,
+             "rungs": rungs, "qps": qps, "p50_ms": float(p50), "p99_ms": float(p99),
+             "batch_ms": [x * 1e3 for x in lat], "launches": launches,
+             "index_timings_s": built["timings_s"]}
+    return {"stats": stats, "launches": launches, "captures": captures}
+
+
+if __name__ == "__main__":
+    sys.exit(main())

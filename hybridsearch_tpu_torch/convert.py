@@ -1,0 +1,123 @@
+"""Carry the JAX package's parameters and index state into the port.
+
+Every function takes plain numpy arrays (and Python scalars), as read out
+of a ``hybridsearch_tpu`` index, and returns the port's object on the
+chosen device. With them a test builds both packages on identical state:
+the ``HashingEncoder`` table (``jax.random`` bits the port's generator
+cannot repeat), the dense snapshot, the BM25 CSR state, the supertile
+postings, and the clustered permutation of the corpus.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from hybridsearch_tpu_torch.config import EngineConfig
+from hybridsearch_tpu_torch.index.builder import Indexer
+from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+from hybridsearch_tpu_torch.index.sparse_index import BM25
+from hybridsearch_tpu_torch.models.encoder import HashingEncoder
+from hybridsearch_tpu_torch.ops.bm25 import BM25Postings
+from hybridsearch_tpu_torch.ops.supertile import SuperPostings
+from hybridsearch_tpu_torch.text.extractor import HashVocabulary, Vocabulary
+from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def hashing_encoder(table: np.ndarray, seed: int = 42, bigram_weight: float = 0.5,
+                    max_tokens: int = 256, device: DeviceLike = None) -> HashingEncoder:
+    """HashingEncoder whose bucket table is ``table`` [n_buckets, dim]."""
+    n_buckets, dim = table.shape
+    enc = HashingEncoder(dim=dim, n_buckets=n_buckets, seed=seed,
+                         bigram_weight=bigram_weight, max_tokens=max_tokens,
+                         device=device)
+    enc.table = torch.from_numpy(np.array(table, dtype=np.float32))
+    return enc
+
+
+def dense_index(docs: np.ndarray, bias: np.ndarray, n: int,
+                capacity_round: int = 4096, device: DeviceLike = None) -> DenseIndex:
+    """DenseIndex adopting a snapshot: ``docs`` [capacity, D] L2-normalized
+    rows, ``bias`` [capacity] 0 / -inf, ``n`` rows assigned."""
+    idx = DenseIndex(dim=docs.shape[1], capacity_round=capacity_round,
+                     device=device)
+    idx.load_snapshot(torch.from_numpy(np.array(docs, dtype=np.float32)),
+                      torch.from_numpy(np.array(bias, dtype=np.float32)), int(n))
+    return idx
+
+
+def bm25_index(vocab: Union[np.ndarray, Sequence[str]], indptr: np.ndarray,
+               doc_ids: np.ndarray, weights: np.ndarray, n_docs: int,
+               k1: float = 1.5, b: float = 0.75, delta: float = 1.0,
+               device: DeviceLike = None) -> BM25:
+    """BM25 holding a fitted CSR state. ``vocab`` is the uint64 token hashes
+    of a HashVocabulary (ids in order) or the token strings of a
+    Vocabulary; ``indptr`` [V+1], ``doc_ids``/``weights`` [>= nnz] (any
+    padded tail is rebuilt here)."""
+    bm = BM25(k1=k1, b=b, delta=delta, device=device)
+    vocab_arr = np.asarray(vocab)
+    if vocab_arr.dtype == np.uint64:
+        voc = HashVocabulary.from_hashes(vocab_arr.tolist())
+    else:
+        voc = Vocabulary()
+        for tok in vocab_arr.tolist():
+            voc.add(str(tok))
+    indptr = np.asarray(indptr, dtype=np.int64)
+    V = len(indptr) - 1
+    nnz = int(indptr[-1])
+    lengths = np.diff(indptr)
+    max_post = max(int(lengths.max()) if V else 1, 1)
+    d = np.concatenate([np.asarray(doc_ids[:nnz], np.int32),
+                        np.full(max_post, n_docs, np.int32)])
+    w = np.concatenate([np.asarray(weights[:nnz], np.float32),
+                        np.zeros(max_post, np.float32)])
+    dev = bm.device
+    postings = BM25Postings(
+        indptr=torch.from_numpy(indptr).to(dev),
+        doc_ids=torch.from_numpy(d).to(dev),
+        weights=torch.from_numpy(w).to(dev),
+        n_docs=int(n_docs), max_postings=max_post, vocab_size=V,
+        starts_host=indptr[:-1].copy(), lengths_host=lengths.astype(np.int64))
+    bm.set_state(voc, postings, int(n_docs))
+    return bm
+
+
+def super_postings(sup_max: np.ndarray, sup_pos: np.ndarray, ids_rows: np.ndarray,
+                   ws_rows: np.ndarray, n_docs: int, n_super: int, super_tiles: int,
+                   starts_host: np.ndarray, df_host: np.ndarray,
+                   win_max_host: np.ndarray, device: DeviceLike = None) -> SuperPostings:
+    """SuperPostings from the JAX build's arrays."""
+    dev = resolve_device(device)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+    return SuperPostings(
+        sup_max=t(sup_max, np.float32), sup_pos=t(sup_pos, np.int32),
+        ids_rows=t(ids_rows, np.int32), ws_rows=t(ws_rows, np.float32),
+        n_docs=int(n_docs), n_super=int(n_super), super_tiles=int(super_tiles),
+        starts_host=np.asarray(starts_host, np.int64),
+        df_host=np.asarray(df_host, np.int64),
+        win_max_host=np.asarray(win_max_host, np.int64))
+
+
+def attach_super_postings(bm: BM25, sp: SuperPostings) -> None:
+    """Serve ``sp`` as the supertile structures of ``bm``'s current state."""
+    bm._super_cache = (bm._state, sp)
+
+
+def indexer(contents: Sequence[str], encoder: HashingEncoder, dense: DenseIndex,
+            bm: BM25, config: Optional[EngineConfig] = None,
+            perm: Optional[np.ndarray] = None, db_path: str = ":memory:") -> Indexer:
+    """Indexer over carried state. ``contents`` are the docs in index
+    order, or in source order with ``perm`` the clustered permutation
+    (index row i holds source doc perm[i])."""
+    docs = list(contents) if perm is None else [contents[i] for i in perm]
+    idx = Indexer(db_path=db_path, encoder=encoder, config=config,
+                  device=dense.device)
+    idx.dense, idx.bm25 = dense, bm
+    idx.doc_ids = idx.store.replace_documents(docs)
+    idx.contents = docs
+    return idx

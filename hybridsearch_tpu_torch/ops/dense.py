@@ -1,0 +1,222 @@
+"""Dense retrieval ops: normalization, tile statistics and exact top-k.
+
+Counterpart of ``hybridsearch_tpu/ops/dense.py``. With L2-normalized
+embeddings, inner product is cosine and a flat index is a matrix product;
+the sweeps here stream the doc matrix once and keep only per-128-doc-tile
+statistics, so the [B, N] score matrix is never materialized:
+
+  - ``dense_tile_stats``: exact per-tile maxima plus alive min/max in one
+    sweep (step 1 of the supertile prefix, ops/supertile.py);
+  - ``tiled_dense_topk``: exact top-k by tile-max selection (pass 1 is the
+    same sweep);
+  - ``tiled_matrix_topk``: exact top-k over a precomputed score matrix;
+  - ``gather_tile_scores``: exact scores of every doc in chosen tiles.
+
+The sweep is kernel K1 (``ops/cuda_topk.py``) on the card, at the shapes the
+JAX package sent to its Pallas kernel; elsewhere it is K1's plain version.
+``int8_swept_topk`` is still to port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_plain
+
+NEG_INF = float("-inf")
+# The JAX package's kernel route needs n_tiles >= 2 * HST_PALLAS_TPB (32);
+# the same floor keeps small corpora on the plain sweep here.
+KERNEL_MIN_TILES = 64
+_GATHER_BUDGET = 1 << 30  # bytes of gathered doc rows per rescoring step
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """The kernel route: tensors on a CUDA card."""
+    return t.is_cuda
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
+    """L2-normalize along ``dim`` (float32 norm), keeping x's dtype."""
+    norm = x.float().square().sum(dim=dim, keepdim=True).sqrt()
+    return (x / norm.clamp_min(eps)).to(x.dtype)
+
+
+def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last dim with ties to the lower position, the order
+    ``jax.lax.top_k`` gives (``torch.topk`` leaves tie order open). Used on
+    rows of at most a few thousand columns."""
+    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
+    return v[..., :k], i[..., :k]
+
+
+def _pad_rows(docs: torch.Tensor, bias: Optional[torch.Tensor], tile: int):
+    N = docs.shape[0]
+    n_tiles = -(-N // tile)
+    Np = n_tiles * tile
+    d = docs
+    if Np != N:
+        d = torch.cat([docs, docs.new_zeros((Np - N, docs.shape[1]))])
+    bias_p = None
+    if bias is not None:
+        bias_p = bias.float()
+        if Np != N:
+            bias_p = torch.cat([bias_p, bias_p.new_full((Np - N,), NEG_INF)])
+    return d, bias_p, n_tiles, Np
+
+
+def _sweep(q_mm, d, bias_p, n_valid, n_tiles, tile, with_min):
+    """Pass 1: [n_tiles, B] tile maxima (and alive minima). K1 on the card
+    when the JAX kernel route's shape conditions hold."""
+    Dm = d.shape[1]
+    if (_on_card(d) and tile == 128 and Dm % 128 == 0
+            and n_tiles >= KERNEL_MIN_TILES):
+        return tile_stats(q_mm, d, bias_p, n_valid=n_valid, with_min=with_min)
+    return tile_stats_plain(q_mm, d, bias_p, n_valid=n_valid,
+                            with_min=with_min, tile=tile)
+
+
+def dense_tile_stats(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    tile: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """([B, n_tiles] exact per-tile score maxima, [B] alive min, [B] alive
+    max) in one sweep. ``bias`` is the 0/-inf alive mask; maxima see
+    s + bias, minima the raw scores of alive rows."""
+    q = queries.float()
+    N = docs.shape[0]
+    d, bias_p, n_tiles, _ = _pad_rows(docs, bias, tile)
+    q_mm = q.to(torch.bfloat16) if d.dtype == torch.bfloat16 else q
+    tmax, tmin = _sweep(q_mm, d, bias_p, N, n_tiles, tile, with_min=True)
+    smax = tmax.amax(dim=0)
+    smin = tmin.amin(dim=0)
+    return tmax.T.contiguous(), smin, smax
+
+
+def tiled_matrix_topk(scores: torch.Tensor, k: int,
+                      tile: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a [B, N] score matrix by tile-max selection: if a
+    top-k value lived outside the k best tiles, k tiles would each hold a
+    larger value. Every sort is at most a few thousand wide. Columns past
+    N count as -inf; empty slots return index -1."""
+    B, N = scores.shape
+    n_tiles = -(-N // tile)
+    Np = n_tiles * tile
+    s = scores.float()
+    if Np != N:
+        s = torch.cat([s, s.new_full((B, Np - N), NEG_INF)], dim=1)
+    s_tiles = s.reshape(B, n_tiles, tile)
+    k_tiles = min(k, n_tiles)
+    _, top_tiles = stable_topk(s_tiles.amax(dim=2), k_tiles)
+    sel = torch.gather(s_tiles, 1, top_tiles[:, :, None].expand(B, k_tiles, tile))
+    gidx = (top_tiles[:, :, None] * tile
+            + torch.arange(tile, device=s.device)).reshape(B, k_tiles * tile)
+    vals, pos = stable_topk(sel.reshape(B, k_tiles * tile), min(k, N))
+    idxs = torch.gather(gidx, 1, pos)
+    idxs = torch.where(torch.isfinite(vals), idxs, -1)
+    return vals, idxs
+
+
+def gather_tile_scores(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    top_tiles: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    tile: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact scores of every doc in the given tiles: ([B, KT*tile] scores,
+    [B, KT*tile] global doc ids). bf16 docs meet bf16-rounded queries with
+    float32 accumulation. Rows past len(docs) and bias-dead docs score -inf."""
+    q = queries.float()
+    B, Dm = q.shape
+    N = docs.shape[0]
+    d, _, n_tiles, _ = _pad_rows(docs, None, tile)
+    KT = top_tiles.shape[1]
+    d_tiles = d.reshape(n_tiles, tile, Dm)
+    q3 = q.to(torch.bfloat16).float() if docs.dtype == torch.bfloat16 else q
+    per_tile = max(1, B * tile * Dm * 4)
+    chunk = max(1, min(KT, _GATHER_BUDGET // per_tile))
+    tt_safe = top_tiles.clamp(max=n_tiles - 1).long()
+    parts = []
+    for c0 in range(0, KT, chunk):
+        sel = d_tiles[tt_safe[:, c0:c0 + chunk]].float()  # [B, c, tile, D]
+        parts.append(torch.einsum("bktd,bd->bkt", sel, q3).reshape(B, -1))
+    s = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+    gidx = (tt_safe[:, :, None] * tile
+            + torch.arange(tile, device=q.device)).reshape(B, KT * tile)
+    if bias is not None:
+        s = s + bias.float()[gidx.clamp(max=N - 1)]
+    valid = (top_tiles.repeat_interleave(tile, dim=1) < n_tiles) & (gidx < N)
+    s = torch.where(valid, s, NEG_INF)
+    return s, gidx
+
+
+def tiled_dense_topk(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    tile: int = 128,
+    bias: Optional[torch.Tensor] = None,
+    with_stats: bool = False,
+    probe_tiles: Optional[int] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """Exact top-k via tile-max three-pass selection:
+      pass 1: one sweep -> per-tile maxima (K1 on the card);
+      pass 2: the k best tiles per query by their maxima;
+      pass 3: rescore those tiles' docs exactly and take the top-k.
+    Exact by the tile-max argument (see tiled_matrix_topk).
+
+    with_stats=True also returns (smin [B], smax [B]), the alive min/max of
+    the raw scores. probe_tiles < k bounds pass 3 to that many tiles and
+    appends a per-query ``covered`` flag: the result is exact iff covered
+    (the k-th value >= the best unselected tile's max)."""
+    q = queries.float()
+    B = q.shape[0]
+    N = docs.shape[0]
+    d, bias_p, n_tiles, Np = _pad_rows(docs, bias, tile)
+    q_mm = q.to(torch.bfloat16) if d.dtype == torch.bfloat16 else q
+    outs1 = _sweep(q_mm, d, bias_p, N, n_tiles, tile, with_min=with_stats)
+    tiles = outs1[0].T  # [B, n_tiles]
+
+    if probe_tiles is not None and probe_tiles < min(k, n_tiles):
+        k_gather = max(1, probe_tiles, -(-min(k, N) // tile))
+        k_tiles = min(k_gather + 1, n_tiles)
+    else:
+        k_tiles = min(k, n_tiles)
+        k_gather = k_tiles
+    tmvals, top_tiles = stable_topk(tiles, k_tiles)
+    next_tile_max = None
+    if k_gather < k_tiles:
+        next_tile_max = tmvals[:, k_gather]
+        top_tiles = top_tiles[:, :k_gather]
+
+    s3, gidx3 = gather_tile_scores(q, d, top_tiles, bias_p, tile=tile)
+    s3 = torch.where(gidx3 < N, s3, NEG_INF)
+    k_eff = min(k, N)
+    vals, sel3 = stable_topk(s3, k_eff)
+    idxs = torch.gather(gidx3, 1, sel3)
+    idxs = torch.where(torch.isfinite(vals), idxs, -1)
+    outs: Tuple[torch.Tensor, ...] = (vals, idxs)
+    if with_stats:
+        outs = outs + (outs1[1].amin(dim=0), tiles.amax(dim=1))
+    if next_tile_max is not None:
+        covered = ((vals[:, k_eff - 1] >= next_tile_max)
+                   | ~torch.isfinite(next_tile_max))
+        outs = outs + (covered,)
+    elif probe_tiles is not None:
+        outs = outs + (torch.ones(B, dtype=torch.bool, device=q.device),)
+    return outs
+
+
+def scatter_topk_to_dense(values: torch.Tensor, indices: torch.Tensor,
+                          n: int) -> torch.Tensor:
+    """[B, n] scores with each row's top-k values scattered in, zeros
+    elsewhere (the reference's FAISS-branch semantics)."""
+    B = values.shape[0]
+    out = torch.zeros((B, n), dtype=torch.float32, device=values.device)
+    idx = indices.clamp(0, n - 1).long()
+    vals = torch.where(indices >= 0, values.float(), 0.0)
+    return out.scatter_add_(1, idx, vals)

@@ -1,0 +1,95 @@
+"""Tracing and per-stage query-path metrics.
+
+  - StageTimer: lock-protected rolling latency/QPS counters per named stage
+    (encode, hybrid_sparse, hybrid_fused, ...), surfaced through stats;
+  - Counters: named monotonic counters (e.g. uncertified supertile batches);
+  - trace_span: context manager recording into a StageTimer and labelling
+    the stage on a torch.profiler timeline (record_function) when a
+    profiling session is active.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import deque
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+
+
+class StageTimer:
+    """Rolling per-stage latency stats (window of the last `window` samples)."""
+
+    def __init__(self, window: int = 1024) -> None:
+        self.window = window
+        self._samples: Dict[str, deque] = {}
+        self._counts: Dict[str, int] = {}
+        self._lock = threading.Lock()
+        self._started = time.time()
+
+    def record(self, stage: str, seconds: float) -> None:
+        with self._lock:
+            dq = self._samples.setdefault(stage, deque(maxlen=self.window))
+            dq.append(seconds)
+            self._counts[stage] = self._counts.get(stage, 0) + 1
+
+    def stats(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            out: Dict[str, Dict[str, float]] = {}
+            elapsed = max(time.time() - self._started, 1e-9)
+            for stage, dq in self._samples.items():
+                arr = np.asarray(dq, dtype=np.float64) * 1e3
+                out[stage] = {
+                    "count": self._counts[stage],
+                    "p50_ms": float(np.percentile(arr, 50)),
+                    "p95_ms": float(np.percentile(arr, 95)),
+                    "p99_ms": float(np.percentile(arr, 99)),
+                    "mean_ms": float(arr.mean()),
+                    "rate_per_s": self._counts[stage] / elapsed,
+                }
+            return out
+
+
+GLOBAL_TIMER = StageTimer()
+
+
+class Counters:
+    """Named monotonic counters surfaced through /metrics (e.g. the
+    exact->approximate semantic-arm downgrade counter)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
+
+    def inc(self, name: str, by: int = 1) -> int:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + by
+            return self._counts[name]
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def all(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+
+GLOBAL_COUNTERS = Counters()
+
+
+@contextlib.contextmanager
+def trace_span(stage: str, timer: Optional[StageTimer] = None) -> Iterator[None]:
+    """Time a stage (host clock; device work queued inside the span is not
+    waited for) and label it on a torch.profiler trace."""
+    import torch
+
+    timer = timer or GLOBAL_TIMER
+    t0 = time.perf_counter()
+    try:
+        with torch.profiler.record_function(stage):
+            yield
+    finally:
+        timer.record(stage, time.perf_counter() - t0)

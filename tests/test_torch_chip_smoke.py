@@ -1,0 +1,47 @@
+"""chip_smoke.py: its CPU rehearsal runs every phase end to end, and the
+card run refuses to report without a card or without the package."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SCRIPT = os.path.join(REPO, "chip_smoke.py")
+
+
+def _run(args, cwd, timeout):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, SCRIPT if cwd == REPO else "chip_smoke.py",
+                           *args], cwd=cwd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def test_cpu_rehearsal_runs_every_phase():
+    out = _run(["--cpu-rehearsal"], REPO, timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    for phase in ("device", "kernels", "index_documents", "search_batch",
+                  "reference", "kernel timing"):
+        assert any(f"] {phase}" in ln for ln in lines), phase
+    assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
+    assert '"platform": "gpu"' not in out.stdout
+
+
+def test_card_run_without_a_card_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    out = _run([], REPO, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_card_run_alone_fails(tmp_path):
+    shutil.copy(SCRIPT, tmp_path / "chip_smoke.py")
+    out = _run([], str(tmp_path), timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,64 @@
+"""The port stands alone: importing it (every submodule) pulls in neither
+JAX nor the JAX package, and its sources import neither. Checked in a
+subprocess, since other test files import JAX into this one."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import hybridsearch_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, "hybridsearch_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hybridsearch_tpu"))
+print(len([m for m in sys.modules if m.startswith("hybridsearch_tpu_torch")]))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_importing_the_port_loads_no_jax():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert int(out.stdout.strip()) >= 20  # every submodule was imported
+
+
+def test_port_sources_import_no_jax():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|hybridsearch_tpu)\b", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "hybridsearch_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            assert not pat.search(f.read()), path
+
+
+def test_entry_points_default_to_the_card():
+    """device=None means the card: without one it raises, never falls back."""
+    from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.utils.device import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            resolve_device()
+        with pytest.raises(RuntimeError):
+            Indexer()
+    import hybridsearch_tpu_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
