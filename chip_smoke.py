@@ -16,10 +16,18 @@ scores (K2, super_scores) and resident placement (K3, place_windows). The
 run fails unless each kernel launched during the timed batches, the batches
 reached the ladder's last rung, and every certified query matches a plain
 exact fused reference computed on the card. Each kernel is then timed on
-the main path's own inputs (K2 at every probe count the ladder gave it),
-and a second corpus with larger topics is served and checked the same way.
-Neither corpus's topic structure comes from a published source, so their
-qps describe these corpora only.
+the main path's own inputs (K2 at every probe count the ladder gave it).
+The P1 check re-runs the clustered build's k-means on the same embeddings
+and requires the same centroids, bit for bit, and the same permutation.
+
+The default configuration's path comes next: the same small-topic corpus
+indexed under ``layout="source"`` and served through the impact ladder,
+whose rungs run the dense sweep (K1), the run slices (K6, slice_runs) and
+the candidate rescore (K7, rescore); K6 and K7 must launch in the timed
+batches, and are then timed at every rung the batches reached. A third
+corpus with larger topics is served on the clustered path last. No
+corpus's topic structure comes from a published source, so their qps
+describe these corpora only.
 
 Every phase prints one line with its elapsed seconds before the next
 starts. The last two lines are a JSON object of per-kernel numbers and the
@@ -75,6 +83,25 @@ KERNEL_META = {
                      "hybridsearch_tpu/ops/pallas_supertile.py:33"),
     "place_windows": ("hybridsearch_tpu_torch/csrc/place_windows.cu",
                       "hybridsearch_tpu/ops/pallas_supertile.py:394"),
+    "slice_runs": ("hybridsearch_tpu_torch/csrc/slice_runs.cu",
+                   "hybridsearch_tpu/ops/pallas_impact.py:39"),
+    "rescore": ("hybridsearch_tpu_torch/csrc/impact_rescore.cu",
+                "hybridsearch_tpu/ops/pallas_impact.py:104"),
+}
+# Each served path: its ladder (a function of retrieval/searcher.py) and the
+# kernels its rungs launch.
+PATHS = {
+    "clustered": ("supertile_ladder", ("tile_stats", "super_scores",
+                                       "place_windows")),
+    "source": ("impact_ladder", ("tile_stats", "slice_runs", "rescore")),
+}
+# (T, p, C) of the impact kernels' checks: the three rungs of the impact
+# ladder at T = 8 term slots (C = k_dense + T * c_per_term), the third rung
+# at T = 32, and the margin call (C = 128)
+IMPACT_SHAPES = {
+    "card": [(8, 256, 1024), (8, 1024, 2048), (8, 4096, 4096),
+             (32, 4096, 10240), (8, 1024, 128)],
+    "cpu": [(8, 64, 256), (32, 64, 512)],
 }
 
 
@@ -179,6 +206,46 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     sync(dev)
 
 
+def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None:
+    """K6 and K7 against their plain versions at the impact ladder's shapes,
+    bit for bit: postings whose windows name a doc at most once (as a
+    term's run does), slices of random starts and lengths, candidates drawn
+    from the slices with repeats, sentinels and -1."""
+    from hybridsearch_tpu_torch.ops.cuda_impact import (
+        rescore, rescore_plain, slice_runs, slice_runs_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    B, nd = sz["batch"], sz["n_docs"]
+    nnz = 8 * nd
+    # a prime that does not divide nd: any window of < nd entries is unique
+    run = (torch.arange(nnz, device=dev) * 7919 % nd).int()
+    for T, p, C in shapes:
+        ids = torch.cat([run, torch.full((p,), nd, dtype=torch.int32, device=dev)])
+        ws = torch.rand(nnz + p, generator=gen, device=dev) + 0.01
+        ws[nnz:] = 0.0
+        starts = torch.randint(0, nnz - p, (B, T), generator=gen, device=dev).int()
+        lengths = torch.randint(0, 2 * p, (B, T), generator=gen, device=dev).int()
+        got = slice_runs(ids, ws, starts, lengths, p, nd)
+        want = slice_runs_plain(ids, ws, starts, lengths, p, nd)
+        e6 = max_err(got, want)
+        same6 = all(torch.equal(g, w) for g, w in zip(got, want))
+        ids_f, ws_f = got[0].reshape(B, T * p), got[1].reshape(B, T * p)
+        pick = torch.randint(0, T * p, (C,), generator=gen, device=dev)
+        cand = ids_f[:, pick].clone()
+        cand[:, 1::13] = cand[:, :1]
+        cand[:, -3:] = torch.tensor([nd, nd + 2, -1], device=dev)
+        g7 = rescore(cand, ids_f, ws_f, p, nd)
+        w7 = rescore_plain(cand, ids_f, ws_f, p, nd)
+        e7 = max_err(g7, w7)
+        print(f"    T={T} p={p} C={C}: slice_runs err {e6:.3g}, rescore err "
+              f"{e7:.3g} (tol 0, bitwise)", flush=True)
+        if not (same6 and torch.equal(g7, w7)):
+            raise AssertionError(f"an impact kernel disagrees with its plain "
+                                 f"version at T={T} p={p} C={C}")
+    sync(dev)
+
+
 # -- phase 4: the corpus -------------------------------------------------------
 
 def make_corpus(sz: dict, corpus: str, seed: int):
@@ -266,19 +333,25 @@ def _row_mismatch(res, ref_vals, ref_ids, fused_row):
 
 
 def check_against_reference(results, exact_rows, ref_vals, ref_ids, fused):
-    """(certified rows checked, uncertified rows that match anyway). A
+    """(certified rows checked, uncertified rows that match anyway,
+    jaccard@k of each uncertified row's ids against the reference's). A
     certified row that differs from the reference fails the run."""
     ref_vals, ref_ids = ref_vals.cpu().numpy(), ref_ids.cpu().numpy()
     checked = best_effort_ok = 0
+    jaccards = []
     for b in range(len(results)):
         why = _row_mismatch(results[b], ref_vals[b], ref_ids[b], fused[b])
         if exact_rows[b]:
             if why is not None:
                 raise AssertionError(f"certified row {b}: {why}")
             checked += 1
-        elif why is None:
-            best_effort_ok += 1
-    return checked, best_effort_ok
+        else:
+            got = {i for _v, _c, i in results[b]}
+            want = set(ref_ids[b].tolist())
+            jaccards.append(len(got & want) / max(1, len(got | want)))
+            if why is None:
+                best_effort_ok += 1
+    return checked, best_effort_ok, jaccards
 
 
 # -- phase 5: the kernels on the main path's own inputs -------------------------
@@ -286,12 +359,13 @@ def check_against_reference(results, exact_rows, ref_vals, ref_ids, fused):
 class Capture:
     """Wraps a module-level kernel wrapper to keep the arguments of its
     first call for each value of ``key(args)`` (the main path's own
-    inputs), then calls it unchanged."""
+    inputs) and count the calls of each key, then calls it unchanged."""
 
     def __init__(self, module, name: str, key=lambda args: None):
         self.module, self.name, self.key = module, name, key
         self.real = getattr(module, name)
         self.calls: dict = {}
+        self.counts: dict = {}
         setattr(module, name, self)
 
     @property
@@ -299,27 +373,36 @@ class Capture:
         return next(iter(self.calls.values()), None)
 
     def __call__(self, *args, **kwargs):
-        self.calls.setdefault(self.key(args), (args, kwargs))
+        key = self.key(args)
+        self.calls.setdefault(key, (args, kwargs))
+        self.counts[key] = self.counts.get(key, 0) + 1
         return self.real(*args, **kwargs)
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.real)
 
 
-KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6}
+KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6,
+              "slice_runs": 0.0, "rescore": 0.0}
+
+
+def kernel_fns(name: str):
+    """(kernel wrapper, plain version) of a kernel of the port."""
+    from hybridsearch_tpu_torch.ops import cuda_impact, cuda_supertile, cuda_topk
+
+    return {"tile_stats": (cuda_topk.tile_stats, cuda_topk.tile_stats_plain),
+            "super_scores": (cuda_supertile.super_scores,
+                             cuda_supertile.super_scores_plain),
+            "place_windows": (cuda_supertile.place_windows,
+                              cuda_supertile.place_windows_plain),
+            "slice_runs": (cuda_impact.slice_runs, cuda_impact.slice_runs_plain),
+            "rescore": (cuda_impact.rescore, cuda_impact.rescore_plain)}[name]
 
 
 def kernel_row(name: str, args, kwargs, dev: torch.device, plain_reps: int = 3) -> dict:
     """One kernel call of the main path against its plain version: error,
     kernel, plain and library times, and the bound, all on these inputs."""
-    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
-
-    plain = {"tile_stats": cuda_topk.tile_stats_plain,
-             "super_scores": cuda_supertile.super_scores_plain,
-             "place_windows": cuda_supertile.place_windows_plain}[name]
-    kernel = {"tile_stats": cuda_topk.tile_stats,
-              "super_scores": cuda_supertile.super_scores,
-              "place_windows": cuda_supertile.place_windows}[name]
+    kernel, plain = kernel_fns(name)
     fk = lambda: kernel(*args, **kwargs)  # noqa: E731
     fp = lambda: plain(*args, **kwargs)  # noqa: E731
     before = kernel.launches
@@ -331,12 +414,44 @@ def kernel_row(name: str, args, kwargs, dev: torch.device, plain_reps: int = 3) 
         raise AssertionError(f"{name}: error {err} > {KERNEL_TOL[name]} on "
                              "main-path inputs")
     ms = time_ms(fk, dev, reps=10, warmup=2)
+    dev_ms = device_ms(fk) if dev.type == "cuda" else None
     kernel.launches = before  # these launches are not the path's
     plain_ms = time_ms(fp, dev, reps=plain_reps)
     bound_ms, bound_by, library = _bound_and_library(name, args, kwargs)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(library, dev, reps=5) if library else None}
+
+
+def device_ms(fn, reps: int = 10):
+    """Mean device time of one call: CUDA events around replays of a CUDA
+    graph holding ``reps`` calls, so the wrapper's host work (done once, at
+    capture) is left out. ``ms`` (events around back-to-back calls) also
+    counts the device's idle gaps whenever the host work takes longer than
+    the kernel. None, with the reason printed, if the calls cannot be
+    captured."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        print(f"    device time not measured: graph capture failed: {exc}",
+              flush=True)
+        return None
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms
 
 
 def kernel_numbers(captures: dict, launches: dict, dev: torch.device) -> list:
@@ -359,11 +474,62 @@ def super_scores_by_probe(cap: Capture, dev: torch.device) -> list:
         row = {"S": S, "B": int(args[0].shape[0])}
         row.update(kernel_row("super_scores", args, kwargs, dev, plain_reps=1))
         rows.append(row)
-        print(f"    super_scores S={S} B={row['B']}: {row['ms']:.3f} ms, bound "
+        print(f"    super_scores S={S} B={row['B']}: {row['ms']:.3f} ms (device "
+              f"{row['device_ms']:.3f} ms), bound "
               f"{row['bound_ms']:.3f} ms ({row['bound_by']}), plain "
               f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms, "
               f"err {row['max_abs_err']:.3g}", flush=True)
     return rows
+
+
+def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list:
+    """K6 and K7 at every shape the batches gave them (K6 by slice depth p,
+    K7 by (C, p): one rescore of the candidate union a rung, one of the
+    margin cushion), with the calls of that shape in the timed batches."""
+    rows = []
+    for name in ("slice_runs", "rescore"):
+        cap = captures[name]
+        for key, (args, kwargs) in sorted(cap.calls.items()):
+            row = {"name": name, "key": key, "B": int(args[0].shape[0]) if
+                   name == "rescore" else int(args[2].shape[0]),
+                   "launches": cap.counts.get(key, 0)}
+            row.update(kernel_row(name, args, kwargs, dev, plain_reps=1))
+            rows.append(row)
+            if not show:
+                continue
+            print(f"    {name} {'p' if name == 'slice_runs' else '(C, p)'}={key} "
+                  f"B={row['B']}: {row['ms']:.4f} ms (device {row['device_ms']:.4f}"
+                  f" ms), bound {row['bound_ms']:.4f}"
+                  f" ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
+                  f"library {row['library_ms']} ms, {row['launches']} launches "
+                  f"in the timed batches, err {row['max_abs_err']:.3g}", flush=True)
+    return rows
+
+
+def sortmerge_rescore_torch(cand, ids_flat, ws_flat):
+    """The JAX package's sort-merge rescore (ops/impact.py _sortmerge_core)
+    composed of PyTorch calls: one key sort with postings before candidates
+    of equal id, a segmented prefix sum, a scatter back to candidate order.
+    K7's library yardstick only; the port never calls it."""
+    B, C = cand.shape
+    W = ids_flat.shape[1]
+    dev = cand.device
+    key = torch.cat([ids_flat.long() * 2, cand.long() * 2 + 1], dim=1)
+    w_cat = torch.cat([ws_flat, ws_flat.new_zeros((B, C))], dim=1)
+    pos = torch.cat([torch.full((B, W), C, device=dev),
+                     torch.arange(C, device=dev).expand(B, C)], dim=1)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    w_s = torch.gather(w_cat, 1, order)
+    pos_s = torch.gather(pos, 1, order)
+    id_s = key_s >> 1
+    new_run = torch.ones_like(id_s, dtype=torch.bool)
+    new_run[:, 1:] = id_s[:, 1:] != id_s[:, :-1]
+    cs = torch.cumsum(w_s, dim=1)
+    idx = torch.arange(W + C, device=dev).expand(B, W + C)
+    start = torch.cummax(torch.where(new_run, idx, 0), dim=1).values
+    base = torch.where(start > 0, torch.gather(cs, 1, (start - 1).clamp_min(0)), 0.0)
+    out = torch.zeros((B, C + 1), device=dev).scatter_(1, pos_s, cs - base)
+    return out[:, :C]
 
 
 def _bound_and_library(name, args, kwargs):
@@ -398,7 +564,7 @@ def _bound_and_library(name, args, kwargs):
         def library():
             # the whole corpus by cuBLAS float32, then the probed columns
             torch.gather(torch.matmul(q, docs.T), 1, rows)
-    else:
+    elif name == "place_windows":
         l, w = args[0], args[1]
         st = args[2] if len(args) > 2 else kwargs.get("super_tiles", 128)
         R = st * 128
@@ -412,6 +578,32 @@ def _bound_and_library(name, args, kwargs):
 
         def library():
             buf.zero_().index_add_(0, flat, wf)
+    elif name == "slice_runs":
+        doc_ids, weights, starts, lengths, p, n_docs = args
+        rows = starts.numel()
+        # the entries these slices read (the rest of each row is the mask's
+        # constants), the starts and lengths, and both outputs
+        nbytes = (int(lengths.long().clamp(0, p).sum()) * 8 + rows * 8
+                  + rows * p * 8)
+        flops = 0.0
+        st_l = starts.reshape(-1).long()[:, None]
+        ln_l = lengths.reshape(-1).long()[:, None]
+        iota = torch.arange(p, device=doc_ids.device)
+
+        def library():
+            pos = st_l + iota
+            valid = iota < ln_l
+            torch.where(valid, doc_ids[pos], n_docs), torch.where(valid, weights[pos], 0.0)
+    else:  # rescore
+        cand, ids_flat, ws_flat, p, n_docs = args
+        B, C = cand.shape
+        W = ids_flat.shape[1]
+        nbytes = B * C * cand.element_size() + B * W * 8 + B * C * 4
+        # one add a posting entry that hits a candidate: at most B * W
+        flops = float(B * W)
+
+        def library():
+            sortmerge_rescore_torch(cand, ids_flat, ws_flat)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), library
@@ -455,6 +647,128 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+# -- the P1 check: the clustered build repeats bit for bit ----------------------
+
+class BuildRecorder:
+    """Keeps the clustered build's k-means input and centroids and its
+    permutation (index/builder.py calls both through module globals)."""
+
+    def __init__(self):
+        from hybridsearch_tpu_torch.index import builder
+
+        self.builder = builder
+        self.real_fit, self.real_perm = builder.kmeans_fit, builder._cluster_permutation
+        self.fit = self.perm = None
+        builder.kmeans_fit, builder._cluster_permutation = self._fit, self._perm
+
+    def _fit(self, vectors, k, seed=0):
+        cent = self.real_fit(vectors, k, seed=seed)
+        self.fit = (vectors, k, seed, cent)
+        return cent
+
+    def _perm(self, vectors, *a, **kw):
+        self.perm = self.real_perm(vectors, *a, **kw)
+        return self.perm
+
+    def restore(self) -> None:
+        self.builder.kmeans_fit = self.real_fit
+        self.builder._cluster_permutation = self.real_perm
+
+
+def check_p1(rec: BuildRecorder) -> str:
+    """Re-run k-means on the build's own embeddings: the centroids must be
+    equal bit for bit and the permutation equal."""
+    from hybridsearch_tpu_torch.index.ivf import kmeans_assign, kmeans_fit
+
+    if rec.fit is None or rec.perm is None:
+        raise AssertionError("the clustered build ran no k-means")
+    vectors, k, seed, cent = rec.fit
+    t = time.perf_counter()
+    again = kmeans_fit(vectors, k, seed=seed)
+    perm = np.argsort(kmeans_assign(vectors, again).cpu().numpy(), kind="stable")
+    secs = time.perf_counter() - t
+    if not torch.equal(cent, again):
+        diff = int((cent != again).any(dim=1).sum())
+        raise AssertionError(f"k-means re-run differs in {diff} of {k} centroids")
+    if not np.array_equal(perm, rec.perm):
+        raise AssertionError("k-means re-run gives another permutation")
+    return (f"{k} centroids equal bit for bit, permutation of {len(perm)} docs "
+            f"equal ({secs:.1f} s)")
+
+
+def p1_stages(sz: dict, dev: torch.device, seed: int, clock: Clock) -> dict:
+    """Where the clustered build stops repeating: build the small-topic index
+    twice from one seed and compare each stage (embeddings, k-means
+    centroids, permutation, dense snapshot, BM25 CSR, super postings), serve
+    one batch twice on the first build and once on the second, and re-run
+    k-means twice on the same embeddings with the centroid update summed by
+    float atomics (``index_add_``, the update before the fix)."""
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.index import ivf
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    docs, make_queries = make_corpus(sz, "small-topic", seed)
+    queries = make_queries(sz["batch"])
+    clock.phase("corpus", f"small-topic: {len(docs)} docs")
+    builds = []
+    for run in ("A", "B"):
+        rec = BuildRecorder()
+        try:
+            cfg = EngineConfig()
+            cfg.index.layout = "clustered"
+            cfg.index.dim = sz["dim"]
+            searcher = Searcher(config=cfg, use_query_memory=False, device=dev)
+            searcher.indexer.index_documents(docs)
+        finally:
+            rec.restore()
+        bm = searcher.indexer.bm25
+        sp = bm.super_postings()
+        po = bm._state.postings
+        vectors, k, _seed, cent = rec.fit
+        stages = {"embeddings": vectors, "centroids": cent,
+                  "permutation": torch.from_numpy(np.asarray(rec.perm)),
+                  "dense snapshot": searcher.indexer.dense._snap.docs,
+                  "bm25 csr": torch.cat([po.doc_ids.float(), po.weights]),
+                  "super postings": torch.cat([sp.sup_max.reshape(-1),
+                                               sp.ids_rows.reshape(-1).float(),
+                                               sp.ws_rows.reshape(-1)])}
+        builds.append((searcher, stages))
+        clock.phase("build", f"run {run}")
+    out = {"stages": {name: bool(torch.equal(a, builds[1][1][name]))
+                      for name, a in builds[0][1].items()}}
+    out["first_differing_stage"] = next(
+        (name for name, same in out["stages"].items() if not same), None)
+
+    def serve(searcher):
+        return [(v, i) for row in searcher.search_batch(queries, top_k=TOP_K,
+                                                        log=False)
+                for v, _c, i in row]
+
+    a1, a2, b1 = serve(builds[0][0]), serve(builds[0][0]), serve(builds[1][0])
+    out["same_batch_twice_on_one_build"] = a1 == a2
+    out["same_batch_on_both_builds"] = a1 == b1
+    clock.phase("serve", json.dumps(out))
+
+    vectors, k = builds[0][1]["embeddings"], int(builds[0][1]["centroids"].shape[0])
+    del builds
+    real = ivf._cluster_sums
+    ivf._cluster_sums = lambda vb, assign, counts: torch.zeros(
+        (counts.shape[0], vb.shape[1]), device=vb.device).index_add_(0, assign, vb)
+    try:
+        fits = [ivf.kmeans_fit(vectors, k, seed=seed) for _ in range(2)]
+    finally:
+        ivf._cluster_sums = real
+    perms = [np.argsort(ivf.kmeans_assign(vectors, c).cpu().numpy(), kind="stable")
+             for c in fits]
+    out["atomic_update"] = {
+        "centroids_equal": bool(torch.equal(*fits)),
+        "centroids_differing": int((fits[0] != fits[1]).any(dim=1).sum()),
+        "permutation_equal": bool(np.array_equal(*perms)),
+        "docs_placed_differently": int((perms[0] != perms[1]).sum())}
+    clock.phase("atomic k-means update", json.dumps(out["atomic_update"]))
+    return out
+
+
 # -- main ----------------------------------------------------------------------
 
 def main(argv=None) -> int:
@@ -462,6 +776,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run every phase on the CPU at tiny sizes")
+    ap.add_argument("--p1-stages", action="store_true",
+                    help="only compare two clustered builds stage by stage "
+                         "(where the build stops repeating) and exit")
     args = ap.parse_args(argv)
     rehearsal = args.cpu_rehearsal
     clock = Clock(BUDGET_S if not rehearsal else 1e9)
@@ -502,15 +819,29 @@ def main(argv=None) -> int:
     else:
         clock.phase("build", "skipped (cpu rehearsal: plain versions)")
 
+    if args.p1_stages:
+        print(json.dumps({"p1_stages": p1_stages(sz, dev, args.seed, clock)}),
+              flush=True)
+        return 0
+
     # -- 3. kernels
     check_kernels(sz, dev, args.seed)
-    clock.phase("kernels", "K1-K3 match their plain versions at the slice's shapes")
+    check_impact_kernels(sz, dev, args.seed,
+                         IMPACT_SHAPES["cpu" if rehearsal else "card"])
+    clock.phase("kernels", "K1-K3, K6, K7 match their plain versions at the "
+                "slice's shapes")
 
-    # -- 4. end to end: the main path on the small-topic corpus, then
-    # -- 5. its kernels on their own inputs, then the large-topic corpus
+    # -- 4. end to end: the clustered path on the small-topic corpus, then
+    # -- 5. its kernels on their own inputs and the P1 check; then the
+    # -- default (source) layout's path on the same corpus and its kernels;
+    # -- last the large-topic corpus on the clustered path
     detail = {"device": smi, "corpora": {}}
-    run = serve_corpus("small-topic", sz, dev, args.seed, clock, kind, smi,
-                       main_path=True)
+    rec = BuildRecorder()
+    try:
+        run = serve_corpus("small-topic", "clustered", sz, dev, args.seed, clock,
+                           kind, smi, main_path=True)
+    finally:
+        rec.restore()
     detail["corpora"]["small-topic"] = run["stats"]
     numbers = kernel_numbers(run["captures"], run["launches"], dev)
     if rehearsal:
@@ -521,8 +852,25 @@ def main(argv=None) -> int:
             run["captures"]["super_scores"], dev)
         clock.phase("kernel timing", "main-path inputs")
     del run
+    clock.phase("P1 check", "small-topic: " + check_p1(rec))
+    del rec
+
+    run = serve_corpus("small-topic", "source", sz, dev, args.seed, clock, kind,
+                       smi, main_path=True)
+    detail["corpora"]["small-topic/source"] = run["stats"]
+    caps = {name: run["captures"][name] for name in ("slice_runs", "rescore")}
+    numbers += kernel_numbers(caps, run["launches"], dev)
+    by_rung = impact_by_rung(caps, dev, show=not rehearsal)
+    if rehearsal:
+        clock.phase("impact kernel timing", f"{len(by_rung)} shapes checked on "
+                    "main-path inputs; times not reported (cpu rehearsal)")
+    else:
+        detail["impact_by_rung"] = by_rung
+        clock.phase("impact kernel timing", "small-topic/source main-path inputs")
+    del run, caps
+
     detail["corpora"]["large-topic"] = serve_corpus(
-        "large-topic", sz, dev, args.seed + 1, clock, kind, smi,
+        "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
         main_path=False)["stats"]
 
     if rehearsal:
@@ -542,110 +890,145 @@ def main(argv=None) -> int:
     return 0
 
 
-def serve_corpus(corpus: str, sz: dict, dev: torch.device, seed: int,
-                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
-    """Index one corpus through ``Indexer.index_documents``, serve one
-    warm-up and ``n_batches`` timed batches through ``search_batch``, and
-    hold every certified row against the plain exact reference. On the
-    main path the kernels' counts are set to 0 just before the timed
-    batches and read just after, and the warm-up batch's kernel calls are
-    captured. Returns {"stats", "launches", "captures"}."""
-    from hybridsearch_tpu_torch.config import EngineConfig
-    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+def _path_captures(layout: str) -> dict:
+    """Capture wrappers over the kernels of a path, keyed by the shape that
+    varies between its rungs."""
     from hybridsearch_tpu_torch.ops import dense as dense_mod
+    from hybridsearch_tpu_torch.ops import impact as impact_mod
     from hybridsearch_tpu_torch.ops import supertile as supertile_mod
+
+    if layout == "clustered":
+        return {"tile_stats": Capture(dense_mod, "tile_stats"),
+                "super_scores": Capture(supertile_mod, "super_scores",
+                                        key=lambda a: int(a[2].shape[1])),
+                "place_windows": Capture(supertile_mod, "place_windows")}
+    return {"tile_stats": Capture(dense_mod, "tile_stats"),
+            "slice_runs": Capture(impact_mod, "slice_runs", key=lambda a: int(a[4])),
+            "rescore": Capture(impact_mod, "rescore",
+                               key=lambda a: (int(a[0].shape[1]), int(a[3])))}
+
+
+def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
+                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
+    """Index one corpus under ``layout`` through ``Indexer.index_documents``,
+    serve one warm-up and ``n_batches`` timed batches through
+    ``search_batch``, and hold every certified row against the plain exact
+    reference. The path's kernels' counts are set to 0 just before the
+    timed batches and read just after; on a main path, the kernel calls of
+    the warm-up and timed batches are captured. Returns {"stats",
+    "launches", "captures"}."""
+    from hybridsearch_tpu_torch.config import EngineConfig
     from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
     on_card = dev.type == "cuda"
+    label = corpus if layout == "clustered" else f"{corpus}/{layout}"
+    ladder_name, kernel_names = PATHS[layout]
     docs, make_queries = make_corpus(sz, corpus, seed)
-    clock.phase("corpus", f"{corpus}: {len(docs)} docs, "
+    clock.phase("corpus", f"{label}: {len(docs)} docs, "
                 f"{sum(len(d) for d in docs)} chars")
     cfg = EngineConfig()
-    cfg.index.layout = "clustered"
+    cfg.index.layout = layout
     cfg.index.dim = sz["dim"]
     searcher = Searcher(config=cfg, use_query_memory=False, device=dev)
     built = searcher.indexer.index_documents(docs)
     del docs
     stages = ", ".join(f"{k} {v:.1f}" for k, v in built["timings_s"].items())
-    clock.phase("index_documents", f"{corpus}: {stages}")
+    clock.phase("index_documents", f"{label}: {stages}")
     t = time.perf_counter()
-    sp = searcher.indexer.bm25.super_postings()
-    sync(dev)
-    clock.phase("super_postings", f"{corpus}: {time.perf_counter() - t:.1f} s, "
-                f"{sp.n_super} supertiles, {sp.ids_rows.shape[0] * 128} CSR slots")
+    bm25 = searcher.indexer.bm25
+    if layout == "clustered":
+        sp = bm25.super_postings()
+        sync(dev)
+        clock.phase("super_postings", f"{label}: {time.perf_counter() - t:.1f} s, "
+                    f"{sp.n_super} supertiles, {sp.ids_rows.shape[0] * 128} CSR slots")
+    else:
+        imp = bm25.impact_postings()
+        sync(dev)
+        n_trunc = int((imp.df_host > imp.p_max).sum())
+        clock.phase("impact tier", f"{label}: {time.perf_counter() - t:.1f} s, "
+                    f"{len(imp.weights_host)} pruned postings (p_max "
+                    f"{imp.p_max}; {n_trunc} of {len(imp.df_host)} terms "
+                    "truncated)")
 
     ladders = []
-    real_ladder = searcher_mod.supertile_ladder
+    real_ladder = getattr(searcher_mod, ladder_name)
 
     def recording_ladder(*a, **kw):
         st, rungs = real_ladder(*a, **kw)
         ladders.append((st.exact.copy(), rungs))
         return st, rungs
 
-    searcher_mod.supertile_ladder = recording_ladder
-    captures = {}
-    if main_path:
-        captures = {"tile_stats": Capture(dense_mod, "tile_stats"),
-                    "super_scores": Capture(supertile_mod, "super_scores",
-                                            key=lambda a: int(a[2].shape[1])),
-                    "place_windows": Capture(supertile_mod, "place_windows")}
-    searcher.search_batch(make_queries(sz["batch"]), top_k=TOP_K, log=False)
-    for cap in captures.values():
-        cap.restore()
-    clock.phase("warm-up batch", f"{corpus}: {sz['batch']} queries")
+    setattr(searcher_mod, ladder_name, recording_ladder)
+    captures = _path_captures(layout) if main_path else {}
+    try:
+        searcher.search_batch(make_queries(sz["batch"]), top_k=TOP_K, log=False)
+        if layout == "clustered":
+            for cap in captures.values():
+                cap.restore()
+        clock.phase("warm-up batch", f"{label}: {sz['batch']} queries")
 
-    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
-    ladders.clear()
-    kernels = {"tile_stats": cuda_topk.tile_stats,
-               "super_scores": cuda_supertile.super_scores,
-               "place_windows": cuda_supertile.place_windows}
-    for fn in kernels.values():
-        fn.launches = 0
-    lat, results = [], []
-    for qs in batches:
-        t = time.perf_counter()
-        results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
-        lat.append(time.perf_counter() - t)
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    searcher_mod.supertile_ladder = real_ladder
+        batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+        ladders.clear()
+        kernels = {name: kernel_fns(name)[0] for name in kernel_names}
+        for fn in kernels.values():
+            fn.launches = 0
+        for cap in captures.values():
+            cap.counts.clear()
+        lat, results = [], []
+        for qs in batches:
+            t = time.perf_counter()
+            results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
+            lat.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+    finally:
+        setattr(searcher_mod, ladder_name, real_ladder)
+        for cap in captures.values():
+            cap.restore()
     if len(ladders) != len(batches):
-        raise AssertionError("search_batch did not take the supertile ladder")
+        raise AssertionError(f"search_batch did not take the {ladder_name}")
     if on_card and min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     rungs = [r for _e, r in ladders]
-    if on_card and main_path and max(rungs) < len(searcher_mod._SUPER_LADDER):
+    if (on_card and main_path and layout == "clustered"
+            and max(rungs) < len(searcher_mod._SUPER_LADDER)):
         raise AssertionError(f"the main path never reached the ladder's last "
                              f"rung: rungs {rungs}")
     n_q = sz["batch"] * len(batches)
     qps = n_q / sum(lat)
     p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
     exact = np.concatenate([e for e, _r in ladders])
-    clock.phase("search_batch", f"{corpus}: {len(batches)} x {sz['batch']} "
+    clock.phase("search_batch", f"{label}: {len(batches)} x {sz['batch']} "
                 f"queries, rungs {rungs}, launches {json.dumps(launches)}")
 
     if on_card and main_path:
-        clock.phase("profile", f"{corpus}: " + profile_batch(searcher, batches[0]))
+        clock.phase("profile", f"{label}: " + profile_batch(searcher, batches[0]))
 
     sw, lw = cfg.fusion.semantic_weight, cfg.fusion.lexical_weight
     checked = best_effort_ok = 0
+    jaccards = []
     for qs, res, (ex, _r) in zip(batches, results, ladders):
         rv, ri, fused = reference_topk(searcher, qs, TOP_K, sw, lw)
-        c, b = check_against_reference(res, ex, rv, ri, fused)
+        c, b, jac = check_against_reference(res, ex, rv, ri, fused)
         checked, best_effort_ok = checked + c, best_effort_ok + b
+        jaccards += jac
         del fused
-    clock.phase("reference", f"{corpus}: {checked} certified rows match the "
+    jac_mean = float(np.mean(jaccards)) if jaccards else None
+    clock.phase("reference", f"{label}: {checked} certified rows match the "
                 f"plain exact fused reference; {best_effort_ok} of "
-                f"{n_q - checked} uncertified rows match it too")
-    print(f"    {corpus}: certified {exact.mean():.4f} ({int(exact.sum())}/"
+                f"{n_q - checked} uncertified rows match it too, their "
+                f"jaccard@{TOP_K} mean {jac_mean}")
+    print(f"    {label}: certified {exact.mean():.4f} ({int(exact.sum())}/"
           f"{exact.size}), rungs mean {np.mean(rungs):.2f}, qps {qps:.1f}, batch "
           f"latency p50 {p50:.2f} ms p99 {p99:.2f} ms (B={sz['batch']}, {kind}; "
           f"{smi}; unsourced synthetic corpus)", flush=True)
     if not exact.any():
         raise AssertionError("no query was certified")
-    stats = {"certified": float(exact.mean()), "n_certified": int(exact.sum()),
-             "n_queries": int(exact.size), "best_effort_match": best_effort_ok,
-             "rungs": rungs, "qps": qps, "p50_ms": float(p50), "p99_ms": float(p99),
+    stats = {"layout": layout, "certified": float(exact.mean()),
+             "n_certified": int(exact.sum()), "n_queries": int(exact.size),
+             "best_effort_match": best_effort_ok,
+             "uncertified_jaccard_mean": jac_mean, "rungs": rungs, "qps": qps,
+             "p50_ms": float(p50), "p99_ms": float(p99),
              "batch_ms": [x * 1e3 for x in lat], "launches": launches,
              "index_timings_s": built["timings_s"]}
     return {"stats": stats, "launches": launches, "captures": captures}

@@ -5,7 +5,7 @@ of a ``hybridsearch_tpu`` index, and returns the port's object on the
 chosen device. With them a test builds both packages on identical state:
 the ``HashingEncoder`` table (``jax.random`` bits the port's generator
 cannot repeat), the dense snapshot, the BM25 CSR state, the supertile
-postings, and the clustered permutation of the corpus.
+postings, the impact tier, and the clustered permutation of the corpus.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from hybridsearch_tpu_torch.index.dense_index import DenseIndex
 from hybridsearch_tpu_torch.index.sparse_index import BM25
 from hybridsearch_tpu_torch.models.encoder import HashingEncoder
 from hybridsearch_tpu_torch.ops.bm25 import BM25Postings
+from hybridsearch_tpu_torch.ops.impact import ImpactPostings
 from hybridsearch_tpu_torch.ops.supertile import SuperPostings
 from hybridsearch_tpu_torch.text.extractor import HashVocabulary, Vocabulary
 from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -106,6 +107,29 @@ def super_postings(sup_max: np.ndarray, sup_pos: np.ndarray, ids_rows: np.ndarra
 def attach_super_postings(bm: BM25, sp: SuperPostings) -> None:
     """Serve ``sp`` as the supertile structures of ``bm``'s current state."""
     bm._super_cache = (bm._state, sp)
+
+
+def impact_postings(doc_ids: np.ndarray, weights: np.ndarray, n_docs: int,
+                    p_max: int, starts_host: np.ndarray, lengths_host: np.ndarray,
+                    slack_host: np.ndarray, weights_host: np.ndarray,
+                    df_host: np.ndarray, device: DeviceLike = None) -> ImpactPostings:
+    """ImpactPostings from the JAX build's arrays (built with align=1, the
+    JAX package's alignment off the TPU)."""
+    dev = resolve_device(device)
+    return ImpactPostings(
+        doc_ids=torch.from_numpy(np.array(doc_ids, dtype=np.int32)).to(dev),
+        weights=torch.from_numpy(np.array(weights, dtype=np.float32)).to(dev),
+        n_docs=int(n_docs), p_max=int(p_max),
+        starts_host=np.asarray(starts_host, np.int64),
+        lengths_host=np.asarray(lengths_host, np.int64),
+        slack_host=np.asarray(slack_host, np.float32),
+        weights_host=np.asarray(weights_host, np.float32),
+        df_host=np.asarray(df_host, np.int64))
+
+
+def attach_impact_postings(bm: BM25, imp: ImpactPostings) -> None:
+    """Serve ``imp`` as the impact tier of ``bm``'s current state."""
+    bm._impact_cache = (bm._state, imp.p_max, imp)
 
 
 def indexer(contents: Sequence[str], encoder: HashingEncoder, dense: DenseIndex,

@@ -9,6 +9,10 @@ Random draws come from a ``torch.Generator`` seeded with ``seed``; they
 cannot repeat ``jax.random``'s bits, so ``init_idx`` (the initial centroid
 rows) and ``reseed_idx`` ([iters, C] rows that re-seed empty clusters) may
 be passed in to reproduce a JAX fit exactly.
+
+The fit repeats bit for bit on the card: each block's cluster sums are
+taken in row order (``_cluster_sums``), never with float atomics, whose
+order changes from run to run.
 """
 
 from __future__ import annotations
@@ -18,6 +22,19 @@ from typing import Optional
 import torch
 
 from hybridsearch_tpu_torch.ops.dense import l2_normalize
+
+
+def _cluster_sums(vb: torch.Tensor, assign: torch.Tensor,
+                  counts: torch.Tensor) -> torch.Tensor:
+    """[C, D] sum of the rows of ``vb`` assigned to each cluster, each
+    cluster's rows added in row order: a stable sort by cluster makes every
+    cluster one contiguous segment, and ``segment_reduce`` walks each
+    segment in order (one output element per thread on CUDA, no atomics),
+    so the sums repeat bit for bit. A one-hot product would cost C times
+    the work."""
+    order = torch.sort(assign, stable=True).indices
+    return torch.segment_reduce(vb[order], "sum", lengths=counts, axis=0,
+                                unsafe=True)
 
 
 def kmeans_fit(
@@ -46,8 +63,9 @@ def kmeans_fit(
         for r0 in range(0, n, block):
             vb = l2_normalize(vectors[r0:r0 + block].float())
             assign = torch.argmax(vb @ c.T, dim=1)
-            sums.index_add_(0, assign, vb)
-            counts += torch.bincount(assign, minlength=n_clusters).float()
+            block_counts = torch.bincount(assign, minlength=n_clusters)
+            sums += _cluster_sums(vb, assign, block_counts)
+            counts += block_counts.float()
         if reseed_idx is not None:
             rnd_idx = torch.as_tensor(reseed_idx[it], device=dev).long()
         else:

@@ -4,12 +4,14 @@ Counterpart of ``hybridsearch_tpu/index/sparse_index.py``, limited to what
 the hybrid search path uses: every (term, doc) contribution is eager-scored
 at fit time into device-resident term-major CSR postings (ops/bm25.py);
 queries are encoded on the host into bucketed run pieces (the < 200k-doc
-fused path) or supertile slots (the supertile ladder, ops/supertile.py).
+fused path), supertile slots (the supertile ladder, ops/supertile.py) or
+impact-run descriptors (the impact ladder, ops/impact.py).
 
 The fitted state is published atomically, so a reader never pairs a vocab
-from one fit with postings from another. Incremental adds (delta
-segments), deletes, persistence, the impact tier and mesh sharding of the
-JAX module are still to port.
+from one fit with postings from another; the structures derived from a
+state (supertile, impact tier) are cached against it. Incremental adds
+(delta segments), deletes, persistence and mesh sharding of the JAX module
+are still to port.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class BM25:
         self.device = resolve_device(device)
         self._state = _BM25State(Vocabulary(), None, 0)
         self._super_cache = None  # (state, SuperPostings)
+        self._impact_cache = None  # (state, p_max, ImpactPostings)
 
     @property
     def vocab(self) -> Vocabulary:
@@ -156,14 +159,57 @@ class BM25:
 
         po = state.postings
         nnz = int(po.starts_host[-1] + po.lengths_host[-1]) if po.vocab_size else 0
-        term_ids = np.repeat(np.arange(po.vocab_size, dtype=np.int64),
-                             po.lengths_host)
         sp = build_super_postings(
-            term_ids, po.doc_ids[:nnz].cpu().numpy(),
+            self._coo_term_ids(po), po.doc_ids[:nnz].cpu().numpy(),
             po.weights[:nnz].cpu().numpy(), po.n_docs, po.vocab_size,
             self.device, super_tiles=super_tiles)
         self._super_cache = (state, sp)  # atomic publish
         return sp
+
+    def _coo_term_ids(self, po: bm25_ops.BM25Postings) -> np.ndarray:
+        """[nnz] term id of every CSR entry."""
+        return np.repeat(np.arange(po.vocab_size, dtype=np.int64),
+                         po.lengths_host)
+
+    def impact_postings(self, p_max: int = 4096,
+                        state: Optional[_BM25State] = None):
+        """The impact-ordered pruned tier of a fitted state (ops/impact.py),
+        built at first use and cached per state (a deeper cached tier
+        serves a shallower request)."""
+        state = state or self._state
+        if state.postings is None:
+            return None
+        cached = self._impact_cache
+        if cached is not None and cached[0] is state and cached[1] >= p_max:
+            return cached[2]
+        from hybridsearch_tpu_torch.ops.impact import build_impact_postings
+
+        po = state.postings
+        nnz = int(po.starts_host[-1] + po.lengths_host[-1]) if po.vocab_size else 0
+        imp = build_impact_postings(
+            self._coo_term_ids(po), po.doc_ids[:nnz].cpu().numpy(),
+            po.weights[:nnz].cpu().numpy(), po.n_docs, po.vocab_size,
+            p_max=p_max, device=self.device)
+        self._impact_cache = (state, p_max, imp)  # atomic publish
+        return imp
+
+    def encode_queries_impact(self, queries: Sequence[str], p_depth: int,
+                              p_max: int = 4096):
+        """(ImpactPostings, ImpactQueryEnc) for hybrid_impact_topk. The vocab,
+        the tier, the hot descriptors and the full CSR arrays they index
+        into (``enc.full_postings``) all come from ONE state snapshot."""
+        from hybridsearch_tpu_torch.ops.impact import encode_impact_queries
+
+        state = self._state
+        imp = self.impact_postings(p_max=p_max, state=state)
+        if imp is None:
+            return None, None
+        po = state.postings
+        term_id_lists = [state.vocab.encode(extract_tokens(q)) for q in queries]
+        enc = encode_impact_queries(imp, term_id_lists, p_depth=p_depth,
+                                    full_starts=po.starts_host,
+                                    full_lengths=po.lengths_host)
+        return imp, enc._replace(full_postings=(po.doc_ids, po.weights))
 
     def encode_queries_super(self, queries: Sequence[str]):
         """(SuperPostings, SuperQueryEnc) from one state snapshot."""

@@ -10,8 +10,10 @@ search path uses. At index build time the full BM25 contribution of every
 and stored in term-major, doc-sorted CSR on the device. A query batch is
 encoded on the host into (start, length) posting-run pieces bucketed by
 width, and scored by one gather + one scatter-add per bucket into [B, n].
-The hot-term tables, candidate scoring and mesh sharding of the JAX module
-serve paths this slice does not take.
+``cand_scores_bisect`` scores given candidates by bisection over the full
+runs (the impact hybrid's margin correction, ops/hybrid.py). The hot-term
+tables, the other candidate scorers and mesh sharding of the JAX module
+serve paths the port does not take yet.
 """
 
 from __future__ import annotations
@@ -174,6 +176,42 @@ def local_bucketed_scores(doc_ids: torch.Tensor, weights: torch.Tensor,
                                   torch.from_numpy(starts).to(dev),
                                   torch.from_numpy(lengths).to(dev), n, width)
     return total
+
+
+def cand_scores_bisect(
+    doc_ids: torch.Tensor,  # [nnz_pad] int32, doc-sorted within each run
+    weights: torch.Tensor,  # [nnz_pad] float32
+    starts: torch.Tensor,  # [B, H] run starts (0 = pad with len 0)
+    lengths: torch.Tensor,  # [B, H] run lengths (0 = pad)
+    candidates: torch.Tensor,  # [B, C] doc ids (out-of-range = no hit)
+    n_iters: int = 26,
+) -> torch.Tensor:
+    """[B, C] summed weights of candidates across the given runs by
+    lower-bound bisection in place over the device-resident CSR (no run is
+    ever sliced out). 2^26 covers runs to 67M postings; the runs are added
+    in order h = 0 .. H-1."""
+    st = starts.long()[:, :, None]  # [B, H, 1]
+    ln = lengths.long()[:, :, None]
+    cand = candidates.long()[:, None, :]  # [B, 1, C]
+    B, H = starts.shape
+    C = candidates.shape[1]
+    lo = torch.zeros((B, H, C), dtype=torch.long, device=doc_ids.device)
+    hi = ln.expand(B, H, C).clone()
+    last = (ln - 1).clamp_min(0)
+    for _ in range(n_iters):
+        mid = (lo + hi) // 2
+        v = doc_ids[st + torch.minimum(mid, last)].long()
+        upd = lo < hi
+        go_right = upd & (v < cand)
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(upd & ~go_right, mid, hi)
+    pos = st + torch.minimum(lo, last)
+    hit = (lo < ln) & (doc_ids[pos].long() == cand)
+    w = torch.where(hit, weights[pos], 0.0)
+    acc = torch.zeros((B, C), dtype=torch.float32, device=doc_ids.device)
+    for h in range(H):
+        acc = acc + w[:, h]
+    return acc
 
 
 def compute_eager_weights(

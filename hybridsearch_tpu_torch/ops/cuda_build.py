@@ -9,8 +9,9 @@ written to a temporary name and moved into place with ``os.replace``, so
 processes that build at once never load a half-written file.
 
 Every launcher returns ``cudaGetLastError()`` after its launch; the
-wrappers in ``cuda_topk.py`` and ``cuda_supertile.py`` raise when it is not
-zero. Nothing here runs at import: the CPU tests import every module.
+wrappers in ``cuda_topk.py``, ``cuda_supertile.py`` and ``cuda_impact.py``
+raise when it is not zero. Nothing here runs at import: the CPU tests
+import every module.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("tile_stats.cu", "super_scores.cu", "place_windows.cu")
+SOURCES = ("tile_stats.cu", "super_scores.cu", "place_windows.cu",
+           "slice_runs.cu", "impact_rescore.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +45,8 @@ _SIGNATURES = {
     "hst_tile_stats": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P),
     "hst_super_scores": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     "hst_place_windows": (_P, _P, _L, _L, _I, _P, _P),
+    "hst_slice_runs": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
+    "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,168 @@
+"""K6 and K7: the impact-pruned lexical arm's kernels.
+
+Counterpart of ``hybridsearch_tpu/ops/pallas_impact.py``:
+
+  * ``slice_runs`` (``csrc/slice_runs.cu``) replaces ``pallas_slice_runs``
+    and fuses in the tail mask of its caller: [B*T, p] ids and weights, the
+    p-entry prefix of each (query, term) impact run from its dynamic start,
+    with positions at or past the run's length set to (n_docs, 0).
+  * ``rescore`` (``csrc/impact_rescore.cu``) replaces
+    ``pallas_onehot_rescore``: [B, C] sums of the posting weights whose id
+    equals each candidate. Row b of the postings is T columns of p entries
+    (term slot t's slice is column t); within a column a doc id below
+    n_docs appears at most once, which is what a term's run gives. The
+    kernel keeps a per-query hash table of the candidates in shared memory
+    instead of the TPU's one-hot comparison, and adds the columns in order.
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version only for CPU tensors; the plain versions compute the same numbers
+in the same order (the card's results equal them bit for bit).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from hybridsearch_tpu_torch.ops import cuda_build
+
+# widest batch row the rescore takes: 32 term slots (the top of the
+# IMPACT_T_LADDER), and a candidate table of at most 2^14 slots of 8 bytes
+# (128 KB of shared memory) at a load of at most 0.8
+RESCORE_MAX_T = 32
+RESCORE_MAX_LOG2_SLOTS = 14
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def slice_runs_plain(doc_ids: torch.Tensor, weights: torch.Tensor,
+                     starts: torch.Tensor, lengths: torch.Tensor, p: int,
+                     n_docs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: one gather of every slice, then the mask."""
+    s = starts.reshape(-1).long()
+    iota = torch.arange(p, device=doc_ids.device)
+    pos = s[:, None] + iota
+    valid = iota < lengths.reshape(-1).long()[:, None]
+    ids = torch.where(valid, doc_ids[pos], n_docs).to(torch.int32)
+    ws = torch.where(valid, weights[pos], 0.0)
+    return ids, ws
+
+
+def slice_runs(doc_ids: torch.Tensor, weights: torch.Tensor,
+               starts: torch.Tensor, lengths: torch.Tensor, p: int,
+               n_docs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """([B*T, p] int32 ids, [B*T, p] float32 weights) of the p-entry
+    prefixes starting at ``starts`` [B, T], masked to (n_docs, 0) at
+    positions >= ``lengths`` [B, T]. ``doc_ids`` int32 and ``weights``
+    float32 [nnz + p_max] carry p_max sentinel entries past the last run,
+    so every slice with p <= p_max is in bounds (the caller keeps p there)."""
+    if doc_ids.device.type == "cpu":
+        return slice_runs_plain(doc_ids, weights, starts, lengths, p, n_docs)
+    if not doc_ids.is_cuda:
+        raise ValueError(f"slice_runs: unsupported device {doc_ids.device}")
+    if doc_ids.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise ValueError("slice_runs: doc_ids must be int32 and weights float32")
+    if doc_ids.dim() != 1 or weights.shape != doc_ids.shape:
+        raise ValueError(f"slice_runs: postings shapes {tuple(doc_ids.shape)} "
+                         f"{tuple(weights.shape)}")
+    if starts.shape != lengths.shape:
+        raise ValueError(f"slice_runs: starts {tuple(starts.shape)} vs lengths "
+                         f"{tuple(lengths.shape)}")
+    if any(t.device != doc_ids.device for t in (weights, starts, lengths)):
+        raise ValueError("slice_runs: all tensors must be on one device")
+    if p < 1 or p > doc_ids.shape[0] or not 0 <= n_docs < 2**31:
+        raise ValueError(f"slice_runs: p={p}, n_docs={n_docs} out of range")
+    rows = starts.numel()
+    st = starts.reshape(-1).to(torch.int32).contiguous()
+    ln = lengths.reshape(-1).to(torch.int32).contiguous()
+    ids = torch.empty((rows, p), dtype=torch.int32, device=doc_ids.device)
+    ws = torch.empty((rows, p), dtype=torch.float32, device=doc_ids.device)
+    if rows == 0:
+        return ids, ws
+    lib = cuda_build.library()
+    rc = lib.hst_slice_runs(
+        doc_ids.contiguous().data_ptr(), weights.contiguous().data_ptr(),
+        st.data_ptr(), ln.data_ptr(), rows, p, n_docs, ids.data_ptr(),
+        ws.data_ptr(), _stream(doc_ids))
+    cuda_build.check(rc, "hst_slice_runs")
+    slice_runs.launches += 1
+    return ids, ws
+
+
+slice_runs.launches = 0
+
+
+def rescore_plain(cand: torch.Tensor, ids_flat: torch.Tensor,
+                  ws_flat: torch.Tensor, p: int, n_docs: int) -> torch.Tensor:
+    """Plain PyTorch version: column by column, each candidate finds its id
+    in the sorted column (searchsorted) and adds the weight there; the
+    columns are added in order, as the kernel adds them."""
+    B, C = cand.shape
+    T = ids_flat.shape[1] // p
+    valid = (cand >= 0) & (cand < n_docs)
+    c32 = cand.to(torch.int32).contiguous()
+    acc = torch.zeros((B, C), dtype=torch.float32, device=cand.device)
+    for t in range(T):
+        col_ids = ids_flat[:, t * p:(t + 1) * p].to(torch.int32)
+        srt, perm = torch.sort(col_ids, dim=1, stable=True)
+        pos = torch.searchsorted(srt, c32).clamp(max=p - 1)
+        hit = valid & (torch.gather(srt, 1, pos) == c32)
+        col_ws = torch.gather(ws_flat[:, t * p:(t + 1) * p], 1, perm)
+        acc = acc + torch.where(hit, torch.gather(col_ws, 1, pos), 0.0)
+    return acc
+
+
+def rescore_slots(C: int) -> int:
+    """log2 of the candidate table's slot count: the least power of two
+    holding C at a load of at most 0.8."""
+    return max(1, (-(-5 * C // 4) - 1).bit_length())
+
+
+def rescore(cand: torch.Tensor, ids_flat: torch.Tensor, ws_flat: torch.Tensor,
+            p: int, n_docs: int) -> torch.Tensor:
+    """[B, C] float32: for each candidate id in [0, n_docs) of ``cand``
+    [B, C], the sum of ``ws_flat`` [B, T*p] float32 over the entries of
+    ``ids_flat`` [B, T*p] int32 equal to it, the T columns of width ``p``
+    added in order; 0 for every other candidate."""
+    if cand.device.type == "cpu":
+        return rescore_plain(cand, ids_flat, ws_flat, p, n_docs)
+    if not cand.is_cuda:
+        raise ValueError(f"rescore: unsupported device {cand.device}")
+    if cand.dim() != 2 or ids_flat.dim() != 2 or ids_flat.shape != ws_flat.shape \
+            or ids_flat.shape[0] != cand.shape[0]:
+        raise ValueError(f"rescore: shapes cand {tuple(cand.shape)} ids "
+                         f"{tuple(ids_flat.shape)} ws {tuple(ws_flat.shape)}")
+    if ids_flat.dtype != torch.int32 or ws_flat.dtype != torch.float32:
+        raise ValueError("rescore: ids must be int32 and ws float32")
+    if any(t.device != cand.device for t in (ids_flat, ws_flat)):
+        raise ValueError("rescore: all tensors must be on one device")
+    B, C = cand.shape
+    W = ids_flat.shape[1]
+    if p < 1 or W % p or not 0 <= n_docs < 2**31:
+        raise ValueError(f"rescore: width {W} is not whole columns of p={p}, "
+                         f"or n_docs={n_docs} is out of range")
+    T = W // p
+    log2_slots = rescore_slots(C)
+    if T > RESCORE_MAX_T or log2_slots > RESCORE_MAX_LOG2_SLOTS:
+        raise ValueError(
+            f"rescore: T={T} columns and C={C} candidates exceed the kernel's "
+            f"limits (T <= {RESCORE_MAX_T}, C <= "
+            f"{4 * (1 << RESCORE_MAX_LOG2_SLOTS) // 5} in shared memory)")
+    out = torch.empty((B, C), dtype=torch.float32, device=cand.device)
+    if B == 0 or C == 0:
+        return out.zero_()
+    c32 = cand.to(torch.int32).contiguous()
+    lib = cuda_build.library()
+    rc = lib.hst_impact_rescore(
+        c32.data_ptr(), ids_flat.contiguous().data_ptr(),
+        ws_flat.contiguous().data_ptr(), B, C, T, p, n_docs, log2_slots,
+        out.data_ptr(), _stream(cand))
+    cuda_build.check(rc, "hst_impact_rescore")
+    rescore.launches += 1
+    return out
+
+
+rescore.launches = 0

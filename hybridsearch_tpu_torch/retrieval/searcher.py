@@ -9,14 +9,18 @@ Two regimes, as in the JAX package:
 
   * below ``SPARSE_HYBRID_MIN_DOCS`` docs: full [B, n] semantic and BM25
     scores, fused and ranked exactly (``_hybrid_one_program``);
-  * at scale on a ``layout="clustered"`` index: the supertile ladder
-    (``supertile_ladder``): one rung-invariant prefix, then probe-budget
-    rungs that re-run only the uncertified queries.
+  * at scale (``_sparse_hybrid``), with no [B, n] array:
+      - on a ``layout="clustered"`` index, the supertile ladder
+        (``supertile_ladder``): one rung-invariant prefix, then probe-budget
+        rungs that re-run only the uncertified queries;
+      - on any other layout (the default ``"source"``), the impact ladder:
+        ``hybrid_impact_topk`` (ops/hybrid.py) at escalating (k_dense,
+        c_per_term, p_depth) rungs (``_IMPACT_LADDER``), each re-encoding
+        and re-running only the uncertified queries.
 
-At scale without the clustered layout the JAX package takes the impact
-path, which is still to port; the port serves such a batch exactly with the
-full fused program. The lexical "fuzzy" and semantic "scatter" modes and
-the mesh branches are not part of this slice.
+The JAX package's clustered tile hybrid (``hybrid_tile_topk``, reached there
+only with ``HST_SUPER_HYBRID=0``), the lexical "fuzzy" and semantic
+"scatter" modes and the mesh branches are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -30,7 +34,12 @@ import torch
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.builder import Indexer
 from hybridsearch_tpu_torch.ops.bm25 import local_bucketed_scores
-from hybridsearch_tpu_torch.ops.dense import l2_normalize, stable_topk, tiled_matrix_topk
+from hybridsearch_tpu_torch.ops.dense import (
+    l2_normalize,
+    stable_topk,
+    tiled_dense_topk,
+    tiled_matrix_topk,
+)
 from hybridsearch_tpu_torch.ops.fusion import validate_weights
 from hybridsearch_tpu_torch.retrieval.query_memory import QueryMemory
 from hybridsearch_tpu_torch.utils.device import DeviceLike
@@ -39,8 +48,11 @@ from hybridsearch_tpu_torch.utils.tracing import GLOBAL_COUNTERS, trace_span
 SearchResult = Tuple[float, str, int]
 
 # Above this corpus size the fused path switches from full [B, n] fusion to
-# the certified supertile ladder (same semantics, no [B, n] arrays).
+# a certified ladder (same semantics, no [B, n] arrays).
 SPARSE_HYBRID_MIN_DOCS = 200_000
+# (k_dense, c_per_term, p_depth) escalation ladder of the impact-pruned
+# hybrid; depths come from ops/impact.py IMPACT_P_LADDER
+_IMPACT_LADDER = ((512, 64, 256), (1024, 128, 1024), (2048, 256, 4096))
 # supertile probe-budget ladder, in 16384-doc supertiles: 2 rungs cover a
 # straddling topic, deeper rungs chase uncertified queries
 _SUPER_LADDER = (2, 4, 8, 16)
@@ -282,8 +294,7 @@ class Searcher:
         with trace_span("encode"):
             q_vecs = self.indexer.encoder.encode(list(queries)).to(self.device)
         fitted = bm25_state.postings is not None and bm25_state.n_docs == n
-        if (fitted and n >= SPARSE_HYBRID_MIN_DOCS
-                and self.indexer.config.index.layout == "clustered"):
+        if fitted and n >= SPARSE_HYBRID_MIN_DOCS:
             with trace_span("hybrid_sparse"):
                 vals, idxs = self._sparse_hybrid(queries, q_vecs, snap, bm25,
                                                  k, sw, lw)
@@ -322,22 +333,90 @@ class Searcher:
         return results
 
     def _sparse_hybrid(self, queries, q_vecs, snap, bm25, k, sw, lw):
-        """At-scale hybrid on a clustered index: the supertile ladder. An
-        uncertified result is served best-effort (near-exact) with a one-time
-        warning and a counter."""
+        """At-scale hybrid: the supertile ladder on a clustered index, the
+        impact ladder otherwise. An uncertified result is served
+        best-effort (near-exact) with a one-time warning and a counter."""
         q = l2_normalize(q_vecs.float())
         n_alive = snap.n - self.indexer.dense.deleted_count
-        sp, enc_s = bm25.encode_queries_super(list(queries))
-        st, _rungs = supertile_ladder(
-            q, snap.docs, sp, enc_s, k, sw, lw, bias=snap.bias,
-            n_alive=n_alive, valid_n=snap.n,
-            uncertified_tol=self.indexer.config.serving.uncertified_tol)
+        if self.indexer.config.index.layout == "clustered":
+            sp, enc_s = bm25.encode_queries_super(list(queries))
+            st, _rungs = supertile_ladder(
+                q, snap.docs, sp, enc_s, k, sw, lw, bias=snap.bias,
+                n_alive=n_alive, valid_n=snap.n,
+                uncertified_tol=self.indexer.config.serving.uncertified_tol)
+            if not st.exact.all():
+                _warn_uncertified("supertile hybrid certificate did not close "
+                                  "after probe escalation; serving the "
+                                  "best-effort top-k")
+            return st.values, st.indices
+        st, rungs = impact_ladder(q, queries, snap, bm25, k, sw, lw, n_alive)
+        if not rungs:  # no impact tier (no postings): dense-only scores
+            return tiled_dense_topk(q, snap.docs, min(k, snap.n), bias=snap.bias)
         if not st.exact.all():
-            if GLOBAL_COUNTERS.inc("hybrid_sparse_uncertified") == 1:
-                import warnings
-
-                warnings.warn(
-                    "supertile hybrid certificate did not close after probe "
-                    "escalation; serving the best-effort top-k",
-                    RuntimeWarning)
+            _warn_uncertified("sparse hybrid certificate did not close after "
+                              "escalation; serving the best-effort top-k "
+                              "(pruned-lexical bounds were too loose for this "
+                              "query/corpus)")
         return st.values, st.indices
+
+
+def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
+                  sw: float, lw: float, n_alive: int) -> Tuple[_LadderState, int]:
+    """The impact serving ladder: ``hybrid_impact_topk`` at each (k_dense,
+    c_per_term, p_depth) rung, the queries re-encoded at the rung's depth;
+    deeper rungs re-run only the uncertified queries (compacted to a pow2
+    bucket) while some failure can still certify. Returns the merged
+    _LadderState (full-batch coordinates) and the number of rungs run."""
+    from hybridsearch_tpu_torch.ops.hybrid import hybrid_impact_topk
+
+    B = q.shape[0]
+    st = _LadderState(B)
+    cur_queries, cur_q = list(queries), q
+    rungs = 0
+    prev_fails = None
+    for kd, cp, pd in _IMPACT_LADDER:
+        imp, enc = bm25.encode_queries_impact(cur_queries, p_depth=pd)
+        if imp is None:
+            break
+        # enc.full_postings comes from the same snapshot as imp and enc
+        res = hybrid_impact_topk(cur_q, snap.docs, imp, enc, k, sw, lw,
+                                 bias=snap.bias, k_dense=kd, c_per_term=cp,
+                                 p_depth=pd, n_alive=n_alive)
+        rungs += 1
+        st.merge(res.values, res.indices, res.exact)
+        if st.exact.all():
+            break
+        # escalation helps queries whose terms a deeper prune depth can fully
+        # cover, and margin-certifiable ones (every truncated term bisected:
+        # deeper rungs shrink the tail slack). The rung's enc covers its own
+        # (possibly compacted) rows: scatter to full-batch coordinates.
+        ci = enc.certifiable_deeper
+        if enc.corrected_complete is not None:
+            ci = ci | enc.corrected_complete
+        can_improve = np.zeros(B, bool)
+        if st.rows is None:
+            can_improve[:] = np.asarray(ci)[:B]
+        else:
+            can_improve[st.rows] = np.asarray(ci)[:len(st.rows)]
+        if not np.logical_and(~st.exact, can_improve).any():
+            break
+        fails = int((~st.exact).sum())
+        if prev_fails is not None and fails >= prev_fails:
+            break  # no progress: deeper rungs are not certifying more
+        prev_fails = fails
+        fi = st.next_rows()  # compacted escalation
+        if fi is not None:
+            fp = st.padded(fi)
+            cur_queries = [queries[i] for i in fp]
+            cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+        else:
+            cur_queries, cur_q = list(queries), q
+    return st, rungs
+
+
+def _warn_uncertified(message: str) -> None:
+    """Count an uncertified batch; warn the first time."""
+    if GLOBAL_COUNTERS.inc("hybrid_sparse_uncertified") == 1:
+        import warnings
+
+        warnings.warn(message, RuntimeWarning)

@@ -1,6 +1,7 @@
 """chip_smoke.py: its CPU rehearsal runs every phase end to end, and the
 card run refuses to report without a card or without the package."""
 
+import json
 import os
 import shutil
 import subprocess
@@ -26,10 +27,22 @@ def test_cpu_rehearsal_runs_every_phase():
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     lines = out.stdout.strip().splitlines()
     for phase in ("device", "kernels", "index_documents", "search_batch",
-                  "reference", "kernel timing"):
+                  "reference", "kernel timing", "P1 check", "impact tier",
+                  "impact kernel timing"):
         assert any(f"] {phase}" in ln for ln in lines), phase
+    for phase in ("index_documents", "search_batch", "reference"):
+        assert any(f"] {phase}: small-topic/source" in ln for ln in lines), phase
+    assert any("K1-K3, K6, K7 match" in ln for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
+
+
+def test_p1_stages_rehearsal_finds_every_stage_repeating():
+    out = _run(["--cpu-rehearsal", "--p1-stages"], REPO, timeout=240)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    last = json.loads(out.stdout.strip().splitlines()[-1])["p1_stages"]
+    assert last["first_differing_stage"] is None and all(last["stages"].values())
+    assert last["same_batch_twice_on_one_build"] and last["same_batch_on_both_builds"]
 
 
 def test_card_run_without_a_card_prints_no_result():

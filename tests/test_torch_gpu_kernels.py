@@ -13,6 +13,10 @@ on unit vectors (|score| <= 1) that is ~D * 6e-8, inside rtol = atol =
 1e-5. bf16 docs (with bf16-rounded queries) give exact float32 products,
 so the same bound holds; 1e-3 is kept as the stated bf16 tolerance. The
 placement kernel adds the same float32 values in slot order: 1e-6 abs.
+The impact kernels are held to 0: the slice kernel copies, and the
+rescore kernel adds the same float32 weights in the same column order as
+its plain version. Two k-means fits from one seed must be equal bit for
+bit.
 """
 
 import numpy as np
@@ -146,3 +150,108 @@ def test_gpu_wrappers_count_launches_and_reject_bad_input():
     with pytest.raises(ValueError):
         tile_stats(q.half(), docs.half())  # float16 is not taken
     assert tile_stats.launches == before + 1
+
+
+def _impact_inputs(rng, dev, B, T, p, nd, nnz=2_000_000):
+    """Postings with p sentinel entries past nnz, whose windows of fewer
+    than nd entries name a doc at most once (as a term's run does), and
+    (B, T) slices of random starts and lengths (some past p, some 0)."""
+    run = np.arange(nnz, dtype=np.int64) * 7919 % nd  # 7919 is prime to nd
+    ids = np.concatenate([run, np.full(p, nd)]).astype(np.int32)
+    ws = np.concatenate([rng.random(nnz) + 0.01, np.zeros(p)]).astype(np.float32)
+    starts = rng.integers(0, nnz - p, (B, T)).astype(np.int32)
+    lengths = rng.integers(0, 2 * p, (B, T)).astype(np.int32)
+    lengths[:, -1] = 0
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return t(ids), t(ws), t(starts), t(lengths)
+
+
+# (T, p, C): the three rungs of the impact ladder at T=8, the third at
+# T=16 and T=32 (C = k_dense + T * c_per_term), and the margin call
+LADDER_SHAPES = [(8, 256, 1024), (8, 1024, 2048), (8, 4096, 4096),
+                 (16, 4096, 6144), (32, 4096, 10240), (8, 1024, 128)]
+
+
+@pytest.mark.parametrize("T,p,C", LADDER_SHAPES)
+def test_gpu_slice_runs_and_rescore_match_plain_bitwise(T, p, C):
+    from hybridsearch_tpu_torch.ops.cuda_impact import (
+        rescore,
+        rescore_plain,
+        slice_runs,
+        slice_runs_plain,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    B, nd = 256, 600_000
+    ids, ws, starts, lengths = _impact_inputs(rng, dev, B, T, p, nd)
+    got_i, got_w = slice_runs(ids, ws, starts, lengths, p, nd)
+    want_i, want_w = slice_runs_plain(ids, ws, starts, lengths, p, nd)
+    torch.cuda.synchronize()
+    assert torch.equal(got_i, want_i) and torch.equal(got_w, want_w)
+    # candidates as the path makes them: column entries (planted hits),
+    # repeats, sentinels and -1
+    ids_flat, ws_flat = got_i.reshape(B, T * p), got_w.reshape(B, T * p)
+    cand = ids_flat[:, torch.randperm(T * p, device=dev)[:C]].clone()
+    cand[:, 1::13] = cand[:, :1]
+    cand[:, -3:] = torch.tensor([nd, nd + 2, -1], device=dev)
+    got = rescore(cand, ids_flat, ws_flat, p, nd)
+    torch.cuda.synchronize()
+    want = rescore_plain(cand, ids_flat, ws_flat, p, nd)
+    assert torch.equal(got, want)
+    assert (got[:, -3:] == 0).all() and (got > 0).any()
+
+
+def test_gpu_rescore_shared_memory_limit_and_refusals():
+    from hybridsearch_tpu_torch.ops import cuda_impact
+
+    dev = _card()
+    B, p, nd = 4, 1024, 1000
+    ids = torch.randint(0, nd, (B, 32 * p), dtype=torch.int32, device=dev)
+    ws = torch.zeros((B, 32 * p), device=dev)
+    c_max = 4 * (1 << cuda_impact.RESCORE_MAX_LOG2_SLOTS) // 5
+    before = cuda_impact.rescore.launches
+    cand = torch.randint(0, nd, (B, c_max), device=dev)
+    out = cuda_impact.rescore(cand, ids, ws, p, nd)  # the 128 KB table
+    torch.cuda.synchronize()
+    assert out.shape == (B, c_max) and (out == 0).all()
+    assert cuda_impact.rescore.launches == before + 1
+    with pytest.raises(ValueError):
+        cuda_impact.rescore(torch.zeros((B, c_max + 1), dtype=torch.int32,
+                                        device=dev), ids, ws, p, nd)
+    with pytest.raises(ValueError):  # 33 columns
+        cuda_impact.rescore(cand, torch.zeros((B, 33 * 8), dtype=torch.int32,
+                                              device=dev),
+                            torch.zeros((B, 33 * 8), device=dev), 8, nd)
+    with pytest.raises(ValueError):  # not whole columns
+        cuda_impact.rescore(cand, ids, ws, 1000, nd)
+    with pytest.raises(ValueError):
+        cuda_impact.rescore(cand, ids.long(), ws, p, nd)
+    with pytest.raises(ValueError):
+        cuda_impact.slice_runs(ids[0].long(), ws[0], torch.zeros((2, 8), dtype=torch.int32,
+                                                                device=dev),
+                               torch.zeros((2, 8), dtype=torch.int32, device=dev),
+                               p, nd)
+    assert cuda_impact.rescore.launches == before + 1
+    before = cuda_impact.slice_runs.launches
+    cuda_impact.slice_runs(ids[0], ws[0], torch.zeros((2, 8), dtype=torch.int32,
+                                                      device=dev),
+                           torch.full((2, 8), 3, dtype=torch.int32, device=dev),
+                           p, nd)
+    assert cuda_impact.slice_runs.launches == before + 1
+
+
+def test_gpu_kmeans_fit_repeats_bitwise():
+    from hybridsearch_tpu_torch.index.ivf import kmeans_assign, kmeans_fit
+
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    centers = torch.randn((64, 384), generator=gen, device=dev) * 3
+    pick = torch.randint(0, 64, (131_072,), generator=gen, device=dev)
+    v = centers[pick] + torch.randn((131_072, 384), generator=gen, device=dev)
+    a = kmeans_fit(v, 362, seed=0)
+    b = kmeans_fit(v, 362, seed=0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(kmeans_assign(v, a), kmeans_assign(v, b))

@@ -1,6 +1,7 @@
-"""search_batch through the supertile ladder on the card (kernels K1-K3)
-against the same index carried to the CPU (plain versions), and the
-launch counters that show the kernels ran.
+"""search_batch on the card against the same index carried to the CPU
+(plain versions), and the launch counters that show the kernels ran: the
+supertile ladder on a clustered index (K1-K3) and the impact ladder on a
+``layout="source"`` index (K1, K6, K7).
 
 Run on a machine with an NVIDIA Hopper card:
 
@@ -19,28 +20,25 @@ pytestmark = pytest.mark.gpu
 EPS = 1e-4
 
 
-def test_gpu_supertile_route_matches_the_cpu_route(monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    from hybridsearch_tpu_torch import convert
-    from hybridsearch_tpu_torch.config import EngineConfig
-    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
-    from hybridsearch_tpu_torch.retrieval import searcher as sm
-
-    rng = np.random.default_rng(0)
+def _corpus(rng, n_docs):
     topics = [[f"z{z}t{j}" for j in range(24)] for z in range(48)]
     bg = [f"w{i}" for i in range(3000)]
     texts = [" ".join(list(rng.choice(topics[i % 48], 32)) + list(rng.choice(bg, 16)))
-             for i in range(24576)]  # 192 tiles: K1's route; 2 supertiles
-    cfg = EngineConfig()
-    cfg.index.layout = "clustered"
-    gpu = sm.Searcher(config=cfg, use_query_memory=False, device="cuda")
-    gpu.indexer.index_documents(texts)
+             for i in range(n_docs)]
+    queries = [" ".join(list(rng.choice(topics[z], 3)) + [bg[z]]) for z in range(40)]
+    return texts, queries
+
+
+def _cpu_copy(gpu, layout):
+    """A CPU Searcher over the card searcher's index state."""
+    from hybridsearch_tpu_torch import convert
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.retrieval import searcher as sm
 
     snap, st = gpu.indexer.dense._snap, gpu.indexer.bm25._state
     po = st.postings
-    cpu_cfg = EngineConfig()
-    cpu_cfg.index.layout = "clustered"
+    cfg = EngineConfig()
+    cfg.index.layout = layout
     idx = convert.indexer(
         gpu.indexer.contents,
         convert.hashing_encoder(gpu.indexer.encoder.table.cpu().numpy(), device="cpu"),
@@ -49,18 +47,11 @@ def test_gpu_supertile_route_matches_the_cpu_route(monkeypatch):
         convert.bm25_index(np.asarray(st.vocab.id_to_hash, np.uint64),
                            po.indptr.cpu().numpy(), po.doc_ids.cpu().numpy(),
                            po.weights.cpu().numpy(), po.n_docs, device="cpu"),
-        config=cpu_cfg)
-    cpu = sm.Searcher(indexer=idx, use_query_memory=False, config=cpu_cfg)
+        config=cfg)
+    return sm.Searcher(indexer=idx, use_query_memory=False, config=cfg)
 
-    monkeypatch.setattr(sm, "SPARSE_HYBRID_MIN_DOCS", 0)
-    queries = [" ".join(list(rng.choice(topics[z], 3)) + [bg[z]]) for z in range(40)]
-    before = (cuda_topk.tile_stats.launches, cuda_supertile.super_scores.launches,
-              cuda_supertile.place_windows.launches)
-    got = gpu.search_batch(queries, top_k=10, log=False)
-    after = (cuda_topk.tile_stats.launches, cuda_supertile.super_scores.launches,
-             cuda_supertile.place_windows.launches)
-    assert all(a > b for a, b in zip(after, before)), (before, after)
-    want = cpu.search_batch(queries, top_k=10, log=False)
+
+def _same_rows(got, want):
     for g, w in zip(got, want):
         gv = np.array([v for v, _c, _i in g])
         wv = np.array([v for v, _c, _i in w])
@@ -68,3 +59,40 @@ def test_gpu_supertile_route_matches_the_cpu_route(monkeypatch):
         for j, (a, b) in enumerate(zip([i for *_x, i in g], [i for *_x, i in w])):
             if a != b:
                 assert (np.abs(wv - wv[j]) <= EPS).sum() > 1, (j, a, b)
+
+
+def _route_matches_cpu(monkeypatch, layout, kernels):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.retrieval import searcher as sm
+
+    rng = np.random.default_rng(0)
+    texts, queries = _corpus(rng, 24576)  # 192 tiles: K1's route
+    cfg = EngineConfig()
+    cfg.index.layout = layout
+    gpu = sm.Searcher(config=cfg, use_query_memory=False, device="cuda")
+    gpu.indexer.index_documents(texts)
+    cpu = _cpu_copy(gpu, layout)
+    monkeypatch.setattr(sm, "SPARSE_HYBRID_MIN_DOCS", 0)
+    before = [k.launches for k in kernels]
+    got = gpu.search_batch(queries, top_k=10, log=False)
+    after = [k.launches for k in kernels]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    _same_rows(got, cpu.search_batch(queries, top_k=10, log=False))
+
+
+def test_gpu_supertile_route_matches_the_cpu_route(monkeypatch):
+    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+
+    _route_matches_cpu(monkeypatch, "clustered",
+                       [cuda_topk.tile_stats, cuda_supertile.super_scores,
+                        cuda_supertile.place_windows])
+
+
+def test_gpu_impact_route_matches_the_cpu_route(monkeypatch):
+    from hybridsearch_tpu_torch.ops import cuda_impact, cuda_topk
+
+    _route_matches_cpu(monkeypatch, "source",
+                       [cuda_topk.tile_stats, cuda_impact.slice_runs,
+                        cuda_impact.rescore])
