@@ -20,14 +20,24 @@ the main path's own inputs (K2 at every probe count the ladder gave it).
 The P1 check re-runs the clustered build's k-means on the same embeddings
 and requires the same centroids, bit for bit, and the same permutation.
 
+The same index is then served again, not re-indexed, with the two perf
+levers on (``cfg.perf.scores_dedup`` and ``cfg.perf.place_fused``): the
+rungs score pairs sorted by supertile (K4, super_scores_dedup) and place
+the lexical windows straight from the CSR (K5, place_fused). Its certified
+flags, ids and values must equal the default run's bit for bit; K4 and K5
+are timed at every rung beside K2 and the window gather + K3 on the same
+work.
+
 The default configuration's path comes next: the same small-topic corpus
 indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), the run slices (K6, slice_runs) and
 the candidate rescore (K7, rescore); K6 and K7 must launch in the timed
-batches, and are then timed at every rung the batches reached. A third
-corpus with larger topics is served on the clustered path last. No
-corpus's topic structure comes from a published source, so their qps
-describe these corpora only.
+batches, and are then timed at every rung the batches reached. "Regime 1"
+serves a corpus a quarter of the size, below ``SPARSE_HYBRID_MIN_DOCS``,
+through the full [B, n] fused program; one batch is served twice and must
+be equal bit for bit. A corpus with larger topics is served on the
+clustered path last. No corpus's topic structure comes from a published
+source, so their qps describe these corpora only.
 
 Every phase prints one line with its elapsed seconds before the next
 starts. The last two lines are a JSON object of per-kernel numbers and the
@@ -41,6 +51,8 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import os
 import subprocess
@@ -57,9 +69,9 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # (main-path shapes, rehearsal shapes)
 SIZES = {
     "card": dict(n_docs=524_288, dim=384, batch=256, n_batches=8,
-                 n_background=30_000, s_max=16),
+                 n_background=30_000, s_max=16, probes=(2, 4, 8, 16)),
     "cpu": dict(n_docs=9_216, dim=128, batch=32, n_batches=2,
-                n_background=2_000, s_max=1),
+                n_background=2_000, s_max=1, probes=(2, 4)),
 }
 # Two synthetic corpora, neither taken from a published source. Each is
 # (docs a topic, words a doc from its topic's vocabulary,
@@ -83,6 +95,10 @@ KERNEL_META = {
                      "hybridsearch_tpu/ops/pallas_supertile.py:33"),
     "place_windows": ("hybridsearch_tpu_torch/csrc/place_windows.cu",
                       "hybridsearch_tpu/ops/pallas_supertile.py:394"),
+    "super_scores_dedup": ("hybridsearch_tpu_torch/csrc/super_scores.cu",
+                           "hybridsearch_tpu/ops/pallas_supertile.py:110"),
+    "place_fused": ("hybridsearch_tpu_torch/csrc/place_fused.cu",
+                    "hybridsearch_tpu/ops/pallas_supertile.py:249"),
     "slice_runs": ("hybridsearch_tpu_torch/csrc/slice_runs.cu",
                    "hybridsearch_tpu/ops/pallas_impact.py:39"),
     "rescore": ("hybridsearch_tpu_torch/csrc/impact_rescore.cu",
@@ -93,6 +109,9 @@ KERNEL_META = {
 PATHS = {
     "clustered": ("supertile_ladder", ("tile_stats", "super_scores",
                                        "place_windows")),
+    # the same ladder with EngineConfig.perf.scores_dedup and .place_fused
+    "clustered/levers": ("supertile_ladder", ("tile_stats", "super_scores_dedup",
+                                              "place_fused")),
     "source": ("impact_ladder", ("tile_stats", "slice_runs", "rescore")),
 }
 # (T, p, C) of the impact kernels' checks: the three rungs of the impact
@@ -203,6 +222,85 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     print(f"    place_windows err {e3:.3g} (tol 1e-6)", flush=True)
     if not e3 <= 1e-6:
         raise AssertionError("place_windows disagrees with its plain version")
+    sync(dev)
+
+
+def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
+    """K4 and K5 at the slice's widths. K4 bit-equal to K2 at every probe
+    count of the ladder, float32 and bf16, on a batch whose first half
+    probes three shared supertiles (runs of more than 32 equal pairs) and
+    whose first row probes a supertile past the end (clamped chunks), and
+    within 1e-5 of its plain version. K5 bit-equal to the staged windows +
+    K3 and to its plain version, on a CSR whose windows overflow the 8,192
+    cap, with empty windows and probes past the position table, at
+    B*S = 2B rows and wcaps = (8192,)*8 (the shape at which the TPU kernel
+    faulted) and a mixed cap tuple."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        place_fused, place_fused_plain, place_windows, super_scores,
+        super_scores_dedup, super_scores_dedup_plain, window_entries)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    N, D, B = sz["n_docs"], sz["dim"], sz["batch"]
+    docs = unit_rows(gen, N, D, dev)
+    q = unit_rows(gen, B, D, dev)
+    sd = 16384 if N >= 16384 else 1024
+    n_sup = N // sd
+    for S in sz["probes"]:
+        sup = torch.randint(0, n_sup, (B, S), generator=gen, device=dev)
+        sup[: B // 2] = torch.randint(0, 3, (B // 2, S), generator=gen, device=dev)
+        sup[0, -1] = n_sup + 3
+        sup = torch.sort(sup, dim=1).values.int()
+        tid, qid, _rep, inv = st.dedup_pairs(sup)
+        for dt in (torch.float32, torch.bfloat16):
+            d_t, q_t = docs.to(dt), q.to(dt)
+            k4 = super_scores_dedup(q_t[qid], d_t, tid, sd)
+            same = torch.equal(k4[inv].reshape(B, S * sd), super_scores(q_t, d_t, sup, sd))
+            err = max_err(k4[:64], super_scores_dedup_plain(q_t[qid][:64], d_t, tid[:64], sd))
+            print(f"    super_scores_dedup S={S} {str(dt)[6:]}: bit-equal to "
+                  f"super_scores {same}, err {err:.3g} against its plain "
+                  "version (tol 1e-5)", flush=True)
+            if not (same and err <= 1e-5):
+                raise AssertionError(f"super_scores_dedup disagrees at S={S} ({dt})")
+        del k4
+    del docs
+
+    # a doc-sorted CSR: every 8th term in 60% of the docs (windows past the
+    # 8,192 cap in 16,384-doc supertiles), the rest in 1-30%
+    rng = np.random.default_rng(seed + 3)
+    V = 64
+    t_l, d_l = [], []
+    for term in range(V):
+        frac = 0.6 if term % 8 == 0 else float(rng.uniform(0.01, 0.3))
+        hit = np.flatnonzero(rng.random(N) < frac)
+        t_l.append(np.full(len(hit), term))
+        d_l.append(hit)
+    t_a, d_a = np.concatenate(t_l), np.concatenate(d_l)
+    w_a = (rng.random(len(t_a)) * 8 + 0.01).astype(np.float32)
+    sp = st.build_super_postings(t_a, d_a, w_a, N, V, dev)
+    term_ids = torch.from_numpy(rng.integers(0, V + 1, (B, 8))).to(dev)
+    sup_s = torch.from_numpy(np.sort(rng.integers(0, sp.n_super + 1, (B, 2)),
+                                     axis=1)).to(dev)
+    any_ovf = False
+    for wcaps in ((8192,) * 8, (8192, 2048, 2048, 2048, 512, 512, 512, 512)):
+        lo, hi, base, ovf = st._flat_windows(sp.sup_pos, term_ids, sup_s,
+                                             sp.super_docs, wcaps)
+        got = place_fused(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps, sp.super_tiles)
+        sync(dev)
+        l_w, w_w = window_entries(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps)
+        two = torch.equal(got, place_windows(l_w, w_w, sp.super_tiles))
+        plain = torch.equal(got, place_fused_plain(lo, hi, base, sp.ids_rows,
+                                                   sp.ws_rows, wcaps, sp.super_tiles))
+        any_ovf = any_ovf or bool(ovf.any())
+        print(f"    place_fused wcaps={wcaps} B*S={lo.shape[0]}: {int(ovf.sum())} "
+              f"queries overflow, {int((lo == hi).sum())} empty windows; bit-equal "
+              f"to window gather + place_windows {two}, to its plain version "
+              f"{plain}", flush=True)
+        if not (two and plain):
+            raise AssertionError(f"place_fused disagrees at wcaps={wcaps}")
+    if not any_ovf:
+        raise AssertionError("the place_fused check had no overflowing window")
     sync(dev)
 
 
@@ -383,6 +481,7 @@ class Capture:
 
 
 KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6,
+              "super_scores_dedup": 1e-5, "place_fused": 0.0,
               "slice_runs": 0.0, "rescore": 0.0}
 
 
@@ -395,6 +494,10 @@ def kernel_fns(name: str):
                              cuda_supertile.super_scores_plain),
             "place_windows": (cuda_supertile.place_windows,
                               cuda_supertile.place_windows_plain),
+            "super_scores_dedup": (cuda_supertile.super_scores_dedup,
+                                   cuda_supertile.super_scores_dedup_plain),
+            "place_fused": (cuda_supertile.place_fused,
+                            cuda_supertile.place_fused_plain),
             "slice_runs": (cuda_impact.slice_runs, cuda_impact.slice_runs_plain),
             "rescore": (cuda_impact.rescore, cuda_impact.rescore_plain)}[name]
 
@@ -482,6 +585,109 @@ def super_scores_by_probe(cap: Capture, dev: torch.device) -> list:
     return rows
 
 
+@contextlib.contextmanager
+def _restoring_launches(*kernels):
+    """Run comparison calls without counting them as the path's launches."""
+    before = [k.launches for k in kernels]
+    try:
+        yield
+    finally:
+        for k, n in zip(kernels, before):
+            k.launches = n
+
+
+def _timed(fn, dev) -> tuple:
+    """(ms, device ms) of one call: events around back-to-back calls, and
+    CUDA graph replays (None off the card)."""
+    return time_ms(fn, dev, reps=10, warmup=2), (device_ms(fn) if dev.type == "cuda"
+                                                  else None)
+
+
+def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
+    """K4 and K5 at every rung of the levers run's warm-up batch, on the
+    path's own inputs (``caps``: its captures of dedup_pairs, K4 and K5,
+    one call of each a rung), beside the default route's kernels on the
+    same work. K4 beside K2 on the same sorted pairs (bit-equal), and the
+    whole dedup route (dedup_pairs, query-row gather, K4, unpermute) beside
+    K2 on the rung's probe table (bit-equal). K5 beside the window gather
+    + K3 on the same window bounds (bit-equal), with the gather alone and
+    K3 alone."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    dp, k4cap, k5cap = (caps[n] for n in ("dedup_pairs", "super_scores_dedup",
+                                          "place_fused"))
+    if not len(dp.calls) == len(k4cap.calls) == len(k5cap.calls):
+        raise AssertionError("the levers run's rungs did not each run K4 and K5")
+    rows4, rows5 = [], []
+    probes = {}
+    for i, (args, kwargs) in sorted(k4cap.calls.items()):
+        sup_s = dp.calls[i][0][0]
+        B, S = sup_s.shape
+        probes[i] = S
+        qp, docs, tid, sd = args[:4]
+        row = {"S": S, "B": B}
+        row.update(kernel_row("super_scores_dedup", args, kwargs, dev, plain_reps=1))
+        with _restoring_launches(cs.super_scores, cs.super_scores_dedup):
+            k2_pairs = lambda: cs.super_scores(qp, docs, tid.reshape(-1, 1), sd)  # noqa: E731
+            same = torch.equal(cs.super_scores_dedup(*args, **kwargs), k2_pairs())
+            row["k2_same_pairs_ms"], row["k2_same_pairs_device_ms"] = _timed(k2_pairs, dev)
+            q3 = qp[st.dedup_pairs(sup_s)[3]].reshape(B, S, -1)[:, 0]
+
+            def route():
+                t_, qid, _rep, inv = st.dedup_pairs(sup_s)
+                return cs.super_scores_dedup(q3[qid], docs, t_, sd)[inv].reshape(B, -1)
+
+            k2 = lambda: cs.super_scores(q3, docs, sup_s, sd)  # noqa: E731
+            same_route = torch.equal(route(), k2())
+            row["route_ms"], row["route_device_ms"] = _timed(route, dev)
+            row["k2_ms"], row["k2_device_ms"] = _timed(k2, dev)
+        row["bit_equal_to_k2"] = same and same_route
+        if not row["bit_equal_to_k2"]:
+            raise AssertionError(f"super_scores_dedup differs from super_scores at S={S}")
+        rows4.append(row)
+    for i, (args, kwargs) in sorted(k5cap.calls.items()):
+        S = probes[i]
+        lo, hi, base, ids_rows, ws_rows, wcaps = args[:6]
+        st_ = args[6] if len(args) > 6 else kwargs.get("super_tiles", 128)
+        row = {"S": S, "BS": int(lo.shape[0]), "wcaps": list(wcaps)}
+        row.update(kernel_row("place_fused", args, kwargs, dev, plain_reps=1))
+        with _restoring_launches(cs.place_fused, cs.place_windows):
+            gather = lambda: cs.window_entries(lo, hi, base, ids_rows, ws_rows, wcaps)  # noqa: E731
+            l_w, w_w = gather()
+            k3 = lambda: cs.place_windows(l_w, w_w, st_)  # noqa: E731
+            two = lambda: cs.place_windows(*gather(), st_)  # noqa: E731
+            row["bit_equal_to_two_step"] = torch.equal(cs.place_fused(*args, **kwargs), two())
+            row["two_step_ms"], row["two_step_device_ms"] = _timed(two, dev)
+            row["gather_ms"], row["gather_device_ms"] = _timed(gather, dev)
+            row["k3_ms"], row["k3_device_ms"] = _timed(k3, dev)
+            del l_w, w_w
+        if not row["bit_equal_to_two_step"]:
+            raise AssertionError(f"place_fused differs from the two-step path at S={S}")
+        rows5.append(row)
+    if show:
+        f = lambda x: "n/a" if x is None else f"{x:.4f}"  # noqa: E731
+        for r in rows4:
+            print(f"    super_scores_dedup S={r['S']} B={r['B']}: {f(r['ms'])} ms "
+                  f"(device {f(r['device_ms'])}); route with dedup_pairs, gather and "
+                  f"unpermute {f(r['route_ms'])} (device {f(r['route_device_ms'])}); "
+                  f"super_scores {f(r['k2_ms'])} (device {f(r['k2_device_ms'])}), on "
+                  f"the same sorted pairs {f(r['k2_same_pairs_ms'])} (device "
+                  f"{f(r['k2_same_pairs_device_ms'])}); bound {f(r['bound_ms'])} "
+                  f"({r['bound_by']}), plain {f(r['plain_ms'])}, library "
+                  f"{f(r['library_ms'])} ms; bit-equal to super_scores", flush=True)
+        for r in rows5:
+            print(f"    place_fused S={r['S']} B*S={r['BS']} wcaps={r['wcaps']}: "
+                  f"{f(r['ms'])} ms (device {f(r['device_ms'])}); window gather + "
+                  f"place_windows {f(r['two_step_ms'])} (device "
+                  f"{f(r['two_step_device_ms'])}), gather {f(r['gather_ms'])} (device "
+                  f"{f(r['gather_device_ms'])}), place_windows {f(r['k3_ms'])} (device "
+                  f"{f(r['k3_device_ms'])}); bound {f(r['bound_ms'])} "
+                  f"({r['bound_by']}), plain {f(r['plain_ms'])}, library "
+                  f"{f(r['library_ms'])} ms; bit-equal to the two-step path", flush=True)
+    return rows4, rows5
+
+
 def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list:
     """K6 and K7 at every shape the batches gave them (K6 by slice depth p,
     K7 by (C, p): one rescore of the candidate union a rung, one of the
@@ -564,6 +770,43 @@ def _bound_and_library(name, args, kwargs):
         def library():
             # the whole corpus by cuBLAS float32, then the probed columns
             torch.gather(torch.matmul(q, docs.T), 1, rows)
+    elif name == "super_scores_dedup":
+        from hybridsearch_tpu_torch.ops.cuda_supertile import _chunk_rows
+
+        qp, docs, tid, sd = args[0], args[1], args[2], args[3]
+        ch = kwargs.get("ch", args[4] if len(args) > 4 else 1024)
+        P, D = qp.shape
+        rows = _chunk_rows(tid.reshape(-1, 1), docs.shape[0], sd, ch)  # [P, sd]
+        unique_rows = int(torch.unique(rows).numel())
+        nbytes = (unique_rows * D * docs.element_size() + P * D * qp.element_size()
+                  + P * 4 + P * sd * 4)
+        flops = 2.0 * P * sd * D
+
+        def library():
+            # the whole corpus by cuBLAS float32 for every pair's query row,
+            # then each pair's rows
+            torch.gather(torch.matmul(qp, docs.T), 1, rows)
+    elif name == "place_fused":
+        from hybridsearch_tpu_torch.ops.cuda_supertile import window_entries
+
+        lo, hi, base, ids_rows, ws_rows, wcaps = args[:6]
+        st = args[6] if len(args) > 6 else kwargs.get("super_tiles", 128)
+        R = st * 128
+        BS, T = lo.shape
+        caps = torch.tensor([wc // 128 + 1 for wc in wcaps], device=lo.device)
+        end = torch.minimum(hi.long(), (lo.long() // 128 + caps) * 128)
+        n_read = int((end - lo.long()).clamp_min(0).sum())
+        # the window entries read (id and weight), the bounds, the output
+        nbytes = n_read * 8 + BS * T * 8 + BS * 4 + BS * R * 4
+        flops = float(n_read)
+        buf = torch.zeros(BS * R + 1, device=lo.device)
+        rowoff = torch.arange(BS, device=lo.device)[:, None] * R
+
+        def library():
+            l, w = window_entries(lo, hi, base, ids_rows, ws_rows, wcaps)
+            ok = (l >= 0) & (l < R)
+            buf.zero_().index_add_(0, torch.where(ok, l.long() + rowoff, BS * R).reshape(-1),
+                                   w.reshape(-1))
     elif name == "place_windows":
         l, w = args[0], args[1]
         st = args[2] if len(args) > 2 else kwargs.get("super_tiles", 128)
@@ -826,15 +1069,18 @@ def main(argv=None) -> int:
 
     # -- 3. kernels
     check_kernels(sz, dev, args.seed)
+    check_gated_kernels(sz, dev, args.seed)
     check_impact_kernels(sz, dev, args.seed,
                          IMPACT_SHAPES["cpu" if rehearsal else "card"])
-    clock.phase("kernels", "K1-K3, K6, K7 match their plain versions at the "
-                "slice's shapes")
+    clock.phase("kernels", "K1-K7 match their plain versions at the slice's "
+                "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit")
 
     # -- 4. end to end: the clustered path on the small-topic corpus, then
-    # -- 5. its kernels on their own inputs and the P1 check; then the
+    # -- 5. its kernels on their own inputs; the same index again with the two
+    # -- perf levers (K4, K5) and their kernels; the P1 check; then the
     # -- default (source) layout's path on the same corpus and its kernels;
-    # -- last the large-topic corpus on the clustered path
+    # -- regime 1 (below the at-scale threshold); last the large-topic corpus
+    # -- on the clustered path
     detail = {"device": smi, "corpora": {}}
     rec = BuildRecorder()
     try:
@@ -851,7 +1097,19 @@ def main(argv=None) -> int:
         detail["super_scores_by_probe"] = super_scores_by_probe(
             run["captures"]["super_scores"], dev)
         clock.phase("kernel timing", "main-path inputs")
-    del run
+
+    lev = serve_levers(run, sz, dev, clock, kind, smi)
+    detail["corpora"]["small-topic/levers"] = lev["stats"]
+    caps = {name: lev["captures"][name] for name in ("super_scores_dedup", "place_fused")}
+    numbers += kernel_numbers(caps, lev["launches"], dev)
+    rows4, rows5 = levers_by_probe(lev["captures"], dev, show=not rehearsal)
+    if rehearsal:
+        clock.phase("levers kernel timing", f"{len(rows4)} + {len(rows5)} rungs "
+                    "checked on main-path inputs; times not reported (cpu rehearsal)")
+    else:
+        detail["levers_by_probe"] = {"super_scores_dedup": rows4, "place_fused": rows5}
+        clock.phase("levers kernel timing", "small-topic/levers main-path inputs")
+    del run, lev, caps
     clock.phase("P1 check", "small-topic: " + check_p1(rec))
     del rec
 
@@ -869,9 +1127,13 @@ def main(argv=None) -> int:
         clock.phase("impact kernel timing", "small-topic/source main-path inputs")
     del run, caps
 
+    detail["regime_1"] = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
+
     detail["corpora"]["large-topic"] = serve_corpus(
         "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
         main_path=False)["stats"]
+    order = list(KERNEL_META)
+    numbers.sort(key=lambda row: order.index(row["name"]))
 
     if rehearsal:
         # plain versions on the host: no device numbers to report
@@ -902,28 +1164,31 @@ def _path_captures(layout: str) -> dict:
                 "super_scores": Capture(supertile_mod, "super_scores",
                                         key=lambda a: int(a[2].shape[1])),
                 "place_windows": Capture(supertile_mod, "place_windows")}
+    if layout == "clustered/levers":
+        # keyed by the call's rung in the warm-up batch (each rung launches
+        # each kernel once; pair and row counts repeat across rungs)
+        rung0, rung4, rung5 = itertools.count(), itertools.count(), itertools.count()
+        return {"tile_stats": Capture(dense_mod, "tile_stats"),
+                "dedup_pairs": Capture(supertile_mod, "dedup_pairs",
+                                       key=lambda a: next(rung0)),
+                "super_scores_dedup": Capture(supertile_mod, "super_scores_dedup",
+                                              key=lambda a: next(rung4)),
+                "place_fused": Capture(supertile_mod, "place_fused",
+                                       key=lambda a: next(rung5))}
     return {"tile_stats": Capture(dense_mod, "tile_stats"),
             "slice_runs": Capture(impact_mod, "slice_runs", key=lambda a: int(a[4])),
             "rescore": Capture(impact_mod, "rescore",
                                key=lambda a: (int(a[0].shape[1]), int(a[3])))}
 
 
-def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
-                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
-    """Index one corpus under ``layout`` through ``Indexer.index_documents``,
-    serve one warm-up and ``n_batches`` timed batches through
-    ``search_batch``, and hold every certified row against the plain exact
-    reference. The path's kernels' counts are set to 0 just before the
-    timed batches and read just after; on a main path, the kernel calls of
-    the warm-up and timed batches are captured. Returns {"stats",
-    "launches", "captures"}."""
+def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
+                 clock: Clock, label: str, at_scale: bool = True):
+    """Index one corpus under ``layout`` through ``Indexer.index_documents``
+    and, ``at_scale``, build its ladder's lexical structures. Returns
+    (searcher, make_queries, index timings)."""
     from hybridsearch_tpu_torch.config import EngineConfig
-    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
-    on_card = dev.type == "cuda"
-    label = corpus if layout == "clustered" else f"{corpus}/{layout}"
-    ladder_name, kernel_names = PATHS[layout]
     docs, make_queries = make_corpus(sz, corpus, seed)
     clock.phase("corpus", f"{label}: {len(docs)} docs, "
                 f"{sum(len(d) for d in docs)} chars")
@@ -937,7 +1202,9 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     clock.phase("index_documents", f"{label}: {stages}")
     t = time.perf_counter()
     bm25 = searcher.indexer.bm25
-    if layout == "clustered":
+    if not at_scale:
+        pass  # regime 1 scores BM25 from the CSR itself
+    elif layout == "clustered":
         sp = bm25.super_postings()
         sync(dev)
         clock.phase("super_postings", f"{label}: {time.perf_counter() - t:.1f} s, "
@@ -950,7 +1217,41 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
                     f"{len(imp.weights_host)} pruned postings (p_max "
                     f"{imp.p_max}; {n_trunc} of {len(imp.df_host)} terms "
                     "truncated)")
+    return searcher, make_queries, built["timings_s"]
 
+
+def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
+                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
+    """Index one corpus (``index_corpus``) and serve it (``serve_batches``):
+    one warm-up and ``n_batches`` timed batches. Returns serve_batches'
+    dict plus "searcher", "warm" and "batches"."""
+    label = corpus if layout == "clustered" else f"{corpus}/{layout}"
+    searcher, make_queries, timings = index_corpus(corpus, layout, sz, dev, seed,
+                                                   clock, label)
+    warm = make_queries(sz["batch"])
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+    run = serve_batches(searcher, label, layout, warm, batches, sz, dev, clock,
+                        kind, smi, main_path)
+    run["stats"]["index_timings_s"] = timings
+    run.update(searcher=searcher, warm=warm, batches=batches)
+    return run
+
+
+def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
+                  dev: torch.device, clock: Clock, kind: str, smi: str,
+                  main_path: bool) -> dict:
+    """Serve ``warm`` and then the timed ``batches`` through ``search_batch``
+    on the route ``path`` (``PATHS``), and hold every certified row against
+    the plain exact reference. The path's kernels' counts are set to 0 just
+    before the timed batches and read just after; on a main path, the
+    kernel calls of the warm-up (and, on the impact ladder, the timed)
+    batches are captured. Returns {"stats", "launches", "captures",
+    "results", "exact"}."""
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    on_card = dev.type == "cuda"
+    clustered = path.startswith("clustered")
+    ladder_name, kernel_names = PATHS[path]
     ladders = []
     real_ladder = getattr(searcher_mod, ladder_name)
 
@@ -960,15 +1261,14 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
         return st, rungs
 
     setattr(searcher_mod, ladder_name, recording_ladder)
-    captures = _path_captures(layout) if main_path else {}
+    captures = _path_captures(path) if main_path else {}
     try:
-        searcher.search_batch(make_queries(sz["batch"]), top_k=TOP_K, log=False)
-        if layout == "clustered":
+        searcher.search_batch(warm, top_k=TOP_K, log=False)
+        if clustered:
             for cap in captures.values():
                 cap.restore()
-        clock.phase("warm-up batch", f"{label}: {sz['batch']} queries")
+        clock.phase("warm-up batch", f"{label}: {len(warm)} queries")
 
-        batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
         ladders.clear()
         kernels = {name: kernel_fns(name)[0] for name in kernel_names}
         for fn in kernels.values():
@@ -990,11 +1290,11 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     if on_card and min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     rungs = [r for _e, r in ladders]
-    if (on_card and main_path and layout == "clustered"
+    if (on_card and main_path and clustered
             and max(rungs) < len(searcher_mod._SUPER_LADDER)):
         raise AssertionError(f"the main path never reached the ladder's last "
                              f"rung: rungs {rungs}")
-    n_q = sz["batch"] * len(batches)
+    n_q = sum(len(qs) for qs in batches)
     qps = n_q / sum(lat)
     p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
     exact = np.concatenate([e for e, _r in ladders])
@@ -1004,15 +1304,10 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     if on_card and main_path:
         clock.phase("profile", f"{label}: " + profile_batch(searcher, batches[0]))
 
-    sw, lw = cfg.fusion.semantic_weight, cfg.fusion.lexical_weight
-    checked = best_effort_ok = 0
-    jaccards = []
-    for qs, res, (ex, _r) in zip(batches, results, ladders):
-        rv, ri, fused = reference_topk(searcher, qs, TOP_K, sw, lw)
-        c, b, jac = check_against_reference(res, ex, rv, ri, fused)
-        checked, best_effort_ok = checked + c, best_effort_ok + b
-        jaccards += jac
-        del fused
+    fu = searcher.config.fusion
+    checked, best_effort_ok, jaccards = check_batches(
+        searcher, batches, results, [e for e, _r in ladders], fu.semantic_weight,
+        fu.lexical_weight)
     jac_mean = float(np.mean(jaccards)) if jaccards else None
     clock.phase("reference", f"{label}: {checked} certified rows match the "
                 f"plain exact fused reference; {best_effort_ok} of "
@@ -1024,14 +1319,111 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
           f"{smi}; unsourced synthetic corpus)", flush=True)
     if not exact.any():
         raise AssertionError("no query was certified")
-    stats = {"layout": layout, "certified": float(exact.mean()),
+    stats = {"path": path, "certified": float(exact.mean()),
              "n_certified": int(exact.sum()), "n_queries": int(exact.size),
              "best_effort_match": best_effort_ok,
              "uncertified_jaccard_mean": jac_mean, "rungs": rungs, "qps": qps,
              "p50_ms": float(p50), "p99_ms": float(p99),
-             "batch_ms": [x * 1e3 for x in lat], "launches": launches,
-             "index_timings_s": built["timings_s"]}
-    return {"stats": stats, "launches": launches, "captures": captures}
+             "batch_ms": [x * 1e3 for x in lat], "launches": launches}
+    return {"stats": stats, "launches": launches, "captures": captures,
+            "results": results, "exact": exact}
+
+
+def serve_levers(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                 smi: str) -> dict:
+    """The small-topic clustered index of ``run``, not re-indexed, served
+    again with ``perf.scores_dedup = perf.place_fused = True``: the same
+    warm-up and timed batches. Its certified flags, ids and values must
+    equal the default run's bit for bit (and serve_batches holds every
+    certified row against the exact reference)."""
+    perf = run["searcher"].config.perf
+    perf.scores_dedup = perf.place_fused = True
+    try:
+        lev = serve_batches(run["searcher"], "small-topic/levers", "clustered/levers",
+                            run["warm"], run["batches"], sz, dev, clock, kind, smi,
+                            main_path=True)
+    finally:
+        perf.scores_dedup = perf.place_fused = None
+    if not np.array_equal(lev["exact"], run["exact"]):
+        raise AssertionError("the levers run certifies other rows than the default")
+    if lev["results"] != run["results"]:
+        raise AssertionError("the levers run serves other ids or values than the "
+                             "default")
+    d, v = run["stats"], lev["stats"]
+    clock.phase("small-topic/levers", (
+        f"certified flags, ids and values equal the default run's bit for bit; "
+        f"levers vs default: certified {v['n_certified']}/{v['n_queries']} vs "
+        f"{d['n_certified']}/{d['n_queries']}, qps {v['qps']:.1f} vs {d['qps']:.1f}, "
+        f"p50 {v['p50_ms']:.2f} vs {d['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} vs "
+        f"{d['p99_ms']:.2f} ms ({kind}; {smi}; unsourced synthetic corpus)"))
+    return lev
+
+
+def serve_regime_one(sz: dict, dev: torch.device, seed: int, clock: Clock,
+                     kind: str, smi: str) -> dict:
+    """Regime 1: small-topic's generator at a quarter of the size, under the
+    default ``layout="source"``, below ``SPARSE_HYBRID_MIN_DOCS``, so
+    ``search_batch`` takes ``_hybrid_one_program`` (full [B, n] cosine,
+    bucketed BM25 summed run column by run column, exact fusion). One
+    warm-up and the timed batches; the first batch is served again and
+    must be equal bit for bit, and every row must equal the exact
+    reference."""
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    small = dict(sz, n_docs=sz["n_docs"] // 4)
+    saved_min, real = searcher_mod.SPARSE_HYBRID_MIN_DOCS, searcher_mod._hybrid_one_program
+    calls = []
+    searcher_mod.SPARSE_HYBRID_MIN_DOCS = max(saved_min, small["n_docs"] + 1)
+    searcher_mod._hybrid_one_program = (
+        lambda *a, **k: calls.append(1) or real(*a, **k))
+    try:
+        searcher, make_queries, timings = index_corpus(
+            "small-topic", "source", small, dev, seed, clock, "regime 1", at_scale=False)
+        searcher.search_batch(make_queries(sz["batch"]), top_k=TOP_K, log=False)
+        batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+        calls.clear()
+        lat, results = [], []
+        for qs in batches:
+            t = time.perf_counter()
+            results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
+            lat.append(time.perf_counter() - t)
+        again = searcher.search_batch(batches[0], top_k=TOP_K, log=False)
+    finally:
+        searcher_mod.SPARSE_HYBRID_MIN_DOCS = saved_min
+        searcher_mod._hybrid_one_program = real
+    if len(calls) != len(batches) + 1:
+        raise AssertionError("regime 1 did not take _hybrid_one_program")
+    if again != results[0]:
+        raise AssertionError("regime 1: two servings of one batch differ")
+    fu = searcher.config.fusion
+    checked, _b, _j = check_batches(searcher, batches, results,
+                                    [np.ones(len(qs), bool) for qs in batches],
+                                    fu.semantic_weight, fu.lexical_weight)
+    n_q = sum(len(qs) for qs in batches)
+    qps = n_q / sum(lat)
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    clock.phase("regime 1", (
+        f"{small['n_docs']} docs: the same batch served twice is equal bit for "
+        f"bit; all {checked} rows match the plain exact fused reference; qps "
+        f"{qps:.1f}, batch latency p50 {p50:.2f} ms p99 {p99:.2f} ms (B={sz['batch']}, "
+        f"{kind}; {smi}; unsourced synthetic corpus)"))
+    return {"n_docs": small["n_docs"], "qps": qps, "p50_ms": float(p50),
+            "p99_ms": float(p99), "batch_ms": [x * 1e3 for x in lat],
+            "rows_checked": checked, "repeat_equal": True, "index_timings_s": timings}
+
+
+def check_batches(searcher, batches, results, exact_rows, sw: float, lw: float):
+    """check_against_reference over every batch: (certified rows checked,
+    uncertified rows that match anyway, jaccard@k of the uncertified)."""
+    checked = best_effort_ok = 0
+    jaccards = []
+    for qs, res, ex in zip(batches, results, exact_rows):
+        rv, ri, fused = reference_topk(searcher, qs, TOP_K, sw, lw)
+        c, b, jac = check_against_reference(res, ex, rv, ri, fused)
+        checked, best_effort_ok = checked + c, best_effort_ok + b
+        jaccards += jac
+        del fused
+    return checked, best_effort_ok, jaccards
 
 
 if __name__ == "__main__":

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass
@@ -111,12 +112,25 @@ class IndexConfig:
 
 @dataclass
 class PerfConfig:
-    """Serving-kernel levers. The JAX package's levers here (placement
-    layout, chunk skipping, tile-stats sub-chunking, dedup) pin TPU
-    compiler choices with bit-identical output; they are not semantics and
-    have no counterpart on the card, so the port keeps the section empty
-    (configs written by the JAX package still load: unknown keys are
-    ignored)."""
+    """Serving-kernel levers of the supertile ladder, under the JAX
+    package's key names, so a JAX-written config selects the same route.
+    None means off, as the JAX package with its env gate unset; the port
+    reads no environment variable for them.
+
+      * ``scores_dedup``: resident scores from pairs the caller sorted by
+        supertile (``dedup_pairs`` + kernel K4 ``super_scores_dedup``)
+        instead of K2's in-launch pair sort, when B*S % 8 == 0;
+      * ``place_fused``: resident lexical buffers read straight from the
+        CSR (kernel K5 ``place_fused``) instead of staged windows + K3.
+
+    Both give the default route's results bit for bit. The JAX package's
+    other five keys (``dedup_mxu``, ``pallas_tpb``, ``tile_stats_sub``,
+    ``place_tlhs``, ``place_skip``) pick among TPU compiler layouts and
+    block shapes of one result; the card's kernels have no such choices,
+    so those keys are ignored on load."""
+
+    place_fused: Optional[bool] = None
+    scores_dedup: Optional[bool] = None
 
 
 @dataclass

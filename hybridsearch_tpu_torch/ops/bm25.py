@@ -152,16 +152,20 @@ def bm25_scores_runs(
     width: int,
 ) -> torch.Tensor:
     """[B, n_docs] scores from (start, length) posting-run pieces: one
-    gather of [B, T, width] slices, one scatter-add (masked slots land in
-    a dropped column)."""
-    B = starts.shape[0]
+    gather of [B, T, width] slices, then one scatter-add per run column in
+    term order (masked slots land in a dropped column). A row's piece holds
+    each doc at most once, so a column's adds touch distinct cells and no
+    atomic order enters the sum: every doc sums its terms in column order,
+    as the JAX package's index-order add does, on the card as on the CPU."""
+    B, T = starts.shape
     iota = torch.arange(width, device=doc_ids.device)
     pos = starts.long()[:, :, None] + iota  # [B, T, W]
     valid = iota < lengths.long()[:, :, None]
     ids = torch.where(valid, doc_ids[pos].long(), n_docs)
     ws = torch.where(valid, weights[pos], 0.0)
     out = torch.zeros((B, n_docs + 1), dtype=torch.float32, device=doc_ids.device)
-    out.scatter_add_(1, ids.reshape(B, -1), ws.reshape(B, -1))
+    for t in range(T):
+        out.scatter_add_(1, ids[:, t], ws[:, t])
     return out[:, :n_docs]
 
 

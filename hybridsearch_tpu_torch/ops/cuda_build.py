@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
 
-One ``nvcc`` command compiles every source into one shared library with a
-plain C interface, which ``ctypes`` loads: no PyTorch headers, so the build
-takes seconds. The library is built at first use into ``_build/`` beside
-the package (listed in ``.gitignore``), under a name that hashes the
-sources and flags, so an edited source never loads a stale binary. It is
-written to a temporary name and moved into place with ``os.replace``, so
+One ``nvcc`` a source, all started together, compiles each source to an
+object; one more links them into a shared library with a plain C
+interface, which ``ctypes`` loads: no PyTorch headers, so the build takes
+seconds. The library is built at first use into ``_build/`` beside the
+package (listed in ``.gitignore``), under a name that hashes the sources
+and flags, so an edited source never loads a stale binary. It is written
+to a temporary name and moved into place with ``os.replace``, so
 processes that build at once never load a half-written file.
 
 Every launcher returns ``cudaGetLastError()`` after its launch; the
@@ -30,10 +31,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("tile_stats.cu", "super_scores.cu", "place_windows.cu",
-           "slice_runs.cu", "impact_rescore.cu")
+           "place_fused.cu", "slice_runs.cu", "impact_rescore.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,7 +45,9 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "hst_tile_stats": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P),
     "hst_super_scores": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hst_super_scores_dedup": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P),
     "hst_place_windows": (_P, _P, _L, _L, _I, _P, _P),
+    "hst_place_fused": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),
     "hst_slice_runs": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
     "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
 }
@@ -79,22 +82,33 @@ def build() -> dict:
     if os.path.exists(out):
         return {"path": out, "seconds": 0.0, "log": "", "cached": True}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *srcs]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, os.path.basename(src) + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outs = [proc.communicate()[0] for proc in procs]
+        tmp = os.path.join(work, "lib.so")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", tmp, *objs]
+        for cmd, proc, text in zip(cmds, procs, outs):
+            log.append(text)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{text}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(link)}\n{log[-1]}")
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return {"path": out, "seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr, "cached": False}
+            "log": "".join(log), "cached": False}
 
 
 def library() -> ctypes.CDLL:

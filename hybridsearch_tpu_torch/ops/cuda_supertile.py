@@ -1,28 +1,39 @@
-"""K2 and K3: the supertile hybrid's resident scoring kernels.
+"""K2-K5: the supertile hybrid's resident scoring kernels.
 
 Counterpart of ``hybridsearch_tpu/ops/pallas_supertile.py``:
 
-  * ``super_scores`` (``csrc/super_scores.cu``) replaces
+  * ``super_scores`` (K2, ``csrc/super_scores.cu``) replaces
     ``pallas_super_scores``: [B, S*sd] raw dots of each query with every
     doc row of its S probed supertiles, chunk indices past the end clamped
     to the last chunk. The caller applies bias and validity.
-  * ``place_windows`` (``csrc/place_windows.cu``) replaces
+  * ``super_scores_dedup`` (K4, the same source) replaces
+    ``pallas_super_scores_dedup``: [P, sd] raw dots of pre-gathered
+    per-pair query rows with the rows of supertile ``tid[p]``, for pairs
+    the caller sorted by supertile (``ops/supertile.py dedup_pairs``);
+    the same bits as K2 for each pair.
+  * ``place_windows`` (K3, ``csrc/place_windows.cu``) replaces
     ``pallas_place_windows``: [BS, super_tiles, 128] resident lexical
     buffers, ``out[bs, l // 128, l % 128] += w`` for 0 <= l < super_tiles*128.
+  * ``place_fused`` (K5, ``csrc/place_fused.cu``) replaces
+    ``pallas_place_fused``: the same buffers read straight from the CSR
+    windows [lo, hi) of each term slot, with no staged window arrays; the
+    same bits as ``window_entries`` + K3.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version only for CPU tensors. ``pallas_super_scores_dedup`` (K4) and
-``pallas_place_fused`` (K5) are off by default in the JAX package and are
-still to port.
+version only for CPU tensors. K4 and K5 serve the ladder when
+``EngineConfig.perf.scores_dedup`` / ``perf.place_fused`` are set.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from hybridsearch_tpu_torch.ops import cuda_build
 
 TILE = 128
+ROW = 128  # CSR row width (SuperPostings.ids_rows) of the windows' whole-row reads
 # rows a super_scores block scores and (query, probe) pairs it groups
 SCORE_ROWS, SCORE_PAIRS = 256, 32
 # entries the placement kernel adds between two barriers (one per thread);
@@ -111,6 +122,61 @@ def super_scores(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
 super_scores.launches = 0
 
 
+def super_scores_dedup_plain(qp: torch.Tensor, docs: torch.Tensor,
+                             tid: torch.Tensor, sd: int,
+                             ch: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version: each pair's rows gathered, float32 batched
+    dot (``super_scores_plain`` with one probe a pair)."""
+    return super_scores_plain(qp, docs, tid.reshape(-1, 1), sd, ch)
+
+
+def super_scores_dedup(qp: torch.Tensor, docs: torch.Tensor, tid: torch.Tensor,
+                       sd: int, ch: int = 1024) -> torch.Tensor:
+    """[P, sd] float32 raw scores. ``qp`` [P, D] the query row of each pair
+    in the docs' dtype, ``docs`` as for ``super_scores``, ``tid`` [P]
+    integer supertile ids sorted ascending (any order gives the same
+    values; sorted, each run of equal ids reads its rows once per 32
+    pairs)."""
+    if docs.device.type == "cpu":
+        return super_scores_dedup_plain(qp, docs, tid, sd, ch)
+    if not docs.is_cuda:
+        raise ValueError(f"super_scores_dedup: unsupported device {docs.device}")
+    if docs.dtype not in (torch.float32, torch.bfloat16) or qp.dtype != docs.dtype:
+        raise ValueError(f"super_scores_dedup: dtypes qp {qp.dtype} docs {docs.dtype}")
+    N, D = docs.shape
+    P = tid.shape[0]
+    if tid.dim() != 1 or qp.shape != (P, D):
+        raise ValueError(f"super_scores_dedup: qp {tuple(qp.shape)} vs tid "
+                         f"{tuple(tid.shape)} and D={D}")
+    if N % ch or sd % ch or ch % SCORE_ROWS or D % 128:
+        raise ValueError(f"super_scores_dedup: N={N}, sd={sd}, ch={ch}, D={D} "
+                         f"need N % ch == sd % ch == ch % {SCORE_ROWS} == "
+                         "D % 128 == 0")
+    if P >= 2**31 or (-(-P // SCORE_PAIRS)) >= 2**31:
+        raise ValueError(f"super_scores_dedup: {P} pairs is past the kernel's limits")
+    if not docs.is_contiguous() or docs.data_ptr() % 16:
+        raise ValueError("super_scores_dedup: docs must be contiguous and aligned")
+    if qp.device != docs.device or tid.device != docs.device:
+        raise ValueError("super_scores_dedup: all tensors must be on one device")
+    qf = qp.float().contiguous()
+    t32 = tid.to(torch.int32).contiguous()
+    out = torch.empty((P, sd), dtype=torch.float32, device=docs.device)
+    if P == 0:
+        return out
+    lib = cuda_build.library()
+    rc = lib.hst_super_scores_dedup(
+        docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
+        t32.data_ptr(), N, D, P, sd, ch, out.data_ptr(),
+        torch.cuda.current_stream(docs.device).cuda_stream,
+    )
+    cuda_build.check(rc, "hst_super_scores_dedup")
+    super_scores_dedup.launches += 1
+    return out
+
+
+super_scores_dedup.launches = 0
+
+
 def place_windows_plain(l_flat: torch.Tensor, w_flat: torch.Tensor,
                         super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
     """Plain PyTorch version: scatter-adds chunk by chunk (the kernel's
@@ -160,3 +226,107 @@ def place_windows(l_flat: torch.Tensor, w_flat: torch.Tensor,
 
 
 place_windows.launches = 0
+
+
+def _slot_rows(wcaps) -> list:
+    """Whole CSR rows a slot's window may span at cap ``wc``: a window of
+    at most wc entries from position lo lies in rows lo // ROW ..
+    lo // ROW + wc // ROW."""
+    return [int(wc) // ROW + 1 for wc in wcaps]
+
+
+def window_entries(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
+                   ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
+                   ech: int = PLACE_CHUNK):
+    """The two-step path's staged windows: (l [BS, TEp] int32 local doc ids,
+    w [BS, TEp] float32 weights) from CSR windows ``lo``/``hi`` [BS, T]
+    (absolute positions) of supertiles starting at doc ``base`` [BS]. Slot
+    j reads ``wc // ROW + 1`` whole CSR rows from row ``lo // ROW`` (cap
+    ``wcaps[j]``); entries outside [lo, hi) weigh 0. Each slot's part is
+    padded to whole ``ech`` chunks (l = -1), so no placement chunk mixes
+    two slots."""
+    BS = lo.shape[0]
+    dev = lo.device
+    M = ids_rows.shape[0]
+    base = base.long()
+    parts_l, parts_w = [], []
+    for j, m_j in enumerate(_slot_rows(wcaps)):
+        lo_j, hi_j = lo[:, j].long(), hi[:, j].long()  # [BS]
+        E_j = m_j * ROW
+        row0 = lo_j // ROW
+        rows_idx = (row0[:, None] + torch.arange(m_j, device=dev)).clamp(max=M - 1)
+        wi = ids_rows[rows_idx].reshape(BS, E_j)
+        ww = ws_rows[rows_idx].reshape(BS, E_j)
+        gpos = row0[:, None] * ROW + torch.arange(E_j, device=dev)
+        valid = (gpos >= lo_j[:, None]) & (gpos < hi_j[:, None])
+        w_j = torch.where(valid, ww, 0.0)
+        l_j = (wi.long() - base[:, None]).to(torch.int32)
+        pad_e = -(-E_j // ech) * ech - E_j
+        if pad_e:
+            l_j = torch.nn.functional.pad(l_j, (0, pad_e), value=-1)
+            w_j = torch.nn.functional.pad(w_j, (0, pad_e))
+        parts_l.append(l_j)
+        parts_w.append(w_j)
+    return torch.cat(parts_l, dim=1), torch.cat(parts_w, dim=1)
+
+
+def place_fused_plain(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
+                      ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
+                      super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch version: the staged windows (``window_entries``), then
+    ``place_windows_plain``'s chunk-ordered scatter-add."""
+    l, w = window_entries(lo, hi, base, ids_rows, ws_rows, wcaps)
+    return place_windows_plain(l, w, super_tiles, tile)
+
+
+def place_fused(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
+                ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
+                super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
+    """[BS, super_tiles, tile] float32 resident buffers straight from the
+    CSR: ``lo``/``hi`` [BS, T] integer window bounds, ``base`` [BS]
+    supertile base doc ids, ``ids_rows`` [M, 128] int32 / ``ws_rows``
+    [M, 128] float32 the doc-sorted CSR, ``wcaps`` T per-slot caps
+    (T <= 32). Keeps exactly the entries ``window_entries`` stages."""
+    if lo.device.type == "cpu":
+        return place_fused_plain(lo, hi, base, ids_rows, ws_rows, wcaps,
+                                 super_tiles, tile)
+    if not lo.is_cuda:
+        raise ValueError(f"place_fused: unsupported device {lo.device}")
+    if lo.dim() != 2 or hi.shape != lo.shape or base.shape != lo.shape[:1]:
+        raise ValueError(f"place_fused: shapes lo {tuple(lo.shape)} hi "
+                         f"{tuple(hi.shape)} base {tuple(base.shape)}")
+    BS, T = lo.shape
+    if len(wcaps) != T or T > 32:
+        raise ValueError(f"place_fused: {len(wcaps)} caps for {T} slots (at most 32)")
+    if (ids_rows.dtype != torch.int32 or ws_rows.dtype != torch.float32
+            or ids_rows.shape != ws_rows.shape or ids_rows.dim() != 2
+            or ids_rows.shape[1] != ROW):
+        raise ValueError("place_fused: ids_rows / ws_rows must be [M, 128] "
+                         "int32 / float32")
+    if not (ids_rows.is_contiguous() and ws_rows.is_contiguous()):
+        raise ValueError("place_fused: the CSR rows must be contiguous")
+    if any(t.device != lo.device for t in (hi, base, ids_rows, ws_rows)):
+        raise ValueError("place_fused: all tensors must be on one device")
+    if tile != TILE or super_tiles * tile * 4 > 232448:
+        raise ValueError(f"place_fused: a {super_tiles}x{tile} float buffer "
+                         "is not taken")
+    R = super_tiles * tile
+    lo32 = lo.to(torch.int32).contiguous()
+    hi32 = hi.to(torch.int32).contiguous()
+    base32 = base.to(torch.int32).contiguous()
+    out = torch.empty((BS, R), dtype=torch.float32, device=lo.device)
+    if BS == 0:
+        return out.reshape(BS, super_tiles, tile)
+    rows = (ctypes.c_int * T)(*_slot_rows(wcaps))
+    lib = cuda_build.library()
+    rc = lib.hst_place_fused(
+        lo32.data_ptr(), hi32.data_ptr(), base32.data_ptr(), ids_rows.data_ptr(),
+        ws_rows.data_ptr(), ids_rows.numel(), BS, T, rows, R, out.data_ptr(),
+        torch.cuda.current_stream(lo.device).cuda_stream,
+    )
+    cuda_build.check(rc, "hst_place_fused")
+    place_fused.launches += 1
+    return out.reshape(BS, super_tiles, tile)
+
+
+place_fused.launches = 0

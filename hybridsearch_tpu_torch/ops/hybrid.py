@@ -22,7 +22,7 @@ to port.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -258,6 +258,7 @@ def hybrid_impact_topk(
     p_depth: int = 1024,
     norm: str = "minmax",
     n_alive: Optional[int] = None,
+    full_postings: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     margin: int = 128,
     kd_tiles: Optional[int] = None,
 ) -> HybridTopK:
@@ -266,17 +267,20 @@ def hybrid_impact_topk(
     per-query ``exact`` flag that is True only when the result provably
     equals full-corpus fusion. q must be L2-normalized, docs pre-normalized.
 
-    ``enc.full_postings`` = (doc_ids, weights) of the FULL doc-sorted CSR
-    enables the hot-term margin correction when enc carries hot
-    descriptors. The JAX function's ``block_n`` and ``bq`` tile the TPU's
-    sweep and rescore and have no counterpart here."""
+    ``full_postings`` = (doc_ids, weights) of the FULL doc-sorted CSR
+    (``enc.full_postings`` when None) enables the hot-term margin
+    correction when enc carries hot descriptors. The JAX function's
+    ``block_n`` and ``bq`` tile the TPU's sweep and rescore and have no
+    counterpart here."""
     N = docs.shape[0]
     dev = q.device
     p = min(p_depth, imp.p_max)
+    if full_postings is None:
+        full_postings = enc.full_postings
     hs = hl = hc = fdi = fwi = cc = ft = None
-    if enc.hot_starts is not None and enc.full_postings is not None:
+    if enc.hot_starts is not None and full_postings is not None:
         hs, hl, hc = enc.hot_starts, enc.hot_lens, enc.hot_cols
-        fdi, fwi = enc.full_postings
+        fdi, fwi = full_postings
         if enc.corrected_complete is not None:
             cc = torch.from_numpy(np.asarray(enc.corrected_complete)).to(dev)
         if enc.full_touched is not None:

@@ -26,9 +26,12 @@ few supertiles of 128 tiles = 16384 docs:
              unprobed supertile's lexical bound.
 
 ``exact`` is True only when the result provably equals full-corpus
-min-max fusion. The mesh build (``build_super_postings_sharded``), the
-persistence helpers and the gated K4/K5 kernels of the JAX module are not
-part of this slice.
+min-max fusion. The rung's two opt-in levers (``EngineConfig.perf``, the
+JAX module's ``HST_SCORES_DEDUP`` and ``HST_PLACE_FUSED``) swap step 3's
+kernels for K4 (``super_scores_dedup`` on pairs sorted by ``dedup_pairs``)
+and K5 (``place_fused``, the windows read inside the kernel); both give
+the same bits as K2 and K3. The mesh build (``build_super_postings_sharded``)
+and the persistence helpers of the JAX module are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -40,8 +43,12 @@ import torch
 
 from hybridsearch_tpu_torch.ops.cuda_supertile import (
     PLACE_CHUNK,
+    ROW,
+    place_fused,
     place_windows,
     super_scores,
+    super_scores_dedup,
+    window_entries,
 )
 from hybridsearch_tpu_torch.ops.dense import (
     _on_card,
@@ -53,7 +60,6 @@ from hybridsearch_tpu_torch.ops.dense import (
 from hybridsearch_tpu_torch.ops.hybrid import NEG_INF, HybridTopK
 
 TILE = 128
-ROW = 128  # CSR row width for whole-row window gathers
 
 # Window-cap ladder: each query-term slot's CSR window is gathered at the
 # smallest rung covering the build-time window maxima of the terms in it.
@@ -254,6 +260,21 @@ def _window_bounds(sup_pos, term_ids, sup_s):
     return torch.where(in_tab, lo, 0), torch.where(in_tab, hi, 0)
 
 
+def _flat_windows(sup_pos, term_ids, sup_s, sd, wcaps):
+    """(lo, hi [B*S, T] window bounds, base [B*S] supertile base doc ids,
+    ovf [B] bool: some slot's window is wider than its cap) of every
+    (query, probed supertile) row."""
+    B, T = term_ids.shape
+    S = sup_s.shape[1]
+    lo, hi = _window_bounds(sup_pos, term_ids, sup_s)  # [B, T, S]
+    ovf = torch.zeros(B, dtype=torch.bool, device=lo.device)
+    for j, wc in enumerate(wcaps):
+        ovf = ovf | ((hi[:, j] - lo[:, j]) > wc).any(dim=1)
+    return (lo.transpose(1, 2).reshape(B * S, T),
+            hi.transpose(1, 2).reshape(B * S, T),
+            (sup_s * sd).reshape(B * S), ovf)
+
+
 def _resident_windows(sup_pos, ids_rows, ws_rows, term_ids, sup_s, sd, wcaps,
                       ech: int = PLACE_CHUNK):
     """Per-slot CSR windows for every (query term, probed supertile), as
@@ -261,34 +282,44 @@ def _resident_windows(sup_pos, ids_rows, ws_rows, term_ids, sup_s, sd, wcaps,
     ids, w_cat float32 weights (0 outside the window), ovf [B] bool). Each
     slot's part is padded to whole ``ech`` chunks (l = -1), so no
     placement chunk mixes two slots."""
-    B = term_ids.shape[0]
-    S = sup_s.shape[1]
-    dev = term_ids.device
-    base = sup_s * sd  # [B, S]
-    lo, hi = _window_bounds(sup_pos, term_ids, sup_s)
-    M = ids_rows.shape[0]
-    ovf = torch.zeros(B, dtype=torch.bool, device=dev)
-    parts_l, parts_w = [], []
-    for j, wc in enumerate(wcaps):
-        lo_j, hi_j = lo[:, j], hi[:, j]  # [B, S]
-        ovf = ovf | ((hi_j - lo_j) > wc).any(dim=1)
-        m_j = wc // ROW + 1
-        E_j = m_j * ROW
-        row0 = lo_j // ROW
-        rows_idx = (row0[..., None] + torch.arange(m_j, device=dev)).clamp(max=M - 1)
-        wi = ids_rows[rows_idx].reshape(B, S, E_j)
-        ww = ws_rows[rows_idx].reshape(B, S, E_j)
-        gpos = row0[..., None] * ROW + torch.arange(E_j, device=dev)
-        valid = (gpos >= lo_j[..., None]) & (gpos < hi_j[..., None])
-        w_j = torch.where(valid, ww, 0.0)
-        l_j = (wi.long() - base[:, :, None]).to(torch.int32)
-        pad_e = -(-E_j // ech) * ech - E_j
-        if pad_e:
-            l_j = torch.nn.functional.pad(l_j, (0, pad_e), value=-1)
-            w_j = torch.nn.functional.pad(w_j, (0, pad_e))
-        parts_l.append(l_j)
-        parts_w.append(w_j)
-    return torch.cat(parts_l, dim=2), torch.cat(parts_w, dim=2), ovf
+    B, S = sup_s.shape
+    lo, hi, base, ovf = _flat_windows(sup_pos, term_ids, sup_s, sd, wcaps)
+    l_cat, w_cat = window_entries(lo, hi, base, ids_rows, ws_rows, wcaps, ech)
+    return l_cat.reshape(B, S, -1), w_cat.reshape(B, S, -1), ovf
+
+
+def _place_windows_fused(sup_pos, ids_rows, ws_rows, term_ids, sup_s, sd,
+                         wcaps, super_tiles):
+    """Gather-fused placement (kernel K5): window bounds from the position
+    table, then one kernel that reads each slot's window straight from the
+    CSR, with no [B, S, E] staging arrays. Returns (lex4 [B*S, St, TILE],
+    ovf [B])."""
+    lo, hi, base, ovf = _flat_windows(sup_pos, term_ids, sup_s, sd, wcaps)
+    return place_fused(lo, hi, base, ids_rows, ws_rows, wcaps, super_tiles,
+                       TILE), ovf
+
+
+def dedup_pairs(sup_s: torch.Tensor, group: int = 8):
+    """(tid, qid, rep, inv) for ``super_scores_dedup`` from the per-query
+    probe table ``sup_s`` [B, S]: the B*S (query, probe) pairs stable-sorted
+    by supertile id (tid), each pair's query (qid), ``rep`` the first pair
+    of its equal-tid run clamped into its ``group``-sized block (the JAX
+    kernel's DMA owner; the card's kernel does not read it), and ``inv``
+    the inverse permutation: ``out_sorted[inv].reshape(B, S*sd)`` restores
+    query-major order."""
+    B, S = sup_s.shape
+    P = B * S
+    dev = sup_s.device
+    flat = sup_s.reshape(-1).to(torch.int32)
+    order = torch.sort(flat, stable=True).indices
+    tid = flat[order]
+    qid = order // S
+    run0 = torch.searchsorted(tid, tid, side="left")
+    pos = torch.arange(P, device=dev)
+    rep = torch.maximum(run0, (pos // group) * group)
+    inv = torch.empty_like(order)
+    inv[order] = pos
+    return tid, qid, rep, inv
 
 
 class SuperPrefix(NamedTuple):
@@ -379,10 +410,15 @@ def hybrid_supertile_topk_rung(
     s_probe: int = 4,
     norm: str = "minmax",
     n_alive: Optional[int] = None,
+    scores_dedup: bool = False,
+    place_fused: bool = False,
 ) -> HybridTopK:
     """Steps 3-4 at probe budget ``s_probe`` from a shared prefix: exact
     resident scores, fusion, float32 finalist rescore and the per-query
-    certificate. ``q`` [B, D] L2-normalized float32; ``docs`` [N, D]."""
+    certificate. ``q`` [B, D] L2-normalized float32; ``docs`` [N, D].
+    ``scores_dedup``: on the card's score route, K4 on pairs sorted by
+    supertile when B*S % 8 == 0 (else K2); ``place_fused``: K5 instead of
+    staged windows + K3. Either gives the same bits as the default."""
     B, Dm = q.shape
     N = docs.shape[0]
     dev = q.device
@@ -401,7 +437,12 @@ def hybrid_supertile_topk_rung(
     CH = SCORE_CHUNK
     if _on_card(docs) and N % CH == 0 and Dm % 128 == 0 and sd % CH == 0:
         q3 = q.to(docs.dtype) if docs.dtype == torch.bfloat16 else q
-        s_res = super_scores(q3, docs, sup_s, sd, ch=CH)  # K2
+        if scores_dedup and (B * S) % 8 == 0:
+            tid, qid, _rep, inv = dedup_pairs(sup_s)
+            s_res = super_scores_dedup(q3[qid], docs, tid, sd,
+                                       ch=CH)[inv].reshape(B, R)  # K4
+        else:
+            s_res = super_scores(q3, docs, sup_s, sd, ch=CH)  # K2
         gidx = (sup_s[:, :, None] * sd
                 + torch.arange(sd, device=dev)).reshape(B, R)
         if bias is not None:
@@ -419,10 +460,16 @@ def hybrid_supertile_topk_rung(
     alive = torch.isfinite(s_res)
 
     # -- resident lexical scores ------------------------------------------
-    l_cat, w_cat, ovf = _resident_windows(sp.sup_pos, sp.ids_rows, sp.ws_rows,
-                                          enc.term_ids, sup_s, sd, wcaps)
-    lex4 = place_windows(l_cat.reshape(B * S, -1), w_cat.reshape(B * S, -1),
-                         super_tiles, TILE)  # K3
+    if place_fused:
+        lex4, ovf = _place_windows_fused(sp.sup_pos, sp.ids_rows, sp.ws_rows,
+                                         enc.term_ids, sup_s, sd, wcaps,
+                                         super_tiles)  # K5
+    else:
+        l_cat, w_cat, ovf = _resident_windows(sp.sup_pos, sp.ids_rows,
+                                              sp.ws_rows, enc.term_ids, sup_s,
+                                              sd, wcaps)
+        lex4 = place_windows(l_cat.reshape(B * S, -1), w_cat.reshape(B * S, -1),
+                             super_tiles, TILE)  # K3
     lex_res = torch.where(alive, lex4.reshape(B, R), 0.0)
 
     # -- exact fusion + top-k ---------------------------------------------

@@ -137,11 +137,15 @@ def supertile_ladder(
     valid_n: Optional[int] = None,
     ladder: Optional[Tuple[int, ...]] = None,
     uncertified_tol: float = 0.005,
+    scores_dedup: bool = False,
+    place_fused: bool = False,
 ) -> Tuple[_LadderState, int]:
     """The supertile serving ladder: one prefix (stats sweep + bound
     selection), then probe-budget rungs that escalate only the uncertified
-    tail, compacted to a pow2 bucket. Returns the merged _LadderState
-    (full-batch coordinates) and the number of rungs run."""
+    tail, compacted to a pow2 bucket. ``scores_dedup`` and ``place_fused``
+    (``EngineConfig.perf``) pick the rungs' K4 / K5 routes. Returns the
+    merged _LadderState (full-batch coordinates) and the number of rungs
+    run."""
     from hybridsearch_tpu_torch.ops.supertile import (
         hybrid_supertile_topk_rung,
         super_prefix,
@@ -161,7 +165,8 @@ def supertile_ladder(
     for s_probe in ladder:
         res = hybrid_supertile_topk_rung(
             cur_q, docs, sp, cur_enc, cur_pfx, k, sw, lw, bias=bias,
-            s_probe=s_probe, n_alive=n_alive)
+            s_probe=s_probe, n_alive=n_alive, scores_dedup=scores_dedup,
+            place_fused=place_fused)
         rungs += 1
         st.merge(res.values, res.indices, res.exact)
         fails = int((~st.exact).sum())
@@ -340,10 +345,13 @@ class Searcher:
         n_alive = snap.n - self.indexer.dense.deleted_count
         if self.indexer.config.index.layout == "clustered":
             sp, enc_s = bm25.encode_queries_super(list(queries))
+            perf = self.config.perf
             st, _rungs = supertile_ladder(
                 q, snap.docs, sp, enc_s, k, sw, lw, bias=snap.bias,
                 n_alive=n_alive, valid_n=snap.n,
-                uncertified_tol=self.indexer.config.serving.uncertified_tol)
+                uncertified_tol=self.indexer.config.serving.uncertified_tol,
+                scores_dedup=bool(perf.scores_dedup),
+                place_fused=bool(perf.place_fused))
             if not st.exact.all():
                 _warn_uncertified("supertile hybrid certificate did not close "
                                   "after probe escalation; serving the "

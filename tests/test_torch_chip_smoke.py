@@ -28,11 +28,21 @@ def test_cpu_rehearsal_runs_every_phase():
     lines = out.stdout.strip().splitlines()
     for phase in ("device", "kernels", "index_documents", "search_batch",
                   "reference", "kernel timing", "P1 check", "impact tier",
-                  "impact kernel timing"):
+                  "impact kernel timing", "levers kernel timing"):
         assert any(f"] {phase}" in ln for ln in lines), phase
     for phase in ("index_documents", "search_batch", "reference"):
         assert any(f"] {phase}: small-topic/source" in ln for ln in lines), phase
-    assert any("K1-K3, K6, K7 match" in ln for ln in lines)
+    for phase in ("search_batch", "reference"):
+        assert any(f"] {phase}: small-topic/levers" in ln for ln in lines), phase
+    assert any("] small-topic/levers: certified flags, ids and values equal the "
+               "default run's bit for bit" in ln for ln in lines)
+    assert any("] index_documents: regime 1" in ln for ln in lines)
+    assert any("] regime 1: " in ln and "served twice is equal bit for bit" in ln
+               for ln in lines)
+    assert any("K1-K7 match" in ln for ln in lines)
+    assert sum("bit-equal to super_scores True" in ln for ln in lines) == 4
+    assert sum("bit-equal to window gather + place_windows True" in ln
+               for ln in lines) == 2
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

@@ -1,6 +1,7 @@
 """search_batch on the card against the same index carried to the CPU
 (plain versions), and the launch counters that show the kernels ran: the
-supertile ladder on a clustered index (K1-K3) and the impact ladder on a
+supertile ladder on a clustered index (K1-K3; with both perf levers, K1,
+K4, K5, equal bit for bit to the default route) and the impact ladder on a
 ``layout="source"`` index (K1, K6, K7).
 
 Run on a machine with an NVIDIA Hopper card:
@@ -96,3 +97,32 @@ def test_gpu_impact_route_matches_the_cpu_route(monkeypatch):
     _route_matches_cpu(monkeypatch, "source",
                        [cuda_topk.tile_stats, cuda_impact.slice_runs,
                         cuda_impact.rescore])
+
+
+def test_gpu_supertile_levers_equal_the_default_route(monkeypatch):
+    """``cfg.perf.scores_dedup = cfg.perf.place_fused = True`` on the same
+    searcher: K4 and K5 launch instead of K2 and K3, and every result row
+    is the default route's, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.retrieval import searcher as sm
+
+    rng = np.random.default_rng(0)
+    texts, queries = _corpus(rng, 24576)
+    cfg = EngineConfig()
+    cfg.index.layout = "clustered"
+    gpu = sm.Searcher(config=cfg, use_query_memory=False, device="cuda")
+    gpu.indexer.index_documents(texts)
+    monkeypatch.setattr(sm, "SPARSE_HYBRID_MIN_DOCS", 0)
+    kernels = (cs.super_scores, cs.place_windows, cs.super_scores_dedup, cs.place_fused)
+    before = [k.launches for k in kernels]
+    default = gpu.search_batch(queries, top_k=10, log=False)
+    cfg.perf.scores_dedup = cfg.perf.place_fused = True
+    mid = [k.launches for k in kernels]
+    levers = gpu.search_batch(queries, top_k=10, log=False)
+    after = [k.launches for k in kernels]
+    assert mid[0] > before[0] and mid[1] > before[1] and mid[2:] == before[2:]
+    assert after[:2] == mid[:2] and after[2] > mid[2] and after[3] > mid[3]
+    assert levers == default

@@ -419,6 +419,34 @@ def test_hybrid_margin_certificate_closes_like_jax():
     assert ex.mean() >= 0.5
 
 
+def test_hybrid_full_postings_keyword_matches_jax():
+    """``full_postings=`` passed explicitly on an enc that lacks the pair
+    gives what JAX gives with the same keyword, and what the port gives
+    with the pair on the enc."""
+    jb, tb, docs, queries, q = _hot_corpus(9, 1.0)
+    jimp_, jenc = jb.encode_queries_impact(queries, p_depth=256, p_max=256)
+    timp_, tenc = tb.encode_queries_impact(queries, p_depth=256, p_max=256)
+    assert tenc.hot_starts is not None and tenc.full_postings is not None
+    jpair, tpair = jenc.full_postings, tenc.full_postings
+    kw = dict(k_dense=512, c_per_term=64, p_depth=256)
+    jr = jhy.hybrid_impact_topk(jnp.asarray(q), jnp.asarray(docs), jimp_,
+                                jenc._replace(full_postings=None), K, 0.5, 0.5,
+                                block_n=1024, full_postings=jpair, **kw)
+    tr = thy.hybrid_impact_topk(torch.from_numpy(q), torch.from_numpy(docs), timp_,
+                                tenc._replace(full_postings=None), K, 0.5, 0.5,
+                                full_postings=tpair, **kw)
+    _same_topk(tr.values.numpy(), tr.indices.numpy(), jr.values, jr.indices)
+    np.testing.assert_array_equal(tr.exact.numpy(), np.asarray(jr.exact))
+    on_enc = thy.hybrid_impact_topk(torch.from_numpy(q), torch.from_numpy(docs),
+                                    timp_, tenc, K, 0.5, 0.5, **kw)
+    for a, b in zip(tr, on_enc):
+        assert torch.equal(a, b)
+    # without the pair there is no margin correction: other values
+    bare = thy.hybrid_impact_topk(torch.from_numpy(q), torch.from_numpy(docs), timp_,
+                                  tenc._replace(full_postings=None), K, 0.5, 0.5, **kw)
+    assert not torch.equal(bare.values, tr.values)
+
+
 @pytest.mark.parametrize("trial", range(8))
 def test_certificate_soundness_fuzz(trial):
     """Wherever the port claims exact, its top-k equals the port's own full

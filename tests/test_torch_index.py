@@ -126,6 +126,33 @@ def test_bm25_fit_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("order", [(0, 1, 2), (2, 0, 1), (1, 2, 0), (2, 1, 0)])
+def test_bm25_scores_runs_sums_terms_in_order_like_jax(order):
+    """Doc 3 is in three runs with weights 1e8, 1 and -1e8, whose float32
+    sum depends on the order it is taken in (0 or 1). The port adds the run
+    columns in term order: equal bit for bit to the sequential sum in
+    column order and to the JAX package's index-order add, whose CPU
+    scatter adds in index order (checked here: every column order gives
+    JAX the sequential sum too)."""
+    doc_ids = np.array([3, 5, 3, 7, 1, 3] + [0] * 8, np.int32)
+    weights = np.array([1e8, 2.0, 1.0, 3.0, 4.0, -1e8] + [0] * 8, np.float32)
+    starts = np.array([[0, 2, 4], [4, 2, 0]], np.int32)[:, list(order)]
+    lengths = np.full((2, 3), 2, np.int32)
+    want = np.asarray(jbm25_ops._bm25_scores_runs(
+        jnp.asarray(doc_ids), jnp.asarray(weights), jnp.asarray(starts),
+        jnp.asarray(lengths), 8, 4))
+    got = tbm25_ops.bm25_scores_runs(
+        torch.from_numpy(doc_ids), torch.from_numpy(weights), torch.from_numpy(starts),
+        torch.from_numpy(lengths), 8, 4).numpy()
+    seq = np.zeros((2, 8), np.float32)
+    for b in range(2):
+        for t in range(3):
+            for i in range(starts[b, t], starts[b, t] + lengths[b, t]):
+                seq[b, doc_ids[i]] = np.float32(seq[b, doc_ids[i]] + weights[i])
+    assert np.array_equal(got, seq) and np.array_equal(want, seq)
+    assert set(seq[:, 3].tolist()) <= {0.0, 1.0}
+
+
 def test_super_postings_and_query_encode_match_jax():
     rng = np.random.default_rng(2)
     V, N, nnz = 300, 4096, 20000
