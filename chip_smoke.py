@@ -32,7 +32,11 @@ The default configuration's path comes next: the same small-topic corpus
 indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), the run slices (K6, slice_runs) and
 the candidate rescore (K7, rescore); K6 and K7 must launch in the timed
-batches, and are then timed at every rung the batches reached. "Regime 1"
+batches, and are then timed at every rung the batches reached. K1 and K3
+keep their first designs as yardsticks (``tile_stats_v1``,
+``place_windows_v1``): the kernel check and the "redesigned kernels"
+rows (K1 at every batch size of both paths, K3 at every rung) hold each
+bit-equal to its first design and time the two side by side. "Regime 1"
 serves a corpus a quarter of the size, below ``SPARSE_HYBRID_MIN_DOCS``,
 through the full [B, n] fused program; one batch is served twice and must
 be equal bit for bit. A corpus with larger topics is served on the
@@ -85,6 +89,8 @@ CORPORA = {
     "large-topic": (512, 32, 16, 24),
 }
 DETAIL_PATH = "chiprun_out/chip_smoke_detail.json"
+# batch sizes at which the kernel check holds K1 to its first design
+K1_V1_BATCHES = (1, 32, 100, 256)
 TOP_K = 10
 EPS_NUM = 1e-4  # the certificate margin (ops/supertile.py)
 
@@ -182,11 +188,15 @@ def unit_rows(gen: torch.Generator, n: int, d: int, dev) -> torch.Tensor:
 
 def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     """Each kernel against its plain version at the slice's widths, float32
-    and (K1, K2) bf16, with K2 at the deepest rung's probe count."""
+    and (K1, K2) bf16, with K2 at the deepest rung's probe count; on the
+    card K1 and K3 also bit-equal to their first designs (``_v1``)."""
     from hybridsearch_tpu_torch.ops.cuda_supertile import (
-        place_windows, place_windows_plain, super_scores, super_scores_plain)
-    from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_plain
+        place_windows, place_windows_plain, place_windows_v1, super_scores,
+        super_scores_plain)
+    from hybridsearch_tpu_torch.ops.cuda_topk import (
+        tile_stats, tile_stats_plain, tile_stats_v1)
 
+    on_card = dev.type == "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     N, D, B = sz["n_docs"], sz["dim"], sz["batch"]
@@ -208,20 +218,40 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
               f"(S={S}) err {e2:.3g} (tol {tol:g})", flush=True)
         if not (e1 <= tol and e2 <= tol):
             raise AssertionError(f"kernel disagrees with its plain version ({dt})")
+        if not on_card:
+            continue
+        same = []
+        for b in K1_V1_BATCHES:
+            for with_min in (False, True):
+                got = tile_stats(q_t[:b], d_t, bias, N - 77, with_min)
+                want = tile_stats_v1(q_t[:b], d_t, bias, N - 77, with_min)
+                same.append(all(torch.equal(g, w) for g, w in zip(got, want)))
+        print(f"    {str(dt)[6:]}: tile_stats bit-equal to tile_stats_v1 at B in "
+              f"{K1_V1_BATCHES}, with_min off and on: {all(same)}", flush=True)
+        if not all(same):
+            raise AssertionError(f"tile_stats differs from tile_stats_v1 ({dt})")
     # windows as the path lays them out: whole 1024-entry chunks (one 8192
     # slot + seven 1024 slots), no cell twice in a chunk, a margin of
     # out-of-range ids; then kernel and plain version sum in one order
     R, M = 128 * 128, 128 * 128 + 128
-    TE, rows = 23_552, B * 2
-    start = torch.randint(0, M, (rows, TE // 1024, 1), generator=gen, device=dev)
-    step = 1021 * torch.arange(1024, device=dev)  # 1021 is prime to M
-    l = ((start + step) % M - 64).reshape(rows, TE).int()
-    w = torch.rand((rows, TE), generator=gen, device=dev)
-    w[:, ::3] = 0.0
-    e3 = max_err(place_windows(l, w), place_windows_plain(l, w))
-    print(f"    place_windows err {e3:.3g} (tol 1e-6)", flush=True)
-    if not e3 <= 1e-6:
-        raise AssertionError("place_windows disagrees with its plain version")
+    TE = 23_552
+    for rows in (B * 2, B * S):
+        start = torch.randint(0, M, (rows, TE // 1024, 1), generator=gen, device=dev)
+        step = 1021 * torch.arange(1024, device=dev)  # 1021 is prime to M
+        l = ((start + step) % M - 64).reshape(rows, TE).int()
+        w = torch.rand((rows, TE), generator=gen, device=dev)
+        w[:, ::3] = 0.0
+        got = place_windows(l, w)
+        e3 = max_err(got, place_windows_plain(l, w))
+        same3 = torch.equal(got, place_windows_v1(l, w)) if on_card else None
+        print(f"    place_windows {rows} rows: err {e3:.3g} (tol 1e-6), bit-equal "
+              f"to place_windows_v1 {same3}", flush=True)
+        if not e3 <= 1e-6:
+            raise AssertionError("place_windows disagrees with its plain version")
+        if on_card and not same3:
+            raise AssertionError(f"place_windows differs from place_windows_v1 at "
+                                 f"{rows} rows")
+        del l, w, got
     sync(dev)
 
 
@@ -480,6 +510,18 @@ class Capture:
         setattr(self.module, self.name, self.real)
 
 
+# kernels kept beside their first designs, which they must equal bit for bit
+V1_KERNELS = ("tile_stats", "place_windows")
+
+
+def v1_fn(name: str):
+    """The first design's wrapper of a kernel in ``V1_KERNELS``."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+
+    return {"tile_stats": cuda_topk.tile_stats_v1,
+            "place_windows": cuda_supertile.place_windows_v1}[name]
+
+
 KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6,
               "super_scores_dedup": 1e-5, "place_fused": 0.0,
               "slice_runs": 0.0, "rescore": 0.0}
@@ -566,8 +608,88 @@ def kernel_numbers(captures: dict, launches: dict, dev: torch.device) -> list:
         row = {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
                "replaces": KERNEL_META[name][1], "launches": launches[name]}
         row.update(kernel_row(name, args, kwargs, dev))
+        if name in V1_KERNELS:
+            row.update(v1_fields(name, args, kwargs, dev))
         out.append(row)
     return out
+
+
+def v1_fields(name: str, args, kwargs, dev: torch.device) -> dict:
+    """The kernel's first design (``v1_fn``) on the same inputs: whether the
+    redesign equals it bit for bit (it must), and its ms and device ms.
+    Off the card the first design does not run: all None."""
+    if dev.type != "cuda":
+        return {"bit_equal_to_v1": None, "v1_ms": None, "v1_device_ms": None}
+    kernel, _plain = kernel_fns(name)
+    v1 = v1_fn(name)
+    with _restoring_launches(kernel, v1):
+        got, want = kernel(*args, **kwargs), v1(*args, **kwargs)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        del got, want
+        ms, dev_ms = _timed(lambda: v1(*args, **kwargs), dev)
+    if not same:
+        raise AssertionError(f"{name} differs from {name}_v1 on main-path inputs")
+    return {"bit_equal_to_v1": same, "v1_ms": ms, "v1_device_ms": dev_ms}
+
+
+def _fmt(x) -> str:
+    return "n/a" if x is None else f"{x:.4f}"
+
+
+def tile_stats_by_batch(caps: dict, dev: torch.device) -> list:
+    """K1 at every batch size the warm-up and timed batches of each path
+    (``caps``: path label -> its K1 capture) gave it, beside its first
+    design."""
+    from hybridsearch_tpu_torch.ops import cuda_topk
+
+    rows = []
+    for label, cap in caps.items():
+        for B, (args, kwargs) in sorted(cap.calls.items()):
+            row = {"path": label, "B": B, "bq": cuda_topk.query_block(B),
+                   "launches": cap.counts.get(B, 0)}
+            if dev.type == "cuda":
+                row.update(kernel_row("tile_stats", args, kwargs, dev, plain_reps=1))
+            row.update(v1_fields("tile_stats", args, kwargs, dev))
+            rows.append(row)
+            if dev.type != "cuda":
+                print(f"    tile_stats {label} B={B}: {row['launches']} launches in "
+                      "the timed batches; times not reported (cpu rehearsal)",
+                      flush=True)
+                continue
+            print(f"    tile_stats {label} B={B} bq={row['bq']}: {_fmt(row['ms'])} ms "
+                  f"(device {_fmt(row['device_ms'])}); tile_stats_v1 "
+                  f"{_fmt(row['v1_ms'])} (device {_fmt(row['v1_device_ms'])}), "
+                  f"bit-equal {row['bit_equal_to_v1']}; bound "
+                  f"{_fmt(row['bound_ms'])} ({row['bound_by']}), plain "
+                  f"{_fmt(row['plain_ms'])}, library {_fmt(row['library_ms'])} ms; "
+                  f"{row['launches']} launches in the timed batches", flush=True)
+    return rows
+
+
+def place_windows_by_rung(cap: Capture, batch: int, dev: torch.device) -> list:
+    """K3 at every rung the clustered path's batches gave it (rows B*S),
+    beside its first design, with its own bound and ``index_add_`` time."""
+    rows = []
+    for BS, (args, kwargs) in sorted(cap.calls.items()):
+        row = {"S": BS // batch, "BS": BS, "launches": cap.counts.get(BS, 0)}
+        if dev.type == "cuda":
+            row.update(kernel_row("place_windows", args, kwargs, dev, plain_reps=1))
+        row.update(v1_fields("place_windows", args, kwargs, dev))
+        rows.append(row)
+        if dev.type != "cuda":
+            print(f"    place_windows B*S={BS}: {row['launches']} launches in the "
+                  "timed batches; times not reported (cpu rehearsal)", flush=True)
+            continue
+        print(f"    place_windows S={row['S']} B*S={BS}: {_fmt(row['ms'])} ms (device "
+              f"{_fmt(row['device_ms'])}); place_windows_v1 {_fmt(row['v1_ms'])} "
+              f"(device {_fmt(row['v1_device_ms'])}), bit-equal "
+              f"{row['bit_equal_to_v1']}; bound {_fmt(row['bound_ms'])} "
+              f"({row['bound_by']}), plain {_fmt(row['plain_ms'])}, library "
+              f"{_fmt(row['library_ms'])} ms; {row['launches']} launches in the "
+              "timed batches", flush=True)
+    return rows
 
 
 def super_scores_by_probe(cap: Capture, dev: torch.device) -> list:
@@ -666,25 +788,24 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
             raise AssertionError(f"place_fused differs from the two-step path at S={S}")
         rows5.append(row)
     if show:
-        f = lambda x: "n/a" if x is None else f"{x:.4f}"  # noqa: E731
         for r in rows4:
-            print(f"    super_scores_dedup S={r['S']} B={r['B']}: {f(r['ms'])} ms "
-                  f"(device {f(r['device_ms'])}); route with dedup_pairs, gather and "
-                  f"unpermute {f(r['route_ms'])} (device {f(r['route_device_ms'])}); "
-                  f"super_scores {f(r['k2_ms'])} (device {f(r['k2_device_ms'])}), on "
-                  f"the same sorted pairs {f(r['k2_same_pairs_ms'])} (device "
-                  f"{f(r['k2_same_pairs_device_ms'])}); bound {f(r['bound_ms'])} "
-                  f"({r['bound_by']}), plain {f(r['plain_ms'])}, library "
-                  f"{f(r['library_ms'])} ms; bit-equal to super_scores", flush=True)
+            print(f"    super_scores_dedup S={r['S']} B={r['B']}: {_fmt(r['ms'])} ms "
+                  f"(device {_fmt(r['device_ms'])}); route with dedup_pairs, gather and "
+                  f"unpermute {_fmt(r['route_ms'])} (device {_fmt(r['route_device_ms'])}); "
+                  f"super_scores {_fmt(r['k2_ms'])} (device {_fmt(r['k2_device_ms'])}), on "
+                  f"the same sorted pairs {_fmt(r['k2_same_pairs_ms'])} (device "
+                  f"{_fmt(r['k2_same_pairs_device_ms'])}); bound {_fmt(r['bound_ms'])} "
+                  f"({r['bound_by']}), plain {_fmt(r['plain_ms'])}, library "
+                  f"{_fmt(r['library_ms'])} ms; bit-equal to super_scores", flush=True)
         for r in rows5:
             print(f"    place_fused S={r['S']} B*S={r['BS']} wcaps={r['wcaps']}: "
-                  f"{f(r['ms'])} ms (device {f(r['device_ms'])}); window gather + "
-                  f"place_windows {f(r['two_step_ms'])} (device "
-                  f"{f(r['two_step_device_ms'])}), gather {f(r['gather_ms'])} (device "
-                  f"{f(r['gather_device_ms'])}), place_windows {f(r['k3_ms'])} (device "
-                  f"{f(r['k3_device_ms'])}); bound {f(r['bound_ms'])} "
-                  f"({r['bound_by']}), plain {f(r['plain_ms'])}, library "
-                  f"{f(r['library_ms'])} ms; bit-equal to the two-step path", flush=True)
+                  f"{_fmt(r['ms'])} ms (device {_fmt(r['device_ms'])}); window gather + "
+                  f"place_windows {_fmt(r['two_step_ms'])} (device "
+                  f"{_fmt(r['two_step_device_ms'])}), gather {_fmt(r['gather_ms'])} (device "
+                  f"{_fmt(r['gather_device_ms'])}), place_windows {_fmt(r['k3_ms'])} (device "
+                  f"{_fmt(r['k3_device_ms'])}); bound {_fmt(r['bound_ms'])} "
+                  f"({r['bound_by']}), plain {_fmt(r['plain_ms'])}, library "
+                  f"{_fmt(r['library_ms'])} ms; bit-equal to the two-step path", flush=True)
     return rows4, rows5
 
 
@@ -813,7 +934,9 @@ def _bound_and_library(name, args, kwargs):
         R = st * 128
         BS, TE = l.shape
         ok = (l >= 0) & (l < R) & (w != 0)
-        nbytes = BS * TE * 8 + BS * R * 4
+        # every weight, the id of every nonzero weight (a zero weight's
+        # entry adds nothing, so its id is not needed), the output
+        nbytes = BS * TE * 4 + int((w != 0).sum()) * 4 + BS * R * 4
         flops = float(ok.sum())
         flat = (l.long() + torch.arange(BS, device=l.device)[:, None] * R)[ok]
         wf = w[ok]
@@ -1090,6 +1213,8 @@ def main(argv=None) -> int:
         rec.restore()
     detail["corpora"]["small-topic"] = run["stats"]
     numbers = kernel_numbers(run["captures"], run["launches"], dev)
+    k1_rows = tile_stats_by_batch({"small-topic": run["captures"]["tile_stats"]}, dev)
+    k3_rows = place_windows_by_rung(run["captures"]["place_windows"], sz["batch"], dev)
     if rehearsal:
         clock.phase("kernel timing", f"{len(numbers)} wrappers checked on "
                     "main-path inputs; times not reported (cpu rehearsal)")
@@ -1118,6 +1243,8 @@ def main(argv=None) -> int:
     detail["corpora"]["small-topic/source"] = run["stats"]
     caps = {name: run["captures"][name] for name in ("slice_runs", "rescore")}
     numbers += kernel_numbers(caps, run["launches"], dev)
+    k1_rows += tile_stats_by_batch({"small-topic/source": run["captures"]["tile_stats"]},
+                                   dev)
     by_rung = impact_by_rung(caps, dev, show=not rehearsal)
     if rehearsal:
         clock.phase("impact kernel timing", f"{len(by_rung)} shapes checked on "
@@ -1126,6 +1253,14 @@ def main(argv=None) -> int:
         detail["impact_by_rung"] = by_rung
         clock.phase("impact kernel timing", "small-topic/source main-path inputs")
     del run, caps
+
+    detail["tile_stats_by_batch"] = k1_rows
+    detail["place_windows_by_rung"] = k3_rows
+    clock.phase("redesigned kernels", (
+        f"tile_stats at B = {sorted({r['B'] for r in k1_rows})} and place_windows at "
+        f"B*S = {[r['BS'] for r in k3_rows]} on main-path inputs" +
+        ("; times not reported (cpu rehearsal)" if rehearsal else
+         ", each bit-equal to its first design")))
 
     detail["regime_1"] = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
 
@@ -1154,16 +1289,18 @@ def main(argv=None) -> int:
 
 def _path_captures(layout: str) -> dict:
     """Capture wrappers over the kernels of a path, keyed by the shape that
-    varies between its rungs."""
+    varies between its rungs (K1 by batch size, K3 by rows B*S)."""
     from hybridsearch_tpu_torch.ops import dense as dense_mod
     from hybridsearch_tpu_torch.ops import impact as impact_mod
     from hybridsearch_tpu_torch.ops import supertile as supertile_mod
 
+    by_batch = lambda a: int(a[0].shape[0])  # noqa: E731  (K1: B; K3: B*S)
     if layout == "clustered":
-        return {"tile_stats": Capture(dense_mod, "tile_stats"),
+        return {"tile_stats": Capture(dense_mod, "tile_stats", key=by_batch),
                 "super_scores": Capture(supertile_mod, "super_scores",
                                         key=lambda a: int(a[2].shape[1])),
-                "place_windows": Capture(supertile_mod, "place_windows")}
+                "place_windows": Capture(supertile_mod, "place_windows",
+                                         key=by_batch)}
     if layout == "clustered/levers":
         # keyed by the call's rung in the warm-up batch (each rung launches
         # each kernel once; pair and row counts repeat across rungs)
@@ -1175,7 +1312,7 @@ def _path_captures(layout: str) -> dict:
                                               key=lambda a: next(rung4)),
                 "place_fused": Capture(supertile_mod, "place_fused",
                                        key=lambda a: next(rung5))}
-    return {"tile_stats": Capture(dense_mod, "tile_stats"),
+    return {"tile_stats": Capture(dense_mod, "tile_stats", key=by_batch),
             "slice_runs": Capture(impact_mod, "slice_runs", key=lambda a: int(a[4])),
             "rescore": Capture(impact_mod, "rescore",
                                key=lambda a: (int(a[0].shape[1]), int(a[3])))}
@@ -1244,8 +1381,8 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
     on the route ``path`` (``PATHS``), and hold every certified row against
     the plain exact reference. The path's kernels' counts are set to 0 just
     before the timed batches and read just after; on a main path, the
-    kernel calls of the warm-up (and, on the impact ladder, the timed)
-    batches are captured. Returns {"stats", "launches", "captures",
+    kernel calls of the warm-up and the timed batches (the levers route:
+    the warm-up only) are captured. Returns {"stats", "launches", "captures",
     "results", "exact"}."""
     from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
 
@@ -1264,7 +1401,7 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
     captures = _path_captures(path) if main_path else {}
     try:
         searcher.search_batch(warm, top_k=TOP_K, log=False)
-        if clustered:
+        if path == "clustered/levers":  # keyed by call: capture the warm-up only
             for cap in captures.values():
                 cap.restore()
         clock.phase("warm-up batch", f"{label}: {len(warm)} queries")

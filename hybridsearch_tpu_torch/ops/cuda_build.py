@@ -43,10 +43,12 @@ _L = ctypes.c_longlong
 # C signatures of the launchers (csrc/*.cu); every pointer and the stream
 # are c_void_p so ctypes never truncates them to 32 bits.
 _SIGNATURES = {
-    "hst_tile_stats": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P),
+    "hst_tile_stats": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _I, _P),
+    "hst_tile_stats_v1": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P),
     "hst_super_scores": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P),
     "hst_super_scores_dedup": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P),
     "hst_place_windows": (_P, _P, _L, _L, _I, _P, _P),
+    "hst_place_windows_v1": (_P, _P, _L, _L, _I, _P, _P),
     "hst_place_fused": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),
     "hst_slice_runs": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
     "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),

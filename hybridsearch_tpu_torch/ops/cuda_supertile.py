@@ -14,6 +14,9 @@ Counterpart of ``hybridsearch_tpu/ops/pallas_supertile.py``:
   * ``place_windows`` (K3, ``csrc/place_windows.cu``) replaces
     ``pallas_place_windows``: [BS, super_tiles, 128] resident lexical
     buffers, ``out[bs, l // 128, l % 128] += w`` for 0 <= l < super_tiles*128.
+    ``place_windows_v1`` launches the kernel's first design, which the
+    redesign must equal bit for bit (CUDA tensors only; no served path
+    calls it).
   * ``place_fused`` (K5, ``csrc/place_fused.cu``) replaces
     ``pallas_place_fused``: the same buffers read straight from the CSR
     windows [lo, hi) of each term slot, with no staged window arrays; the
@@ -192,40 +195,65 @@ def place_windows_plain(l_flat: torch.Tensor, w_flat: torch.Tensor,
     return out[:, :R].reshape(BS, super_tiles, tile)
 
 
+def _place_checked(name: str, l_flat: torch.Tensor, w_flat: torch.Tensor,
+                   super_tiles: int, tile: int) -> int:
+    """The placement launchers' argument checks; returns the buffer length."""
+    if not l_flat.is_cuda:
+        raise ValueError(f"{name}: unsupported device {l_flat.device}")
+    if l_flat.shape != w_flat.shape or l_flat.dim() != 2:
+        raise ValueError(f"{name}: shapes {tuple(l_flat.shape)} "
+                         f"{tuple(w_flat.shape)}")
+    if l_flat.dtype != torch.int32 or w_flat.dtype != torch.float32:
+        raise ValueError(f"{name}: l must be int32 and w float32")
+    if w_flat.device != l_flat.device:
+        raise ValueError(f"{name}: both tensors must be on one device")
+    R = super_tiles * tile
+    if R * 4 > 232448:
+        raise ValueError(f"{name}: a {R}-float buffer exceeds shared memory")
+    return R
+
+
+def _place_launch(fn, l_flat, w_flat, R: int) -> torch.Tensor:
+    BS, TE = l_flat.shape
+    l_c, w_c = l_flat.contiguous(), w_flat.contiguous()
+    out = torch.empty((BS, R), dtype=torch.float32, device=l_flat.device)
+    if BS:
+        rc = fn(l_c.data_ptr(), w_c.data_ptr(), BS, TE, R, out.data_ptr(),
+                torch.cuda.current_stream(l_flat.device).cuda_stream)
+        cuda_build.check(rc, fn.__name__)
+    return out
+
+
 def place_windows(l_flat: torch.Tensor, w_flat: torch.Tensor,
                   super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
     """[BS, super_tiles, tile] float32 resident buffers from ``l_flat``
     [BS, TE] int32 local doc ids and ``w_flat`` [BS, TE] float32 weights."""
     if l_flat.device.type == "cpu":
         return place_windows_plain(l_flat, w_flat, super_tiles, tile)
-    if not l_flat.is_cuda:
-        raise ValueError(f"place_windows: unsupported device {l_flat.device}")
-    if l_flat.shape != w_flat.shape or l_flat.dim() != 2:
-        raise ValueError(f"place_windows: shapes {tuple(l_flat.shape)} "
-                         f"{tuple(w_flat.shape)}")
-    if l_flat.dtype != torch.int32 or w_flat.dtype != torch.float32:
-        raise ValueError("place_windows: l must be int32 and w float32")
-    if w_flat.device != l_flat.device:
-        raise ValueError("place_windows: both tensors must be on one device")
-    R = super_tiles * tile
-    if R * 4 > 232448:
-        raise ValueError(f"place_windows: a {R}-float buffer exceeds shared memory")
-    BS, TE = l_flat.shape
-    l_c, w_c = l_flat.contiguous(), w_flat.contiguous()
-    out = torch.empty((BS, R), dtype=torch.float32, device=l_flat.device)
-    if BS == 0:
-        return out.reshape(BS, super_tiles, tile)
-    lib = cuda_build.library()
-    rc = lib.hst_place_windows(
-        l_c.data_ptr(), w_c.data_ptr(), BS, TE, R, out.data_ptr(),
-        torch.cuda.current_stream(l_flat.device).cuda_stream,
-    )
-    cuda_build.check(rc, "hst_place_windows")
-    place_windows.launches += 1
-    return out.reshape(BS, super_tiles, tile)
+    R = _place_checked("place_windows", l_flat, w_flat, super_tiles, tile)
+    out = _place_launch(cuda_build.library().hst_place_windows, l_flat, w_flat, R)
+    if l_flat.shape[0]:
+        place_windows.launches += 1
+    return out.reshape(l_flat.shape[0], super_tiles, tile)
 
 
 place_windows.launches = 0
+
+
+def place_windows_v1(l_flat: torch.Tensor, w_flat: torch.Tensor,
+                     super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
+    """``place_windows`` by the kernel's first design
+    (``hst_place_windows_v1``), the yardstick the redesign is held to bit
+    for bit and timed against. No served path calls it; CUDA tensors
+    only."""
+    R = _place_checked("place_windows_v1", l_flat, w_flat, super_tiles, tile)
+    out = _place_launch(cuda_build.library().hst_place_windows_v1, l_flat, w_flat, R)
+    if l_flat.shape[0]:
+        place_windows_v1.launches += 1
+    return out.reshape(l_flat.shape[0], super_tiles, tile)
+
+
+place_windows_v1.launches = 0
 
 
 def _slot_rows(wcaps) -> list:

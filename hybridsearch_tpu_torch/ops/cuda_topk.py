@@ -11,6 +11,9 @@ The port's layout is [n_tiles, B] (the TPU kernel's [nb, tpb, B] with the
 block axes merged). ``tile_stats`` launches the kernel for CUDA tensors and
 runs ``tile_stats_plain`` only for CPU tensors; the plain version is also
 what ``chip_smoke.py`` holds the kernel against on the card.
+``tile_stats_v1`` launches the kernel's first design, which the redesign
+must equal bit for bit; it takes CUDA tensors only and no served path
+calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from hybridsearch_tpu_torch.ops import cuda_build
 
 TILE = 128
+QUERY_BLOCKS = (32, 64, 128, 256)  # the kernel's query-block widths
 _PLAIN_BLOCK = 131072  # doc rows per plain-version matmul
 
 
@@ -64,6 +68,55 @@ def tile_stats_plain(
     return out_max, torch.cat(mins)
 
 
+def query_block(B: int) -> int:
+    """The kernel's query-block width for a batch of B queries: the
+    smallest of ``QUERY_BLOCKS`` that holds B, else the widest (a tile's
+    query blocks then run side by side)."""
+    return next((w for w in QUERY_BLOCKS if B <= w), QUERY_BLOCKS[-1])
+
+
+def _checked(name: str, q, docs, bias, n_valid):
+    """The launchers' argument checks; returns (float32 q, bias, n_valid)."""
+    N = docs.shape[0]
+    n_valid = N if n_valid is None else int(n_valid)
+    if not docs.is_cuda:
+        raise ValueError(f"{name}: unsupported device {docs.device}")
+    if docs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: docs dtype {docs.dtype} not supported")
+    if q.dtype != docs.dtype:
+        raise ValueError(f"{name}: q must be in the docs' dtype")
+    if docs.dim() != 2 or q.dim() != 2 or q.shape[1] != docs.shape[1]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} docs "
+                         f"{tuple(docs.shape)}")
+    D = docs.shape[1]
+    if N % TILE or D % 128:
+        raise ValueError(f"{name}: N={N} and D={D} must be multiples of 128")
+    if not docs.is_contiguous() or docs.data_ptr() % 16:
+        raise ValueError(f"{name}: docs must be contiguous and 16-byte aligned")
+    if q.device != docs.device or (bias is not None and bias.device != docs.device):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    qf = q.float().contiguous()  # exact for bf16 queries
+    if bias is not None:
+        if bias.shape != (N,) or bias.dtype != torch.float32:
+            raise ValueError(f"{name}: bias must be float32 [N]")
+        bias = bias.contiguous()
+    return qf, bias, n_valid
+
+
+def _launch(fn, extra, docs, q_arg, B, bias, n_valid, with_min):
+    """Allocate the outputs and call launcher ``fn`` with the queries
+    ``q_arg`` (``extra``: its arguments between out_min and the stream)."""
+    N, D = docs.shape
+    out_max = torch.empty((N // TILE, B), dtype=torch.float32, device=docs.device)
+    out_min = torch.empty_like(out_max) if with_min else None
+    rc = fn(docs.data_ptr(), int(docs.dtype == torch.bfloat16), q_arg.data_ptr(),
+            bias.data_ptr() if bias is not None else None, N, D, B, n_valid,
+            out_max.data_ptr(), out_min.data_ptr() if with_min else None, *extra,
+            torch.cuda.current_stream(docs.device).cuda_stream)
+    cuda_build.check(rc, fn.__name__)
+    return (out_max, out_min) if with_min else (out_max,)
+
+
 def tile_stats(
     q: torch.Tensor,
     docs: torch.Tensor,
@@ -74,46 +127,42 @@ def tile_stats(
     """([n_tiles, B] tile maxima,) or (maxima, alive-tile minima) of
     ``docs @ q.T``. ``docs`` [N, D] float32 or bf16 with N % 128 == 0 and
     D % 128 == 0; ``q`` [B, D] in the docs' dtype; ``bias`` [N] float32 or
-    None. CUDA tensors launch ``csrc/tile_stats.cu``; CPU tensors take
+    None. CUDA tensors launch ``csrc/tile_stats.cu``'s ``hst_tile_stats``
+    at query blocks of ``query_block(B)``; CPU tensors take
     ``tile_stats_plain``."""
-    N = docs.shape[0]
-    n_valid = N if n_valid is None else int(n_valid)
     if docs.device.type == "cpu":
         return tile_stats_plain(q, docs, bias, n_valid, with_min)
-    if not docs.is_cuda:
-        raise ValueError(f"tile_stats: unsupported device {docs.device}")
-    if docs.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"tile_stats: docs dtype {docs.dtype} not supported")
-    if q.dtype != docs.dtype:
-        raise ValueError("tile_stats: q must be in the docs' dtype")
-    if docs.dim() != 2 or q.dim() != 2 or q.shape[1] != docs.shape[1]:
-        raise ValueError(f"tile_stats: shapes q {tuple(q.shape)} docs "
-                         f"{tuple(docs.shape)}")
-    D = docs.shape[1]
-    if N % TILE or D % 128:
-        raise ValueError(f"tile_stats: N={N} and D={D} must be multiples of 128")
-    if not docs.is_contiguous() or docs.data_ptr() % 16:
-        raise ValueError("tile_stats: docs must be contiguous and 16-byte aligned")
-    if q.device != docs.device or (bias is not None and bias.device != docs.device):
-        raise ValueError("tile_stats: all tensors must be on one device")
-    B = q.shape[0]
-    qf = q.float().contiguous()  # exact for bf16 queries
-    if bias is not None:
-        if bias.shape != (N,) or bias.dtype != torch.float32:
-            raise ValueError("tile_stats: bias must be float32 [N]")
-        bias = bias.contiguous()
-    out_max = torch.empty((N // TILE, B), dtype=torch.float32, device=docs.device)
-    out_min = torch.empty_like(out_max) if with_min else None
-    lib = cuda_build.library()
-    rc = lib.hst_tile_stats(
-        docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
-        bias.data_ptr() if bias is not None else None, N, D, B, n_valid,
-        out_max.data_ptr(), out_min.data_ptr() if with_min else None,
-        torch.cuda.current_stream(docs.device).cuda_stream,
-    )
-    cuda_build.check(rc, "hst_tile_stats")
+    qf, bias, n_valid = _checked("tile_stats", q, docs, bias, n_valid)
+    B = qf.shape[0]
+    bq = query_block(B)
+    # the kernel streams the queries depth-major, zero past B
+    qt = torch.zeros((docs.shape[1], -(-B // bq) * bq), dtype=torch.float32,
+                     device=docs.device)
+    qt[:, :B] = qf.T
+    out = _launch(cuda_build.library().hst_tile_stats, (bq,), docs, qt, B, bias,
+                  n_valid, with_min)
     tile_stats.launches += 1
-    return (out_max, out_min) if with_min else (out_max,)
+    return out
 
 
 tile_stats.launches = 0
+
+
+def tile_stats_v1(
+    q: torch.Tensor,
+    docs: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    n_valid: Optional[int] = None,
+    with_min: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """``tile_stats`` by the kernel's first design (``hst_tile_stats_v1``),
+    the yardstick the redesign is held to bit for bit and timed against.
+    No served path calls it; CUDA tensors only."""
+    qf, bias, n_valid = _checked("tile_stats_v1", q, docs, bias, n_valid)
+    out = _launch(cuda_build.library().hst_tile_stats_v1, (), docs, qf, qf.shape[0],
+                  bias, n_valid, with_min)
+    tile_stats_v1.launches += 1
+    return out
+
+
+tile_stats_v1.launches = 0

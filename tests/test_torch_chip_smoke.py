@@ -1,5 +1,6 @@
 """chip_smoke.py: its CPU rehearsal runs every phase end to end, and the
-card run refuses to report without a card or without the package."""
+card run refuses to report without a card or without the package;
+chip_probes.py refuses to run without a card."""
 
 import json
 import os
@@ -43,6 +44,12 @@ def test_cpu_rehearsal_runs_every_phase():
     assert sum("bit-equal to super_scores True" in ln for ln in lines) == 4
     assert sum("bit-equal to window gather + place_windows True" in ln
                for ln in lines) == 2
+    # the redesigned kernels' rows: K1 at every batch size of both paths
+    # that run it, K3 at every rung of the clustered path
+    assert any("] redesigned kernels: tile_stats at B = " in ln for ln in lines)
+    assert any(ln.startswith("    tile_stats small-topic B=") for ln in lines)
+    assert any(ln.startswith("    tile_stats small-topic/source B=") for ln in lines)
+    assert any(ln.startswith("    place_windows B*S=") for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 
@@ -68,3 +75,14 @@ def test_card_run_alone_fails(tmp_path):
     out = _run([], str(tmp_path), timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_probes_without_a_card_print_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_probes.py")], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"k1"' not in out.stdout and "no CUDA card" in out.stderr

@@ -67,6 +67,114 @@ def test_gpu_tile_stats_matches_plain(dtype, with_bias, with_min):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [128, 384, 768])
+@pytest.mark.parametrize("B", [1, 17, 32, 100, 256])
+def test_gpu_tile_stats_equals_v1_bitwise(dtype, D, B):
+    """The redesigned K1 against its first design, bit for bit: 301 tiles
+    (not a multiple of the persistent grid), n_valid < N, bias with -inf
+    and negative-finite rows, with_min off and on; and within the stated
+    tolerance of the plain version."""
+    from hybridsearch_tpu_torch.ops.cuda_topk import (
+        tile_stats,
+        tile_stats_plain,
+        tile_stats_v1,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(10 + D + B)
+    N = 128 * 301
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev, dt)
+    b = np.zeros(N, np.float32)
+    b[rng.choice(N, 700, replace=False)] = -np.inf
+    b[rng.choice(N, 700, replace=False)] = -0.25
+    b[:128] = -np.inf  # a tile with no alive row
+    bias = torch.from_numpy(b).to(dev)
+    n_valid = N - 77
+    tol = 1e-5 if dtype == "float32" else 1e-3
+    for with_min in (False, True):
+        got = tile_stats(q, docs, bias, n_valid=n_valid, with_min=with_min)
+        want = tile_stats_v1(q, docs, bias, n_valid=n_valid, with_min=with_min)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == 1 + with_min
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        plain = tile_stats_plain(q, docs, bias, n_valid=n_valid, with_min=with_min)
+        for g, w in zip(got, plain):
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    assert torch.isinf(got[1][0]).all() and torch.isinf(got[0][-1]).logical_not().all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [257, 600])
+def test_gpu_tile_stats_past_one_query_block_equals_v1_bitwise(dtype, B):
+    """Past 256 queries a tile's queries span several 256-wide blocks, the
+    last one partial; the bits stay the first design's."""
+    from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_v1
+
+    dev = _card()
+    rng = np.random.default_rng(11)
+    N, D = 128 * 530, 384
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev, dt)
+    got = tile_stats(q, docs, None, n_valid=N - 1000, with_min=True)
+    want = tile_stats_v1(q, docs, None, n_valid=N - 1000, with_min=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def _order_sensitive_windows(gen, dev, rows, te):
+    """Windows that break every shortcut of the chunk order: each chunk of
+    1,024 entries names 1,024 distinct cells (a stride prime to the
+    range, out-of-range and negative ids among them), consecutive chunks
+    name the same cells, weights span ten orders of magnitude with both
+    signs (so another order of adds gives other bits), every fifth chunk
+    weighs nothing."""
+    R, M = 128 * 128, 128 * 128 + 128
+    n_chunks = -(-te // 1024)
+    start = torch.randint(0, M, (rows, (n_chunks + 1) // 2, 1), generator=gen,
+                          device=dev).repeat_interleave(2, dim=1)[:, :n_chunks]
+    l = ((start + 1021 * torch.arange(1024, device=dev)) % M - 64).reshape(rows, -1)
+    l = l[:, :te].int().contiguous()
+    mag = 10.0 ** torch.randint(-5, 5, (rows, te), generator=gen, device=dev)
+    sign = torch.randint(0, 2, (rows, te), generator=gen, device=dev) * 2 - 1
+    w = torch.rand((rows, te), generator=gen, device=dev) * mag * sign
+    w[:, ::5] = 0.0
+    for c in range(4, n_chunks, 5):
+        w[:, c * 1024:(c + 1) * 1024] = 0.0
+    return l, w.float().contiguous()
+
+
+@pytest.mark.parametrize("BS", [1, 513, 4096])
+@pytest.mark.parametrize("te", [1024, 24 * 1024, 3 * 1024 + 6])
+def test_gpu_place_windows_equals_v1_bitwise(BS, te):
+    """The redesigned K3 against its first design, bit for bit, on windows
+    whose sums depend on the chunk order (``te`` not a multiple of 4 takes
+    the scalar loads), and equal to the plain version too (it adds the
+    same weights chunk by chunk, a chunk's cells distinct)."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        place_windows,
+        place_windows_plain,
+        place_windows_v1,
+    )
+
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    l, w = _order_sensitive_windows(gen, dev, BS, te)
+    got = place_windows(l, w)
+    want = place_windows_v1(l, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, place_windows(l, w))
+    plain = place_windows_plain(l, w)
+    assert torch.equal(got, plain)
+    assert (got != 0).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shared", [False, True])
 def test_gpu_super_scores_matches_plain_with_clamp(dtype, shared):
     """``shared``: many queries probe few supertiles, so a supertile's

@@ -21,8 +21,12 @@ from hybridsearch_tpu.ops.pallas_supertile import (
     pallas_super_scores,
 )
 from hybridsearch_tpu.ops.pallas_topk import pallas_tile_stats_t
-from hybridsearch_tpu_torch.ops.cuda_supertile import place_windows, super_scores
-from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats
+from hybridsearch_tpu_torch.ops.cuda_supertile import (
+    place_windows,
+    place_windows_v1,
+    super_scores,
+)
+from hybridsearch_tpu_torch.ops.cuda_topk import query_block, tile_stats, tile_stats_v1
 
 
 def _unit(rng, n, d):
@@ -122,3 +126,26 @@ def test_wrappers_take_plain_versions_only_on_the_cpu():
         place_windows(torch.zeros((2, 8), dtype=torch.int32, device="meta"),
                       torch.zeros((2, 8), device="meta"))
     assert tile_stats.launches == 0
+
+
+def test_first_designs_refuse_cpu_tensors():
+    """``tile_stats_v1`` and ``place_windows_v1`` are yardsticks for the
+    card: on CPU (or meta) tensors they raise rather than run the plain
+    version, and count no launch."""
+    rng = np.random.default_rng(9)
+    docs = torch.from_numpy(_unit(rng, 256, 128))
+    q = torch.from_numpy(_unit(rng, 4, 128))
+    l = torch.zeros((2, 1024), dtype=torch.int32)
+    w = torch.zeros((2, 1024))
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError):
+            tile_stats_v1(q.to(dev), docs.to(dev))
+        with pytest.raises(ValueError):
+            place_windows_v1(l.to(dev), w.to(dev))
+    assert tile_stats_v1.launches == 0 and place_windows_v1.launches == 0
+
+
+@pytest.mark.parametrize("B,bq", [(1, 32), (32, 32), (33, 64), (64, 64), (100, 128),
+                                  (129, 256), (256, 256), (1000, 256)])
+def test_query_block_is_the_smallest_width_that_holds_the_batch(B, bq):
+    assert query_block(B) == bq
