@@ -26,20 +26,23 @@ rungs score pairs sorted by supertile (K4, super_scores_dedup) and place
 the lexical windows straight from the CSR (K5, place_fused). Its certified
 flags, ids and values must equal the default run's bit for bit; K4 and K5
 are timed at every rung beside K2 and the window gather + K3 on the same
-work.
+work; K4 is held bit-equal to K2 and its whole route (pair sort, group
+table, kernel) is timed against K2 at every rung.
 
 The default configuration's path comes next: the same small-topic corpus
 indexed under ``layout="source"`` and served through the impact ladder,
-whose rungs run the dense sweep (K1), the run slices (K6, slice_runs) and
-the candidate rescore (K7, rescore); K6 and K7 must launch in the timed
-batches, and are then timed at every rung the batches reached. K1 and K3
-keep their first designs as yardsticks (``tile_stats_v1``,
-``place_windows_v1``): the kernel check and the "redesigned kernels"
-rows (K1 at every batch size of both paths, K3 at every rung) hold each
-bit-equal to its first design and time the two side by side. "Regime 1"
-serves a corpus a quarter of the size, below ``SPARSE_HYBRID_MIN_DOCS``,
-through the full [B, n] fused program; one batch is served twice and must
-be equal bit for bit. A corpus with larger topics is served on the
+whose rungs run the dense sweep (K1), pass 3 of the dense top-k (K4 at
+tile grain, tile_scores), the run slices (K6, slice_runs) and the
+candidate rescore (K7, rescore); pass 3, K6 and K7 must launch in the
+timed batches, and are then timed at every rung the batches reached. K1,
+K2, K3 and K4 keep their first designs as yardsticks (``tile_stats_v1``,
+``super_scores_v1``, ``place_windows_v1``, ``super_scores_dedup_v1``):
+the kernel check, the per-rung rows of K2 and K4 and the "redesigned
+kernels" rows (K1 at every batch size of both paths, K3 at every rung)
+hold each bit-equal to its first design and time the two side by side.
+"Regime 1" serves a corpus a quarter of the size, below
+``SPARSE_HYBRID_MIN_DOCS``, through the full [B, n] fused program; one
+batch is served twice and must be equal bit for bit. A corpus with larger topics is served on the
 clustered path last. No corpus's topic structure comes from a published
 source, so their qps describe these corpora only.
 
@@ -118,7 +121,9 @@ PATHS = {
     # the same ladder with EngineConfig.perf.scores_dedup and .place_fused
     "clustered/levers": ("supertile_ladder", ("tile_stats", "super_scores_dedup",
                                               "place_fused")),
-    "source": ("impact_ladder", ("tile_stats", "slice_runs", "rescore")),
+    # pass 3 of its dense top-k runs K4 at tile grain (tile_scores)
+    "source": ("impact_ladder", ("tile_stats", "slice_runs", "rescore",
+                                 "super_scores_dedup")),
 }
 # (T, p, C) of the impact kernels' checks: the three rungs of the impact
 # ladder at T = 8 term slots (C = k_dense + T * c_per_term), the third rung
@@ -192,7 +197,7 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     card K1 and K3 also bit-equal to their first designs (``_v1``)."""
     from hybridsearch_tpu_torch.ops.cuda_supertile import (
         place_windows, place_windows_plain, place_windows_v1, super_scores,
-        super_scores_plain)
+        super_scores_plain, super_scores_v1)
     from hybridsearch_tpu_torch.ops.cuda_topk import (
         tile_stats, tile_stats_plain, tile_stats_v1)
 
@@ -220,6 +225,11 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
             raise AssertionError(f"kernel disagrees with its plain version ({dt})")
         if not on_card:
             continue
+        same2 = torch.equal(super_scores(q_t, d_t, sup, sd), super_scores_v1(q_t, d_t, sup, sd))
+        print(f"    {str(dt)[6:]}: super_scores (S={S}) bit-equal to super_scores_v1: "
+              f"{same2}", flush=True)
+        if not same2:
+            raise AssertionError(f"super_scores differs from super_scores_v1 ({dt})")
         same = []
         for b in K1_V1_BATCHES:
             for with_min in (False, True):
@@ -256,19 +266,22 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
 
 
 def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
-    """K4 and K5 at the slice's widths. K4 bit-equal to K2 at every probe
-    count of the ladder, float32 and bf16, on a batch whose first half
-    probes three shared supertiles (runs of more than 32 equal pairs) and
-    whose first row probes a supertile past the end (clamped chunks), and
-    within 1e-5 of its plain version. K5 bit-equal to the staged windows +
+    """K4 and K5 at the slice's widths. K4 on the probe table, written
+    query-major, bit-equal to K2 and (on the card) to its first design on
+    the pairs ``dedup_pairs`` sorts, unpermuted, at every probe count of
+    the ladder, float32
+    and bf16, on a batch whose first half probes three shared supertiles
+    (runs longer than any pair group) and whose first row probes a
+    supertile past the end (clamped chunks), and within 1e-5 of its plain
+    version. K5 bit-equal to the staged windows +
     K3 and to its plain version, on a CSR whose windows overflow the 8,192
     cap, with empty windows and probes past the position table, at
     B*S = 2B rows and wcaps = (8192,)*8 (the shape at which the TPU kernel
     faulted) and a mixed cap tuple."""
     from hybridsearch_tpu_torch.ops import supertile as st
     from hybridsearch_tpu_torch.ops.cuda_supertile import (
-        place_fused, place_fused_plain, place_windows, super_scores,
-        super_scores_dedup, super_scores_dedup_plain, window_entries)
+        place_fused, place_fused_plain, place_windows, super_scores, super_scores_dedup,
+        super_scores_dedup_plain, super_scores_dedup_v1, window_entries)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 3)
@@ -282,16 +295,19 @@ def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
         sup[: B // 2] = torch.randint(0, 3, (B // 2, S), generator=gen, device=dev)
         sup[0, -1] = n_sup + 3
         sup = torch.sort(sup, dim=1).values.int()
-        tid, qid, _rep, inv = st.dedup_pairs(sup)
+        jtid, jqid, _rep, inv = st.dedup_pairs(sup)
         for dt in (torch.float32, torch.bfloat16):
             d_t, q_t = docs.to(dt), q.to(dt)
-            k4 = super_scores_dedup(q_t[qid], d_t, tid, sd)
-            same = torch.equal(k4[inv].reshape(B, S * sd), super_scores(q_t, d_t, sup, sd))
-            err = max_err(k4[:64], super_scores_dedup_plain(q_t[qid][:64], d_t, tid[:64], sd))
+            k4 = super_scores_dedup(q_t, d_t, sup, sd)
+            same = torch.equal(k4, super_scores(q_t, d_t, sup, sd))
+            err = max_err(k4[:4], super_scores_dedup_plain(q_t[:4], d_t, sup[:4], sd))
+            same_v1 = (torch.equal(super_scores_dedup_v1(q_t[jqid], d_t, jtid, sd)[inv]
+                                   .reshape(B, -1), k4)
+                       if dev.type == "cuda" else None)
             print(f"    super_scores_dedup S={S} {str(dt)[6:]}: bit-equal to "
-                  f"super_scores {same}, err {err:.3g} against its plain "
-                  "version (tol 1e-5)", flush=True)
-            if not (same and err <= 1e-5):
+                  f"super_scores {same}, to super_scores_dedup_v1 unpermuted {same_v1}, "
+                  f"err {err:.3g} against its plain version (tol 1e-5)", flush=True)
+            if not (same and err <= 1e-5 and same_v1 is not False):
                 raise AssertionError(f"super_scores_dedup disagrees at S={S} ({dt})")
         del k4
     del docs
@@ -485,13 +501,16 @@ def check_against_reference(results, exact_rows, ref_vals, ref_ids, fused):
 # -- phase 5: the kernels on the main path's own inputs -------------------------
 
 class Capture:
-    """Wraps a module-level kernel wrapper to keep the arguments of its
-    first call for each value of ``key(args)`` (the main path's own
-    inputs) and count the calls of each key, then calls it unchanged."""
+    """Wraps a module-level function to keep the arguments of its first
+    call for each value of ``key(args)`` (the main path's own inputs) and
+    count, for each key, the launches those calls made: the rise of the
+    launch count of ``kernel``, the wrapper that launches (by default the
+    wrapped function itself). It then calls the function unchanged."""
 
-    def __init__(self, module, name: str, key=lambda args: None):
+    def __init__(self, module, name: str, key=lambda args: None, kernel=None):
         self.module, self.name, self.key = module, name, key
         self.real = getattr(module, name)
+        self.kernel = kernel or self.real
         self.calls: dict = {}
         self.counts: dict = {}
         setattr(module, name, self)
@@ -503,28 +522,45 @@ class Capture:
     def __call__(self, *args, **kwargs):
         key = self.key(args)
         self.calls.setdefault(key, (args, kwargs))
-        self.counts[key] = self.counts.get(key, 0) + 1
-        return self.real(*args, **kwargs)
+        before = self.kernel.launches
+        out = self.real(*args, **kwargs)
+        self.counts[key] = self.counts.get(key, 0) + self.kernel.launches - before
+        return out
 
     def restore(self) -> None:
         setattr(self.module, self.name, self.real)
 
 
 # kernels kept beside their first designs, which they must equal bit for bit
-V1_KERNELS = ("tile_stats", "place_windows")
+V1_KERNELS = ("tile_stats", "super_scores", "place_windows", "super_scores_dedup")
 
 
-def v1_fn(name: str):
-    """The first design's wrapper of a kernel in ``V1_KERNELS``."""
-    from hybridsearch_tpu_torch.ops import cuda_supertile, cuda_topk
+def v1_call(name: str, args, kwargs):
+    """(the first design's result in the kernel's own layout, a call of the
+    first design's kernel alone for timing) on a call's arguments, for a
+    kernel in ``V1_KERNELS``. K4's first design took the pairs sorted by
+    ``dedup_pairs`` with their query rows gathered and wrote [P, sd] in
+    sorted order: its caller's sort, gather and unpermute are done once
+    here, outside the timed call."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.ops import cuda_topk
+    from hybridsearch_tpu_torch.ops.supertile import dedup_pairs
 
-    return {"tile_stats": cuda_topk.tile_stats_v1,
-            "place_windows": cuda_supertile.place_windows_v1}[name]
+    if name == "super_scores_dedup":
+        q, docs, ids, sd = args[:4]
+        ch = kwargs.get("ch", args[4] if len(args) > 4 else 1024)
+        tid, qid, _rep, inv = dedup_pairs(ids)
+        qp = q[qid]
+        run = lambda: cs.super_scores_dedup_v1(qp, docs, tid, sd, ch)  # noqa: E731
+        return run()[inv].reshape(ids.shape[0], -1), run
+    v1 = {"tile_stats": cuda_topk.tile_stats_v1, "super_scores": cs.super_scores_v1,
+          "place_windows": cs.place_windows_v1}[name]
+    return v1(*args, **kwargs), lambda: v1(*args, **kwargs)
 
 
 KERNEL_TOL = {"tile_stats": 1e-5, "super_scores": 1e-5, "place_windows": 1e-6,
               "super_scores_dedup": 1e-5, "place_fused": 0.0,
-              "slice_runs": 0.0, "rescore": 0.0}
+              "slice_runs": 0.0, "rescore": 0.0, "tile_scores": 1e-5}
 
 
 def kernel_fns(name: str):
@@ -541,7 +577,16 @@ def kernel_fns(name: str):
             "place_fused": (cuda_supertile.place_fused,
                             cuda_supertile.place_fused_plain),
             "slice_runs": (cuda_impact.slice_runs, cuda_impact.slice_runs_plain),
-            "rescore": (cuda_impact.rescore, cuda_impact.rescore_plain)}[name]
+            "rescore": (cuda_impact.rescore, cuda_impact.rescore_plain),
+            # pass 3 of the dense top-k: K4 at tile grain
+            "tile_scores": (cuda_supertile.tile_scores,
+                            cuda_supertile.tile_scores_plain)}[name]
+
+
+def launcher(name: str):
+    """The wrapper whose count rises where ``name``'s kernel launches:
+    ``tile_scores`` launches K4."""
+    return kernel_fns("super_scores_dedup" if name == "tile_scores" else name)[0]
 
 
 def kernel_row(name: str, args, kwargs, dev: torch.device, plain_reps: int = 3) -> dict:
@@ -550,17 +595,16 @@ def kernel_row(name: str, args, kwargs, dev: torch.device, plain_reps: int = 3) 
     kernel, plain = kernel_fns(name)
     fk = lambda: kernel(*args, **kwargs)  # noqa: E731
     fp = lambda: plain(*args, **kwargs)  # noqa: E731
-    before = kernel.launches
-    got, want = fk(), fp()
-    sync(dev)
-    err = max_err(got, want)
-    del got, want
-    if not err <= KERNEL_TOL[name]:
-        raise AssertionError(f"{name}: error {err} > {KERNEL_TOL[name]} on "
-                             "main-path inputs")
-    ms = time_ms(fk, dev, reps=10, warmup=2)
-    dev_ms = device_ms(fk) if dev.type == "cuda" else None
-    kernel.launches = before  # these launches are not the path's
+    with _restoring_launches(launcher(name)):  # these launches are not the path's
+        got, want = fk(), fp()
+        sync(dev)
+        err = max_err(got, want)
+        del got, want
+        if not err <= KERNEL_TOL[name]:
+            raise AssertionError(f"{name}: error {err} > {KERNEL_TOL[name]} on "
+                                 "main-path inputs")
+        ms = time_ms(fk, dev, reps=10, warmup=2)
+        dev_ms = device_ms(fk) if dev.type == "cuda" else None
     plain_ms = time_ms(fp, dev, reps=plain_reps)
     bound_ms, bound_by, library = _bound_and_library(name, args, kwargs)
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -615,20 +659,24 @@ def kernel_numbers(captures: dict, launches: dict, dev: torch.device) -> list:
 
 
 def v1_fields(name: str, args, kwargs, dev: torch.device) -> dict:
-    """The kernel's first design (``v1_fn``) on the same inputs: whether the
-    redesign equals it bit for bit (it must), and its ms and device ms.
+    """The kernel's first design (``v1_call``) on the same inputs: whether
+    the redesign equals it bit for bit (it must), and its ms and device ms.
     Off the card the first design does not run: all None."""
     if dev.type != "cuda":
         return {"bit_equal_to_v1": None, "v1_ms": None, "v1_device_ms": None}
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.ops import cuda_topk
+
     kernel, _plain = kernel_fns(name)
-    v1 = v1_fn(name)
-    with _restoring_launches(kernel, v1):
-        got, want = kernel(*args, **kwargs), v1(*args, **kwargs)
+    with _restoring_launches(kernel, cuda_topk.tile_stats_v1, cs.super_scores_v1,
+                             cs.place_windows_v1, cs.super_scores_dedup_v1):
+        got = kernel(*args, **kwargs)
+        want, run = v1_call(name, args, kwargs)
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         del got, want
-        ms, dev_ms = _timed(lambda: v1(*args, **kwargs), dev)
+        ms, dev_ms = _timed(run, dev)
     if not same:
         raise AssertionError(f"{name} differs from {name}_v1 on main-path inputs")
     return {"bit_equal_to_v1": same, "v1_ms": ms, "v1_device_ms": dev_ms}
@@ -693,16 +741,28 @@ def place_windows_by_rung(cap: Capture, batch: int, dev: torch.device) -> list:
 
 
 def super_scores_by_probe(cap: Capture, dev: torch.device) -> list:
-    """K2 at every probe count S the warm-up batch's rungs gave it."""
+    """K2 at every probe count S the warm-up batch's rungs gave it, beside
+    its first design (bit-equal), with the goal of at least half its bound
+    (device ms at most twice the bound) marked met or missed."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
     rows = []
     for S, (args, kwargs) in sorted(cap.calls.items()):
-        row = {"S": S, "B": int(args[0].shape[0])}
+        B = int(args[0].shape[0])
+        row = {"S": S, "B": B, "launches": cap.counts.get(S, 0),
+               "pair_width": cs.pair_width(B * S, cs.n_units(
+                   args[1].shape[0], args[3], kwargs.get("ch", 1024)))}
         row.update(kernel_row("super_scores", args, kwargs, dev, plain_reps=1))
+        row.update(v1_fields("super_scores", args, kwargs, dev))
+        row["goal_half_of_bound_met"] = row["device_ms"] <= 2 * row["bound_ms"]
         rows.append(row)
-        print(f"    super_scores S={S} B={row['B']}: {row['ms']:.3f} ms (device "
-              f"{row['device_ms']:.3f} ms), bound "
-              f"{row['bound_ms']:.3f} ms ({row['bound_by']}), plain "
-              f"{row['plain_ms']:.3f} ms, library {row['library_ms']} ms, "
+        print(f"    super_scores S={S} B={B} pw={row['pair_width']}: {row['ms']:.4f} ms "
+              f"(device {row['device_ms']:.4f}); super_scores_v1 {_fmt(row['v1_ms'])} "
+              f"(device {_fmt(row['v1_device_ms'])}), bit-equal "
+              f"{row['bit_equal_to_v1']}; bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}): {100 * row['bound_ms'] / row['device_ms']:.1f}% of "
+              f"it, goal 50% {'met' if row['goal_half_of_bound_met'] else 'missed'}; "
+              f"plain {row['plain_ms']:.3f} ms, library {_fmt(row['library_ms'])} ms, "
               f"err {row['max_abs_err']:.3g}", flush=True)
     return rows
 
@@ -727,46 +787,50 @@ def _timed(fn, dev) -> tuple:
 
 def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
     """K4 and K5 at every rung of the levers run's warm-up batch, on the
-    path's own inputs (``caps``: its captures of dedup_pairs, K4 and K5,
-    one call of each a rung), beside the default route's kernels on the
-    same work. K4 beside K2 on the same sorted pairs (bit-equal), and the
-    whole dedup route (dedup_pairs, query-row gather, K4, unpermute) beside
-    K2 on the rung's probe table (bit-equal). K5 beside the window gather
-    + K3 on the same window bounds (bit-equal), with the gather alone and
-    K3 alone."""
+    path's own inputs (``caps``: its captures of K4 and K5, one call of
+    each a rung), beside the default route's kernels on the same work. K4's
+    wrapper (its whole route: pair sort, group table, kernel) beside its
+    first design (bit-equal, unpermuted) and K2 on the rung's probe table
+    (bit-equal), and its kernel alone on pairs sorted outside the timed
+    call, with the goals (route no slower than K2, kernel within 5% of K2)
+    marked met or missed. K5 beside the window
+    gather + K3 on the same window bounds (bit-equal), with the gather alone
+    and K3 alone."""
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
-    from hybridsearch_tpu_torch.ops import supertile as st
 
-    dp, k4cap, k5cap = (caps[n] for n in ("dedup_pairs", "super_scores_dedup",
-                                          "place_fused"))
-    if not len(dp.calls) == len(k4cap.calls) == len(k5cap.calls):
+    k4cap, k5cap = caps["super_scores_dedup"], caps["place_fused"]
+    if not len(k4cap.calls) == len(k5cap.calls):
         raise AssertionError("the levers run's rungs did not each run K4 and K5")
     rows4, rows5 = [], []
     probes = {}
     for i, (args, kwargs) in sorted(k4cap.calls.items()):
-        sup_s = dp.calls[i][0][0]
-        B, S = sup_s.shape
+        q3, docs, sup_s, sd = args[:4]
+        B, S = (int(x) for x in sup_s.shape)
+        ch = kwargs.get("ch", 1024)
         probes[i] = S
-        qp, docs, tid, sd = args[:4]
-        row = {"S": S, "B": B}
+        row = {"S": S, "B": B, "pair_width": cs.pair_width(B * S, cs.n_units(
+            docs.shape[0], sd, ch))}
         row.update(kernel_row("super_scores_dedup", args, kwargs, dev, plain_reps=1))
+        row.update(v1_fields("super_scores_dedup", args, kwargs, dev))
         with _restoring_launches(cs.super_scores, cs.super_scores_dedup):
-            k2_pairs = lambda: cs.super_scores(qp, docs, tid.reshape(-1, 1), sd)  # noqa: E731
-            same = torch.equal(cs.super_scores_dedup(*args, **kwargs), k2_pairs())
-            row["k2_same_pairs_ms"], row["k2_same_pairs_device_ms"] = _timed(k2_pairs, dev)
-            q3 = qp[st.dedup_pairs(sup_s)[3]].reshape(B, S, -1)[:, 0]
-
-            def route():
-                t_, qid, _rep, inv = st.dedup_pairs(sup_s)
-                return cs.super_scores_dedup(q3[qid], docs, t_, sd)[inv].reshape(B, -1)
-
-            k2 = lambda: cs.super_scores(q3, docs, sup_s, sd)  # noqa: E731
-            same_route = torch.equal(route(), k2())
-            row["route_ms"], row["route_device_ms"] = _timed(route, dev)
+            k2 = lambda: cs.super_scores(q3, docs, sup_s, sd, **kwargs)  # noqa: E731
+            row["bit_equal_to_k2"] = torch.equal(cs.super_scores_dedup(*args, **kwargs),
+                                                 k2())
             row["k2_ms"], row["k2_device_ms"] = _timed(k2, dev)
-        row["bit_equal_to_k2"] = same and same_route
+            if dev.type == "cuda":
+                # the kernel alone: the pairs sorted once, outside the timed call
+                pairs = cs.sort_pairs(sup_s, S)
+                qf = q3.float().contiguous()
+                out = torch.empty((B, S * sd), device=docs.device)
+                row["kernel_ms"], row["kernel_device_ms"] = _timed(
+                    lambda: cs._launch_sorted_pairs(qf, docs, *pairs, sd, ch, out), dev)
+                del out
         if not row["bit_equal_to_k2"]:
             raise AssertionError(f"super_scores_dedup differs from super_scores at S={S}")
+        if dev.type == "cuda":
+            row["goal_route_no_slower_met"] = row["device_ms"] <= row["k2_device_ms"]
+            row["goal_kernel_within_5pct_met"] = (row["kernel_device_ms"]
+                                                  <= 1.05 * row["k2_device_ms"])
         rows4.append(row)
     for i, (args, kwargs) in sorted(k5cap.calls.items()):
         S = probes[i]
@@ -788,15 +852,20 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
             raise AssertionError(f"place_fused differs from the two-step path at S={S}")
         rows5.append(row)
     if show:
+        met = {True: "met", False: "missed"}
         for r in rows4:
-            print(f"    super_scores_dedup S={r['S']} B={r['B']}: {_fmt(r['ms'])} ms "
-                  f"(device {_fmt(r['device_ms'])}); route with dedup_pairs, gather and "
-                  f"unpermute {_fmt(r['route_ms'])} (device {_fmt(r['route_device_ms'])}); "
-                  f"super_scores {_fmt(r['k2_ms'])} (device {_fmt(r['k2_device_ms'])}), on "
-                  f"the same sorted pairs {_fmt(r['k2_same_pairs_ms'])} (device "
-                  f"{_fmt(r['k2_same_pairs_device_ms'])}); bound {_fmt(r['bound_ms'])} "
+            print(f"    super_scores_dedup S={r['S']} B={r['B']} pw={r['pair_width']}: "
+                  f"route (sort, table, kernel) {_fmt(r['ms'])} ms (device "
+                  f"{_fmt(r['device_ms'])}), kernel alone {_fmt(r['kernel_ms'])} (device "
+                  f"{_fmt(r['kernel_device_ms'])}); super_scores_dedup_v1 "
+                  f"{_fmt(r['v1_ms'])} (device {_fmt(r['v1_device_ms'])}), bit-equal "
+                  f"{r['bit_equal_to_v1']}; super_scores {_fmt(r['k2_ms'])} (device "
+                  f"{_fmt(r['k2_device_ms'])}), bit-equal to super_scores True; goals: "
+                  f"route no slower than super_scores "
+                  f"{met[r['goal_route_no_slower_met']]}, kernel within 5% "
+                  f"{met[r['goal_kernel_within_5pct_met']]}; bound {_fmt(r['bound_ms'])} "
                   f"({r['bound_by']}), plain {_fmt(r['plain_ms'])}, library "
-                  f"{_fmt(r['library_ms'])} ms; bit-equal to super_scores", flush=True)
+                  f"{_fmt(r['library_ms'])} ms", flush=True)
         for r in rows5:
             print(f"    place_fused S={r['S']} B*S={r['BS']} wcaps={r['wcaps']}: "
                   f"{_fmt(r['ms'])} ms (device {_fmt(r['device_ms'])}); window gather + "
@@ -807,6 +876,40 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
                   f"({r['bound_by']}), plain {_fmt(r['plain_ms'])}, library "
                   f"{_fmt(r['library_ms'])} ms; bit-equal to the two-step path", flush=True)
     return rows4, rows5
+
+
+def tile_scores_by_rung(cap: Capture, dev: torch.device, show: bool = True) -> list:
+    """Pass 3 of the dense top-k, K4 at tile grain (``tile_scores``), at
+    every rung of the source path (kd tiles a query), on the path's own
+    inputs: against its plain version, which is the gather + ``einsum``
+    composition pass 3 ran before the kernel (``composition_ms``), with its
+    bound and, as the library time, one cuBLAS product over the whole
+    corpus and a gather of the tiles' columns (K2's and K4's yardstick);
+    launches are K4's launches from the rung's calls in the timed
+    batches."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    rows = []
+    for KT, (args, kwargs) in sorted(cap.calls.items()):
+        q, docs, tiles = args[:3]
+        B = int(q.shape[0])
+        row = {"tiles_per_query": KT, "B": B, "launches": cap.counts.get(KT, 0),
+               "pair_width": cs.pair_width(B * KT, docs.shape[0] // 128)}
+        row.update(kernel_row("tile_scores", args, kwargs, dev, plain_reps=1))
+        row["composition_ms"] = row["plain_ms"]
+        rows.append(row)
+        if dev.type == "cuda" and not row["launches"]:
+            raise AssertionError(f"pass 3 at kd={KT} never launched K4 in the timed "
+                                 "batches")
+        if show:
+            print(f"    tile_scores (pass 3, K4 at tile grain) kd={KT} B={B} "
+                  f"pw={row['pair_width']}: {_fmt(row['ms'])} ms (device "
+                  f"{_fmt(row['device_ms'])}), bound {_fmt(row['bound_ms'])} "
+                  f"({row['bound_by']}), plain (gather + einsum) {_fmt(row['plain_ms'])}"
+                  f", library (matmul + gather) {_fmt(row['library_ms'])} ms, "
+                  f"{row['launches']} launches in the timed batches, err "
+                  f"{row['max_abs_err']:.3g}", flush=True)
+    return rows
 
 
 def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list:
@@ -875,7 +978,8 @@ def _bound_and_library(name, args, kwargs):
         def library():
             s = torch.matmul(docs, q.T).view(N // 128, 128, B)
             s.amax(dim=1), s.amin(dim=1)
-    elif name == "super_scores":
+    elif name in ("super_scores", "super_scores_dedup"):
+        # K4 computes K2's function on the same probe table
         from hybridsearch_tpu_torch.ops.cuda_supertile import _chunk_rows
 
         q, docs, sup, sd = args[0], args[1], args[2], args[3]
@@ -891,22 +995,23 @@ def _bound_and_library(name, args, kwargs):
         def library():
             # the whole corpus by cuBLAS float32, then the probed columns
             torch.gather(torch.matmul(q, docs.T), 1, rows)
-    elif name == "super_scores_dedup":
-        from hybridsearch_tpu_torch.ops.cuda_supertile import _chunk_rows
+    elif name == "tile_scores":
+        q, docs, tiles = args[:3]
+        tile = args[3] if len(args) > 3 else kwargs.get("tile", 128)
+        B, D = q.shape
+        KT = tiles.shape[1]
+        n_read = int(torch.unique(tiles).numel())
+        # each distinct tile read once, the queries, the tile ids, the output
+        nbytes = (n_read * tile * D * docs.element_size() + q.numel() * q.element_size()
+                  + tiles.numel() * tiles.element_size() + B * KT * tile * 4)
+        flops = 2.0 * B * KT * tile * D
 
-        qp, docs, tid, sd = args[0], args[1], args[2], args[3]
-        ch = kwargs.get("ch", args[4] if len(args) > 4 else 1024)
-        P, D = qp.shape
-        rows = _chunk_rows(tid.reshape(-1, 1), docs.shape[0], sd, ch)  # [P, sd]
-        unique_rows = int(torch.unique(rows).numel())
-        nbytes = (unique_rows * D * docs.element_size() + P * D * qp.element_size()
-                  + P * 4 + P * sd * 4)
-        flops = 2.0 * P * sd * D
+        rows = (tiles.long()[:, :, None] * tile
+                + torch.arange(tile, device=docs.device)).reshape(B, KT * tile)
 
         def library():
-            # the whole corpus by cuBLAS float32 for every pair's query row,
-            # then each pair's rows
-            torch.gather(torch.matmul(qp, docs.T), 1, rows)
+            # the whole corpus by cuBLAS float32, then the tiles' columns
+            torch.gather(torch.matmul(q, docs.T), 1, rows)
     elif name == "place_fused":
         from hybridsearch_tpu_torch.ops.cuda_supertile import window_entries
 
@@ -1196,7 +1301,8 @@ def main(argv=None) -> int:
     check_impact_kernels(sz, dev, args.seed,
                          IMPACT_SHAPES["cpu" if rehearsal else "card"])
     clock.phase("kernels", "K1-K7 match their plain versions at the slice's "
-                "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit")
+                "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit"
+                + ("" if rehearsal else "; K1-K4 equal their first designs"))
 
     # -- 4. end to end: the clustered path on the small-topic corpus, then
     # -- 5. its kernels on their own inputs; the same index again with the two
@@ -1246,12 +1352,19 @@ def main(argv=None) -> int:
     k1_rows += tile_stats_by_batch({"small-topic/source": run["captures"]["tile_stats"]},
                                    dev)
     by_rung = impact_by_rung(caps, dev, show=not rehearsal)
+    pass3 = tile_scores_by_rung(run["captures"]["tile_scores"], dev, show=not rehearsal)
+    k4_row = next(r for r in numbers if r["name"] == "super_scores_dedup")
+    k4_row["tile_grain"] = pass3  # pass 3 of the source path's dense top-k
+    k4_row["tile_grain_launches"] = run["launches"]["super_scores_dedup"]
     if rehearsal:
-        clock.phase("impact kernel timing", f"{len(by_rung)} shapes checked on "
-                    "main-path inputs; times not reported (cpu rehearsal)")
+        clock.phase("impact kernel timing", f"{len(by_rung)} shapes and pass 3 at "
+                    f"{len(pass3)} rungs checked on main-path inputs; times not "
+                    "reported (cpu rehearsal)")
     else:
         detail["impact_by_rung"] = by_rung
-        clock.phase("impact kernel timing", "small-topic/source main-path inputs")
+        detail["pass3_by_rung"] = pass3
+        clock.phase("impact kernel timing", "small-topic/source main-path inputs, "
+                    f"pass 3 at kd = {[r['tiles_per_query'] for r in pass3]}")
     del run, caps
 
     detail["tile_stats_by_batch"] = k1_rows
@@ -1304,10 +1417,8 @@ def _path_captures(layout: str) -> dict:
     if layout == "clustered/levers":
         # keyed by the call's rung in the warm-up batch (each rung launches
         # each kernel once; pair and row counts repeat across rungs)
-        rung0, rung4, rung5 = itertools.count(), itertools.count(), itertools.count()
+        rung4, rung5 = itertools.count(), itertools.count()
         return {"tile_stats": Capture(dense_mod, "tile_stats"),
-                "dedup_pairs": Capture(supertile_mod, "dedup_pairs",
-                                       key=lambda a: next(rung0)),
                 "super_scores_dedup": Capture(supertile_mod, "super_scores_dedup",
                                               key=lambda a: next(rung4)),
                 "place_fused": Capture(supertile_mod, "place_fused",
@@ -1315,7 +1426,12 @@ def _path_captures(layout: str) -> dict:
     return {"tile_stats": Capture(dense_mod, "tile_stats", key=by_batch),
             "slice_runs": Capture(impact_mod, "slice_runs", key=lambda a: int(a[4])),
             "rescore": Capture(impact_mod, "rescore",
-                               key=lambda a: (int(a[0].shape[1]), int(a[3])))}
+                               key=lambda a: (int(a[0].shape[1]), int(a[3]))),
+            # pass 3 of the dense top-k by tiles a query, counting the
+            # launches of K4 (at tile grain) its calls make
+            "tile_scores": Capture(dense_mod, "tile_scores",
+                                   key=lambda a: int(a[2].shape[1]),
+                                   kernel=kernel_fns("super_scores_dedup")[0])}
 
 
 def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,

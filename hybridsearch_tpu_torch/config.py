@@ -117,9 +117,9 @@ class PerfConfig:
     None means off, as the JAX package with its env gate unset; the port
     reads no environment variable for them.
 
-      * ``scores_dedup``: resident scores from pairs the caller sorted by
-        supertile (``dedup_pairs`` + kernel K4 ``super_scores_dedup``)
-        instead of K2's in-launch pair sort, when B*S % 8 == 0;
+      * ``scores_dedup``: resident scores from pairs sorted by supertile
+        before the launch (kernel K4 ``super_scores_dedup``) instead of
+        K2's in-launch pair sort, when B*S % 8 == 0;
       * ``place_fused``: resident lexical buffers read straight from the
         CSR (kernel K5 ``place_fused``) instead of staged windows + K3.
 

@@ -45,8 +45,12 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "hst_tile_stats": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _I, _P),
     "hst_tile_stats_v1": (_P, _I, _P, _P, _L, _I, _I, _L, _P, _P, _P),
-    "hst_super_scores": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P),
-    "hst_super_scores_dedup": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+    "hst_super_scores": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hst_super_scores_v1": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+    "hst_super_scores_dedup": (_P, _I, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P, _P,
+                               _P),
+    "hst_super_scores_dedup_v1": (_P, _I, _P, _P, _L, _I, _I, _I, _I, _P, _P),
+    "hst_group_table": (_P, _I, _I, _I, _P, _P),
     "hst_place_windows": (_P, _P, _L, _L, _I, _P, _P),
     "hst_place_windows_v1": (_P, _P, _L, _L, _I, _P, _P),
     "hst_place_fused": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),

@@ -6,25 +6,28 @@ Counterpart of ``hybridsearch_tpu/ops/pallas_supertile.py``:
     ``pallas_super_scores``: [B, S*sd] raw dots of each query with every
     doc row of its S probed supertiles, chunk indices past the end clamped
     to the last chunk. The caller applies bias and validity.
-  * ``super_scores_dedup`` (K4, the same source) replaces
-    ``pallas_super_scores_dedup``: [P, sd] raw dots of pre-gathered
-    per-pair query rows with the rows of supertile ``tid[p]``, for pairs
-    the caller sorted by supertile (``ops/supertile.py dedup_pairs``);
-    the same bits as K2 for each pair.
+  * ``super_scores_dedup`` (K4, the same source and scoring body) replaces
+    ``pallas_super_scores_dedup``: K2's function and bits on an id table
+    [B, n], scored as (query, unit) pairs sorted by unit id
+    (``sort_pairs``), each pair's query row read by index and its rows
+    written straight to their query-major output row. At ``sd = ch = 128``
+    a unit is one tile: ``tile_scores`` is pass 3 of the dense top-k
+    (``ops/dense.py`` ``gather_tile_scores``) on the card.
   * ``place_windows`` (K3, ``csrc/place_windows.cu``) replaces
     ``pallas_place_windows``: [BS, super_tiles, 128] resident lexical
     buffers, ``out[bs, l // 128, l % 128] += w`` for 0 <= l < super_tiles*128.
-    ``place_windows_v1`` launches the kernel's first design, which the
-    redesign must equal bit for bit (CUDA tensors only; no served path
-    calls it).
   * ``place_fused`` (K5, ``csrc/place_fused.cu``) replaces
     ``pallas_place_fused``: the same buffers read straight from the CSR
     windows [lo, hi) of each term slot, with no staged window arrays; the
     same bits as ``window_entries`` + K3.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-version only for CPU tensors. K4 and K5 serve the ladder when
-``EngineConfig.perf.scores_dedup`` / ``perf.place_fused`` are set.
+``super_scores_v1``, ``super_scores_dedup_v1`` and ``place_windows_v1``
+launch the kernels' first designs, which the redesigns must equal bit for
+bit (CUDA tensors only; no served path calls them). Each other wrapper
+launches its kernel for CUDA tensors and runs its plain version only for
+CPU tensors. K4 and K5 serve the ladder when
+``EngineConfig.perf.scores_dedup`` / ``perf.place_fused`` are set; K4 at
+tile grain serves pass 3 always.
 """
 
 from __future__ import annotations
@@ -37,13 +40,19 @@ from hybridsearch_tpu_torch.ops import cuda_build
 
 TILE = 128
 ROW = 128  # CSR row width (SuperPostings.ids_rows) of the windows' whole-row reads
-# rows a super_scores block scores and (query, probe) pairs it groups
-SCORE_ROWS, SCORE_PAIRS = 256, 32
+# rows a block of the scoring body takes (ch must be a multiple) and the
+# pair widths it comes in
+SCORE_ROWS = 128
+PAIR_WIDTHS = (32, 64, 128)
+# the first designs' rows a block and pairs a group
+V1_SCORE_ROWS, V1_SCORE_PAIRS = 256, 32
+MAX_K2_KEYS = 6144  # K2's in-launch pre-pass counts the keys in shared memory
 # entries the placement kernel adds between two barriers (one per thread);
 # callers lay out each term slot in whole chunks, so a chunk adds at most
 # one weight to a cell and every cell's sum runs in slot order
 PLACE_CHUNK = 1024
 _PLAIN_BUDGET = 1 << 29  # bytes of gathered rows per plain-version step
+_GATHER_BUDGET = 1 << 30  # bytes of gathered doc tiles per plain tile_scores step
 
 
 def _chunk_rows(sup_s: torch.Tensor, n_rows: int, sd: int, ch: int) -> torch.Tensor:
@@ -57,6 +66,77 @@ def _chunk_rows(sup_s: torch.Tensor, n_rows: int, sd: int, ch: int) -> torch.Ten
            + torch.arange(nch, device=dev)).clamp(0, last)  # [B, S, nch]
     rows = idx[..., None] * ch + torch.arange(ch, device=dev)
     return rows.reshape(B, S * sd)
+
+
+def n_units(n_rows: int, sd: int, ch: int) -> int:
+    """Units of ``sd`` rows (the last one partial) in ``n_rows`` rows."""
+    nch = sd // ch
+    return -(-(n_rows // ch) // nch)
+
+
+def pair_width(n_pairs: int, units: int) -> int:
+    """The scoring body's pair width for ``n_pairs`` pairs over ``units``
+    units: the narrowest of ``PAIR_WIDTHS`` that holds twice the mean pairs
+    a unit (the runs spread around the mean; a run one group holds reads
+    its rows once), else the widest. Measured on an H100 at the main
+    path's shapes (``chip_probes.py``)."""
+    mean = n_pairs / max(1, min(units, n_pairs))
+    return next((w for w in PAIR_WIDTHS if 2 * mean <= w), PAIR_WIDTHS[-1])
+
+
+def sort_pairs(ids: torch.Tensor, per_query: int):
+    """K4's pair bookkeeping for a query-major id table ``ids`` [B, n]
+    (pair p = b * n + j): (tid, qid, dst) int32 [B*n], the unit ids stable-
+    sorted ascending, each pair's query b and its output row p. The lean
+    form of ``ops/supertile.py dedup_pairs``, which also gives the inverse
+    permutation and the JAX kernel's ``rep``; neither is needed here. The
+    kernel's group table needs ``tid`` sorted, so K4's wrapper sorts its
+    id table itself."""
+    flat = ids.reshape(-1).to(torch.int32)
+    tid, order = torch.sort(flat, stable=True)
+    order = order.to(torch.int32)
+    return tid, order // per_query, order
+
+
+def group_table_plain(tid: torch.Tensor, units: int, group: int):
+    """K4's group table with torch ops (the kernel builds the same on the
+    card): from ids sorted ascending, clamped into [-1, units], a group
+    starts at every ``group``-th position of a run of equal keys and goes
+    to slot ``i // group + key + 1``. Returns (g_start, g_len, g_key) int32
+    [ceil(P / group) + units + 2]; g_len is 0 at unused slots."""
+    P = tid.shape[0]
+    dev = tid.device
+    g_max = -(-P // group) + units + 2
+    key = tid.long().clamp(-1, units)
+    pos = torch.arange(P, device=dev)
+    run0 = torch.searchsorted(key, key, side="left")
+    end = torch.searchsorted(key, key, side="right")
+    slot = torch.where((pos - run0) % group == 0, pos // group + key + 1, g_max)
+
+    def table(values):
+        out = torch.zeros(g_max + 1, dtype=torch.long, device=dev)
+        return out.scatter_(0, slot, values)[:g_max].to(torch.int32)
+
+    return table(pos), table((end - pos).clamp(max=group)), table(key)
+
+
+def _checked_scores(name: str, q: torch.Tensor, docs: torch.Tensor, sd: int, ch: int,
+                    rows: int, d_mult: int) -> None:
+    """The scoring launchers' common checks (device, dtypes, shapes)."""
+    if not docs.is_cuda:
+        raise ValueError(f"{name}: unsupported device {docs.device}")
+    if docs.dtype not in (torch.float32, torch.bfloat16) or q.dtype != docs.dtype:
+        raise ValueError(f"{name}: dtypes q {q.dtype} docs {docs.dtype}")
+    if docs.dim() != 2 or q.dim() != 2 or q.shape[1] != docs.shape[1]:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} docs {tuple(docs.shape)}")
+    N, D = docs.shape
+    if N % ch or sd % ch or ch % rows or D % d_mult:
+        raise ValueError(f"{name}: N={N}, sd={sd}, ch={ch}, D={D} need N % ch == "
+                         f"sd % ch == ch % {rows} == D % {d_mult} == 0")
+    if not docs.is_contiguous() or docs.data_ptr() % 16:
+        raise ValueError(f"{name}: docs must be contiguous and aligned")
+    if q.device != docs.device:
+        raise ValueError(f"{name}: all tensors must be on one device")
 
 
 def super_scores_plain(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
@@ -74,47 +154,44 @@ def super_scores_plain(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
     return out
 
 
+def _k2_checked(name: str, q, docs, sup_s, sd, ch, rows, d_mult):
+    _checked_scores(name, q, docs, sd, ch, rows, d_mult)
+    N, D = docs.shape
+    B, S = sup_s.shape
+    if q.shape != (B, D) or sup_s.device != docs.device:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs sup_s {tuple(sup_s.shape)} "
+                         f"and D={D}")
+    units = n_units(N, sd, ch)
+    if B * S >= 2**31 or units + 2 > MAX_K2_KEYS:
+        raise ValueError(f"{name}: B*S={B * S} pairs over {units} supertiles is "
+                         "past the kernel's limits")
+    return q.float().contiguous(), sup_s.to(torch.int32).contiguous(), units
+
+
 def super_scores(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
                  sd: int, ch: int = 1024) -> torch.Tensor:
     """[B, S*sd] float32 raw scores. ``q`` [B, D] in the docs' dtype,
-    ``docs`` [N, D] float32 or bf16 (N % ch == 0, D % 128 == 0),
+    ``docs`` [N, D] float32 or bf16 (N % ch == 0; on the card D % 16 == 0),
     ``sup_s`` [B, S] integer supertile ids, ``sd`` % ``ch`` == 0, and on
-    the card ``ch`` % 256 == 0. The kernel scores each probed supertile's
-    rows once per group of up to 32 (query, probe) pairs that share it."""
+    the card ``ch`` % 128 == 0. The kernel groups the (query, probe) pairs
+    by supertile in its own pre-pass and scores a supertile's rows once a
+    group of up to ``pair_width`` pairs."""
     if docs.device.type == "cpu":
         return super_scores_plain(q, docs, sup_s, sd, ch)
-    if not docs.is_cuda:
-        raise ValueError(f"super_scores: unsupported device {docs.device}")
-    if docs.dtype not in (torch.float32, torch.bfloat16) or q.dtype != docs.dtype:
-        raise ValueError(f"super_scores: dtypes q {q.dtype} docs {docs.dtype}")
+    qf, sup, units = _k2_checked("super_scores", q, docs, sup_s, sd, ch,
+                                 SCORE_ROWS, 16)
     N, D = docs.shape
     B, S = sup_s.shape
-    if q.shape != (B, D):
-        raise ValueError(f"super_scores: q {tuple(q.shape)} vs sup_s "
-                         f"{tuple(sup_s.shape)} and D={D}")
-    if N % ch or sd % ch or ch % SCORE_ROWS or D % 128:
-        raise ValueError(f"super_scores: N={N}, sd={sd}, ch={ch}, D={D} need "
-                         f"N % ch == sd % ch == ch % {SCORE_ROWS} == D % 128 == 0")
-    n_super = -(-N // sd)
-    if B * S >= 2**31 or n_super + 2 > 6144:
-        raise ValueError(f"super_scores: B*S={B * S} pairs over {n_super} "
-                         "supertiles is past the kernel's limits")
-    if not docs.is_contiguous() or docs.data_ptr() % 16:
-        raise ValueError("super_scores: docs must be contiguous and aligned")
-    if q.device != docs.device or sup_s.device != docs.device:
-        raise ValueError("super_scores: all tensors must be on one device")
-    qf = q.float().contiguous()
-    sup = sup_s.to(torch.int32).contiguous()
     out = torch.empty((B, S * sd), dtype=torch.float32, device=docs.device)
     if B * S == 0:
         return out
-    # the pre-pass's pair order and group table (csrc/super_scores.cu)
-    g_max = -(-B * S // SCORE_PAIRS) + n_super + 2
-    work = torch.empty(B * S + 3 * g_max, dtype=torch.int32, device=docs.device)
-    lib = cuda_build.library()
-    rc = lib.hst_super_scores(
+    pw = pair_width(B * S, units)
+    # the pre-pass's per-pair query and output rows and its group table
+    g_max = -(-B * S // pw) + units + 2
+    work = torch.empty(2 * B * S + 3 * g_max, dtype=torch.int32, device=docs.device)
+    rc = cuda_build.library().hst_super_scores(
         docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
-        sup.data_ptr(), N, D, B, S, sd, ch, work.data_ptr(), out.data_ptr(),
+        sup.data_ptr(), N, D, B, S, sd, ch, pw, work.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(docs.device).cuda_stream,
     )
     cuda_build.check(rc, "hst_super_scores")
@@ -125,59 +202,182 @@ def super_scores(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
 super_scores.launches = 0
 
 
-def super_scores_dedup_plain(qp: torch.Tensor, docs: torch.Tensor,
-                             tid: torch.Tensor, sd: int,
-                             ch: int = 1024) -> torch.Tensor:
-    """Plain PyTorch version: each pair's rows gathered, float32 batched
-    dot (``super_scores_plain`` with one probe a pair)."""
-    return super_scores_plain(qp, docs, tid.reshape(-1, 1), sd, ch)
+def super_scores_v1(q: torch.Tensor, docs: torch.Tensor, sup_s: torch.Tensor,
+                    sd: int, ch: int = 1024) -> torch.Tensor:
+    """``super_scores`` by the kernel's first design (``hst_super_scores_v1``,
+    ``ch`` % 256 == 0, D % 128 == 0), the yardstick the redesign is held to
+    bit for bit and timed against. No served path calls it; CUDA tensors
+    only."""
+    qf, sup, units = _k2_checked("super_scores_v1", q, docs, sup_s, sd, ch,
+                                 V1_SCORE_ROWS, 128)
+    N, D = docs.shape
+    B, S = sup_s.shape
+    out = torch.empty((B, S * sd), dtype=torch.float32, device=docs.device)
+    if B * S == 0:
+        return out
+    g_max = -(-B * S // V1_SCORE_PAIRS) + units + 2
+    work = torch.empty(B * S + 3 * g_max, dtype=torch.int32, device=docs.device)
+    rc = cuda_build.library().hst_super_scores_v1(
+        docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
+        sup.data_ptr(), N, D, B, S, sd, ch, work.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(docs.device).cuda_stream,
+    )
+    cuda_build.check(rc, "hst_super_scores_v1")
+    super_scores_v1.launches += 1
+    return out
 
 
-def super_scores_dedup(qp: torch.Tensor, docs: torch.Tensor, tid: torch.Tensor,
+super_scores_v1.launches = 0
+
+
+def super_scores_dedup_plain(q: torch.Tensor, docs: torch.Tensor, ids: torch.Tensor,
+                             sd: int, ch: int = 1024) -> torch.Tensor:
+    """Plain PyTorch version through the card route's bookkeeping: the
+    pairs sorted by unit (``sort_pairs``), each pair's query row gathered,
+    a float32 batched dot (``super_scores_plain`` with one probe a pair),
+    each pair's rows put at their query-major place."""
+    B, n = ids.shape
+    tid, qid, dst = sort_pairs(ids, n)
+    out = torch.empty((B * n, sd), dtype=torch.float32, device=docs.device)
+    out[dst.long()] = super_scores_plain(q[qid.long()], docs, tid.reshape(-1, 1), sd, ch)
+    return out.reshape(B, n * sd)
+
+
+def super_scores_dedup(q: torch.Tensor, docs: torch.Tensor, ids: torch.Tensor,
                        sd: int, ch: int = 1024) -> torch.Tensor:
-    """[P, sd] float32 raw scores. ``qp`` [P, D] the query row of each pair
-    in the docs' dtype, ``docs`` as for ``super_scores``, ``tid`` [P]
-    integer supertile ids sorted ascending (any order gives the same
-    values; sorted, each run of equal ids reads its rows once per 32
-    pairs)."""
+    """[B, n*sd] float32 raw scores, the function and the bits of
+    ``super_scores`` on the id table ``ids`` [B, n] (integer unit ids in
+    any order; q and docs as there). On the card the B*n (query, unit)
+    pairs are stable-sorted by unit (``sort_pairs``) and the kernel builds
+    a group table aligned to the runs of equal ids, scores a unit's rows
+    once a group of up to ``pair_width`` pairs, reads each pair's query row
+    by index and writes its rows straight to their query-major place."""
     if docs.device.type == "cpu":
-        return super_scores_dedup_plain(qp, docs, tid, sd, ch)
-    if not docs.is_cuda:
-        raise ValueError(f"super_scores_dedup: unsupported device {docs.device}")
-    if docs.dtype not in (torch.float32, torch.bfloat16) or qp.dtype != docs.dtype:
-        raise ValueError(f"super_scores_dedup: dtypes qp {qp.dtype} docs {docs.dtype}")
+        return super_scores_dedup_plain(q, docs, ids, sd, ch)
+    _checked_scores("super_scores_dedup", q, docs, sd, ch, SCORE_ROWS, 16)
+    N, D = docs.shape
+    if ids.dim() != 2 or q.shape != (ids.shape[0], D) or ids.device != docs.device:
+        raise ValueError(f"super_scores_dedup: q {tuple(q.shape)} vs ids "
+                         f"{tuple(ids.shape)} on {ids.device} and D={D}")
+    B, n = ids.shape
+    if B * n >= 2**31:
+        raise ValueError(f"super_scores_dedup: {B * n} pairs is past the kernel's limits")
+    out = torch.empty((B, n * sd), dtype=torch.float32, device=docs.device)
+    if B * n:
+        _launch_sorted_pairs(q.float().contiguous(), docs, *sort_pairs(ids, n), sd,
+                             ch, out)
+    return out
+
+
+def _launch_sorted_pairs(qf: torch.Tensor, docs: torch.Tensor, tid: torch.Tensor,
+                        qid: torch.Tensor, dst: torch.Tensor, sd: int, ch: int,
+                        out: torch.Tensor) -> None:
+    """K4's launch, the sort left out: the P >= 1 pairs (tid, qid, dst)
+    exactly as ``sort_pairs`` gives them, ``qf`` [B, D] float32 contiguous
+    and ``out`` float32 [P*sd] contiguous, all checked by
+    ``super_scores_dedup``. The kernel's group table needs ``tid`` sorted,
+    so only the wrapper and the timing of the kernel alone
+    (``chip_smoke.py``) call it."""
     N, D = docs.shape
     P = tid.shape[0]
-    if tid.dim() != 1 or qp.shape != (P, D):
-        raise ValueError(f"super_scores_dedup: qp {tuple(qp.shape)} vs tid "
+    units = n_units(N, sd, ch)
+    pw = pair_width(P, units)
+    g_max = -(-P // pw) + units + 2
+    work = torch.empty(3 * g_max, dtype=torch.int32, device=docs.device)
+    rc = cuda_build.library().hst_super_scores_dedup(
+        docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
+        tid.data_ptr(), qid.data_ptr(), dst.data_ptr(), P, N, D, sd, ch, pw,
+        work.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(docs.device).cuda_stream,
+    )
+    cuda_build.check(rc, "hst_super_scores_dedup")
+    super_scores_dedup.launches += 1
+
+
+super_scores_dedup.launches = 0
+
+
+def super_scores_dedup_v1(qp: torch.Tensor, docs: torch.Tensor, tid: torch.Tensor,
+                          sd: int, ch: int = 1024) -> torch.Tensor:
+    """K4 by its first design (``hst_super_scores_dedup_v1``): [P, sd] raw
+    scores of pre-gathered query rows ``qp`` [P, D] with the rows of unit
+    ``tid[p]``, in pair order (``ch`` % 256 == 0, D % 128 == 0). The
+    yardstick the redesign is held to bit for bit and timed against; no
+    served path calls it. CUDA tensors only."""
+    _checked_scores("super_scores_dedup_v1", qp, docs, sd, ch, V1_SCORE_ROWS, 128)
+    N, D = docs.shape
+    P = tid.shape[0]
+    if tid.dim() != 1 or qp.shape != (P, D) or tid.device != docs.device:
+        raise ValueError(f"super_scores_dedup_v1: qp {tuple(qp.shape)} vs tid "
                          f"{tuple(tid.shape)} and D={D}")
-    if N % ch or sd % ch or ch % SCORE_ROWS or D % 128:
-        raise ValueError(f"super_scores_dedup: N={N}, sd={sd}, ch={ch}, D={D} "
-                         f"need N % ch == sd % ch == ch % {SCORE_ROWS} == "
-                         "D % 128 == 0")
-    if P >= 2**31 or (-(-P // SCORE_PAIRS)) >= 2**31:
-        raise ValueError(f"super_scores_dedup: {P} pairs is past the kernel's limits")
-    if not docs.is_contiguous() or docs.data_ptr() % 16:
-        raise ValueError("super_scores_dedup: docs must be contiguous and aligned")
-    if qp.device != docs.device or tid.device != docs.device:
-        raise ValueError("super_scores_dedup: all tensors must be on one device")
+    if P >= 2**31:
+        raise ValueError(f"super_scores_dedup_v1: {P} pairs is past the kernel's limits")
     qf = qp.float().contiguous()
     t32 = tid.to(torch.int32).contiguous()
     out = torch.empty((P, sd), dtype=torch.float32, device=docs.device)
     if P == 0:
         return out
-    lib = cuda_build.library()
-    rc = lib.hst_super_scores_dedup(
+    rc = cuda_build.library().hst_super_scores_dedup_v1(
         docs.data_ptr(), int(docs.dtype == torch.bfloat16), qf.data_ptr(),
         t32.data_ptr(), N, D, P, sd, ch, out.data_ptr(),
         torch.cuda.current_stream(docs.device).cuda_stream,
     )
-    cuda_build.check(rc, "hst_super_scores_dedup")
-    super_scores_dedup.launches += 1
+    cuda_build.check(rc, "hst_super_scores_dedup_v1")
+    super_scores_dedup_v1.launches += 1
     return out
 
 
-super_scores_dedup.launches = 0
+super_scores_dedup_v1.launches = 0
+
+
+def group_table(tid: torch.Tensor, units: int, group: int):
+    """K4's group table as its kernel builds it (``hst_group_table``; CUDA
+    tensors), for holding it against ``group_table_plain``; the K4 launcher
+    builds its own. Returns (g_start, g_len, g_key) int32, g_start and
+    g_key undefined where g_len is 0."""
+    if not tid.is_cuda or tid.dim() != 1:
+        raise ValueError(f"group_table: a 1-d CUDA tensor, not {tid.device} "
+                         f"{tuple(tid.shape)}")
+    P = tid.shape[0]
+    g_max = -(-P // group) + units + 2
+    work = torch.empty(3 * g_max, dtype=torch.int32, device=tid.device)
+    t32 = tid.to(torch.int32).contiguous()
+    rc = cuda_build.library().hst_group_table(
+        t32.data_ptr(), P, units, group, work.data_ptr(),
+        torch.cuda.current_stream(tid.device).cuda_stream)
+    cuda_build.check(rc, "hst_group_table")
+    return work[:g_max], work[g_max:2 * g_max], work[2 * g_max:]
+
+
+def tile_scores_plain(q: torch.Tensor, docs: torch.Tensor, tiles: torch.Tensor,
+                      tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch version of ``tile_scores``: each query's tiles
+    gathered in steps of at most 1 GiB, widened to float32, and an
+    ``einsum`` (the JAX package's pass 3)."""
+    B, D = q.shape
+    n_tiles = docs.shape[0] // tile
+    KT = tiles.shape[1]
+    d_tiles = docs.reshape(n_tiles, tile, D)
+    qf = q.float()
+    chunk = max(1, min(KT, _GATHER_BUDGET // max(1, B * tile * D * 4)))
+    parts = []
+    for c0 in range(0, KT, chunk):
+        sel = d_tiles[tiles[:, c0:c0 + chunk].long()].float()  # [B, c, tile, D]
+        parts.append(torch.einsum("bktd,bd->bkt", sel, qf).reshape(B, -1))
+    return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+
+
+def tile_scores(q: torch.Tensor, docs: torch.Tensor, tiles: torch.Tensor,
+                tile: int = TILE) -> torch.Tensor:
+    """[B, KT*tile] float32 raw scores of every row of each query's tiles:
+    ``q`` [B, D] in the docs' dtype (bf16 queries rounded), ``docs``
+    [n_tiles * tile, D], ``tiles`` [B, KT] tile ids in [0, n_tiles). On the
+    card: K4 at ``sd = ch = tile`` (D % 16 == 0, tile % 128 == 0), whose
+    query-major output is already this layout; CPU tensors take
+    ``tile_scores_plain``."""
+    if docs.device.type == "cpu":
+        return tile_scores_plain(q, docs, tiles, tile)
+    return super_scores_dedup(q, docs, tiles, tile, ch=tile)
 
 
 def place_windows_plain(l_flat: torch.Tensor, w_flat: torch.Tensor,

@@ -14,6 +14,9 @@ statistics, so the [B, N] score matrix is never materialized:
 
 The sweep is kernel K1 (``ops/cuda_topk.py``) on the card, at the shapes the
 JAX package sent to its Pallas kernel; elsewhere it is K1's plain version.
+Pass 3's rescore of the chosen tiles is kernel K4 at tile grain
+(``ops/cuda_supertile.py`` ``tile_scores``) on the card; the JAX package
+and the CPU route gather the tiles and take an ``einsum``.
 ``int8_swept_topk`` is still to port.
 """
 
@@ -23,13 +26,17 @@ from typing import Optional, Tuple
 
 import torch
 
+from hybridsearch_tpu_torch.ops.cuda_supertile import (
+    SCORE_ROWS,
+    tile_scores,
+    tile_scores_plain,
+)
 from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_plain
 
 NEG_INF = float("-inf")
 # The JAX package's kernel route needs n_tiles >= 2 * HST_PALLAS_TPB (32);
 # the same floor keeps small corpora on the plain sweep here.
 KERNEL_MIN_TILES = 64
-_GATHER_BUDGET = 1 << 30  # bytes of gathered doc rows per rescoring step
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -120,6 +127,42 @@ def tiled_matrix_topk(scores: torch.Tensor, k: int,
     return vals, idxs
 
 
+def _tile_route(d: torch.Tensor, tile: int) -> bool:
+    """Pass 3's kernel route: on the card, K4 at tile grain takes tiles of
+    a multiple of 128 rows and depths of a multiple of 16."""
+    return _on_card(d) and tile % SCORE_ROWS == 0 and d.shape[1] % 16 == 0
+
+
+def _tile_scores(q: torch.Tensor, d: torch.Tensor, top_tiles: torch.Tensor,
+                 bias_p: Optional[torch.Tensor], n_valid: int,
+                 tile: int) -> torch.Tensor:
+    """[B, KT*tile] exact scores of every row of the given tiles of the
+    row-padded ``d`` (bias added; rows at or past ``n_valid``, dead rows
+    and tiles past the end are -inf). Raw scores by ``tile_scores`` (K4 at
+    tile grain) where ``_tile_route`` holds, else by its plain version;
+    bias and validity are applied here, after the kernel, in both."""
+    B, Dm = q.shape
+    n_tiles = d.shape[0] // tile
+    KT = top_tiles.shape[1]
+    q3 = q.to(torch.bfloat16) if d.dtype == torch.bfloat16 else q
+    tt_safe = top_tiles.clamp(max=n_tiles - 1)
+    if _tile_route(d, tile):
+        s = tile_scores(q3, d, tt_safe, tile)
+    else:
+        s = tile_scores_plain(q3, d, tt_safe, tile)
+    s = s.view(B, KT, tile)
+    # one additive row table: the bias, -inf at rows past n_valid
+    add = bias_p.float() if bias_p is not None else None
+    if n_valid < d.shape[0]:
+        add = (add.clone() if add is not None
+               else torch.zeros(d.shape[0], dtype=torch.float32, device=d.device))
+        add[n_valid:] = NEG_INF
+    if add is not None:
+        s = s + add.view(n_tiles, tile)[tt_safe]
+    s = s.masked_fill(~(top_tiles < n_tiles)[:, :, None], NEG_INF)
+    return s.reshape(B, KT * tile)
+
+
 def gather_tile_scores(
     queries: torch.Tensor,
     docs: torch.Tensor,
@@ -129,28 +172,21 @@ def gather_tile_scores(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact scores of every doc in the given tiles: ([B, KT*tile] scores,
     [B, KT*tile] global doc ids). bf16 docs meet bf16-rounded queries with
-    float32 accumulation. Rows past len(docs) and bias-dead docs score -inf."""
+    float32 accumulation. Rows past len(docs) and bias-dead docs score -inf.
+
+    Route, by shape before any launch: on the card with D % 16 == 0 and
+    tile % 128 == 0, kernel K4 at tile grain (``tile_scores``: the (query,
+    tile) pairs sorted by tile, each tile's rows read once a group of
+    queries, written straight to this [B, KT*tile] layout); otherwise, and
+    for CPU tensors, its plain version (tile gather + ``einsum``)."""
     q = queries.float()
-    B, Dm = q.shape
     N = docs.shape[0]
-    d, _, n_tiles, _ = _pad_rows(docs, None, tile)
+    d, bias_p, n_tiles, _ = _pad_rows(docs, bias, tile)
     KT = top_tiles.shape[1]
-    d_tiles = d.reshape(n_tiles, tile, Dm)
-    q3 = q.to(torch.bfloat16).float() if docs.dtype == torch.bfloat16 else q
-    per_tile = max(1, B * tile * Dm * 4)
-    chunk = max(1, min(KT, _GATHER_BUDGET // per_tile))
+    s = _tile_scores(q, d, top_tiles, bias_p, N, tile)
     tt_safe = top_tiles.clamp(max=n_tiles - 1).long()
-    parts = []
-    for c0 in range(0, KT, chunk):
-        sel = d_tiles[tt_safe[:, c0:c0 + chunk]].float()  # [B, c, tile, D]
-        parts.append(torch.einsum("bktd,bd->bkt", sel, q3).reshape(B, -1))
-    s = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     gidx = (tt_safe[:, :, None] * tile
-            + torch.arange(tile, device=q.device)).reshape(B, KT * tile)
-    if bias is not None:
-        s = s + bias.float()[gidx.clamp(max=N - 1)]
-    valid = (top_tiles.repeat_interleave(tile, dim=1) < n_tiles) & (gidx < N)
-    s = torch.where(valid, s, NEG_INF)
+            + torch.arange(tile, device=q.device)).reshape(-1, KT * tile)
     return s, gidx
 
 
@@ -166,7 +202,8 @@ def tiled_dense_topk(
     """Exact top-k via tile-max three-pass selection:
       pass 1: one sweep -> per-tile maxima (K1 on the card);
       pass 2: the k best tiles per query by their maxima;
-      pass 3: rescore those tiles' docs exactly and take the top-k.
+      pass 3: rescore those tiles' docs exactly (K4 at tile grain on the
+              card, ``gather_tile_scores``) and take the top-k.
     Exact by the tile-max argument (see tiled_matrix_topk).
 
     with_stats=True also returns (smin [B], smax [B]), the alive min/max of
@@ -193,11 +230,11 @@ def tiled_dense_topk(
         next_tile_max = tmvals[:, k_gather]
         top_tiles = top_tiles[:, :k_gather]
 
-    s3, gidx3 = gather_tile_scores(q, d, top_tiles, bias_p, tile=tile)
-    s3 = torch.where(gidx3 < N, s3, NEG_INF)
+    s3 = _tile_scores(q, d, top_tiles, bias_p, N, tile)
     k_eff = min(k, N)
     vals, sel3 = stable_topk(s3, k_eff)
-    idxs = torch.gather(gidx3, 1, sel3)
+    idxs = (torch.gather(top_tiles.clamp(max=n_tiles - 1), 1, sel3 // tile) * tile
+            + sel3 % tile)
     idxs = torch.where(torch.isfinite(vals), idxs, -1)
     outs: Tuple[torch.Tensor, ...] = (vals, idxs)
     if with_stats:

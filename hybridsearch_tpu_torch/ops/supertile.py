@@ -28,10 +28,11 @@ few supertiles of 128 tiles = 16384 docs:
 ``exact`` is True only when the result provably equals full-corpus
 min-max fusion. The rung's two opt-in levers (``EngineConfig.perf``, the
 JAX module's ``HST_SCORES_DEDUP`` and ``HST_PLACE_FUSED``) swap step 3's
-kernels for K4 (``super_scores_dedup`` on pairs sorted by ``dedup_pairs``)
-and K5 (``place_fused``, the windows read inside the kernel); both give
-the same bits as K2 and K3. The mesh build (``build_super_postings_sharded``)
-and the persistence helpers of the JAX module are not part of the port yet.
+kernels for K4 (``super_scores_dedup``, the (query, probe) pairs sorted
+by supertile) and K5 (``place_fused``, the windows read inside the
+kernel); both give the same bits as K2 and K3. The mesh build
+(``build_super_postings_sharded``) and the persistence helpers of the JAX
+module are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -300,13 +301,14 @@ def _place_windows_fused(sup_pos, ids_rows, ws_rows, term_ids, sup_s, sd,
 
 
 def dedup_pairs(sup_s: torch.Tensor, group: int = 8):
-    """(tid, qid, rep, inv) for ``super_scores_dedup`` from the per-query
-    probe table ``sup_s`` [B, S]: the B*S (query, probe) pairs stable-sorted
-    by supertile id (tid), each pair's query (qid), ``rep`` the first pair
-    of its equal-tid run clamped into its ``group``-sized block (the JAX
-    kernel's DMA owner; the card's kernel does not read it), and ``inv``
-    the inverse permutation: ``out_sorted[inv].reshape(B, S*sd)`` restores
-    query-major order."""
+    """(tid, qid, rep, inv), the JAX package's pair bookkeeping for its K4,
+    from the per-query probe table ``sup_s`` [B, S]: the B*S (query, probe)
+    pairs stable-sorted by supertile id (tid), each pair's query (qid),
+    ``rep`` the first pair of its equal-tid run clamped into its
+    ``group``-sized block (the JAX kernel's DMA owner), and ``inv`` the
+    inverse permutation: ``out_sorted[inv].reshape(B, S*sd)`` restores
+    query-major order. The card's K4 writes query-major rows itself and
+    takes the lean form (``ops/cuda_supertile.py sort_pairs``)."""
     B, S = sup_s.shape
     P = B * S
     dev = sup_s.device
@@ -438,9 +440,7 @@ def hybrid_supertile_topk_rung(
     if _on_card(docs) and N % CH == 0 and Dm % 128 == 0 and sd % CH == 0:
         q3 = q.to(docs.dtype) if docs.dtype == torch.bfloat16 else q
         if scores_dedup and (B * S) % 8 == 0:
-            tid, qid, _rep, inv = dedup_pairs(sup_s)
-            s_res = super_scores_dedup(q3[qid], docs, tid, sd,
-                                       ch=CH)[inv].reshape(B, R)  # K4
+            s_res = super_scores_dedup(q3, docs, sup_s, sd, ch=CH)  # K4
         else:
             s_res = super_scores(q3, docs, sup_s, sd, ch=CH)  # K2
         gidx = (sup_s[:, :, None] * sd

@@ -42,6 +42,9 @@ def test_cpu_rehearsal_runs_every_phase():
                for ln in lines)
     assert any("K1-K7 match" in ln for ln in lines)
     assert sum("bit-equal to super_scores True" in ln for ln in lines) == 4
+    # pass 3 of the source path's dense top-k, K4 at tile grain, is checked
+    # on the path's own inputs
+    assert any("] impact kernel timing:" in ln and "pass 3 at" in ln for ln in lines)
     assert sum("bit-equal to window gather + place_windows True" in ln
                for ln in lines) == 2
     # the redesigned kernels' rows: K1 at every batch size of both paths

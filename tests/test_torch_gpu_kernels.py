@@ -16,7 +16,10 @@ placement kernel adds the same float32 values in slot order: 1e-6 abs.
 The impact kernels are held to 0: the slice kernel copies, and the
 rescore kernel adds the same float32 weights in the same column order as
 its plain version. Two k-means fits from one seed must be equal bit for
-bit. K4 runs K2's per-pair sum and is held to K2 bit for bit; K5 adds the
+bit. K2 and K4 run one scoring body and are held to each other and to
+their first designs bit for bit; pass 3 on the card (K4 at tile grain) is
+held to its plain version within 1e-5 and its tile maxima to K1's bit for
+bit (the same fmaf chain a score). K5 adds the
 same weights in the same slot order as the staged windows + K3, and is held
 to them bit for bit. The run-ordered BM25 sum and the top-k scatter must
 repeat bit for bit.
@@ -250,14 +253,16 @@ def test_gpu_place_windows_sums_in_slot_order():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shared", [False, True])
 def test_gpu_super_scores_dedup_equals_k2_bitwise(dtype, shared):
-    """K4 on the pairs ``dedup_pairs`` sorts, unpermuted, against K2 on the
-    probe table: the same bits. ``shared``: runs of equal ids longer than
-    32 pairs, and ids below 0 or past the last supertile (first or last
-    chunk throughout)."""
+    """K4 on the probe table writes K2's query-major layout with no
+    unpermute: the same bits as K2, and as the first design on the pairs
+    ``dedup_pairs`` sorts, unpermuted. ``shared``: runs of equal ids longer
+    than 32 pairs, and ids below 0 or past the last supertile (first or
+    last chunk throughout)."""
     from hybridsearch_tpu_torch.ops.cuda_supertile import (
         super_scores,
         super_scores_dedup,
         super_scores_dedup_plain,
+        super_scores_dedup_v1,
     )
     from hybridsearch_tpu_torch.ops.supertile import dedup_pairs
 
@@ -274,19 +279,209 @@ def test_gpu_super_scores_dedup_equals_k2_bitwise(dtype, shared):
     if shared:
         sup[:5] = [[-3, -1, 6, 100]] * 5
     sup_t = torch.from_numpy(sup).to(dev)
-    tid, qid, _rep, inv = dedup_pairs(sup_t)
-    k4 = super_scores_dedup(q[qid], docs, tid, sd, ch=ch)
-    got = k4[inv].reshape(B, S * sd)
+    k4 = super_scores_dedup(q, docs, sup_t, sd, ch=ch)
     want = super_scores(q, docs, sup_t, sd, ch=ch)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(k4, want)
+    jtid, jqid, _rep, inv = dedup_pairs(sup_t)
+    assert torch.equal(super_scores_dedup_v1(q[jqid], docs, jtid, sd, ch=ch)[inv]
+                       .reshape(B, -1), k4)
     tol = 1e-5 if dtype == "float32" else 1e-3
-    torch.testing.assert_close(k4, super_scores_dedup_plain(q[qid], docs, tid, sd, ch=ch),
+    torch.testing.assert_close(k4, super_scores_dedup_plain(q, docs, sup_t, sd, ch=ch),
                                rtol=tol, atol=tol)
-    # unsorted pairs give the same values, only more runs
-    perm = torch.randperm(tid.shape[0], device=dev)
-    assert torch.equal(super_scores_dedup(q[qid][perm], docs, tid[perm], sd, ch=ch),
-                       k4[perm])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sd,ch", [(128, 128), (4096, 1024)])
+def test_gpu_super_scores_dedup_unsorted_table_gives_k2_bits(dtype, sd, ch):
+    """An id table in no order (each query's probes shuffled, ids repeated
+    within and across queries) gives K2's bits on the same table: K4's
+    wrapper sorts the pairs itself, so no order reaches the kernel's group
+    table unsorted."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import super_scores, super_scores_dedup
+
+    dev = _card()
+    rng = np.random.default_rng(8)
+    D, B, S = 384, 96, 6
+    units = 24
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, units * sd, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev, dt)
+    ids = rng.integers(0, units, (B, S)).astype(np.int32)
+    ids[:40, :3] = [7, 2, 7]  # a long run and repeats within a query
+    assert not (np.diff(ids, axis=1) >= 0).all()
+    ids_t = torch.from_numpy(ids).to(dev)
+    got = super_scores_dedup(q, docs, ids_t, sd, ch=ch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, super_scores(q, docs, ids_t, sd, ch=ch))
+
+
+def _bench_case(dev, dtype, S, seed):
+    """B = 256 queries over 8 supertiles of 16,384 x 384 rows (the slice's
+    widths), each query probing S of them sorted, some probes past the end."""
+    rng = np.random.default_rng(seed)
+    sd, D, B = 16384, 384, 256
+    N = 8 * sd
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev, dt)
+    sup = np.sort(rng.integers(0, 8 + S // 4, (B, S)), axis=1).astype(np.int32)
+    return docs, q, torch.from_numpy(sup).to(dev), sd
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [2, 4, 8, 16])
+def test_gpu_super_scores_equal_v1_bitwise(dtype, S):
+    """The redesigned K2 and K4 against their first designs, bit for bit,
+    at every probe count of the ladder (each width of the pair groups)."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        super_scores,
+        super_scores_dedup,
+        super_scores_dedup_v1,
+        super_scores_v1,
+    )
+    from hybridsearch_tpu_torch.ops.supertile import dedup_pairs
+
+    dev = _card()
+    docs, q, sup, sd = _bench_case(dev, dtype, S, 20 + S)
+    B = q.shape[0]
+    k2 = super_scores(q, docs, sup, sd)
+    assert torch.equal(k2, super_scores_v1(q, docs, sup, sd))
+    k4 = super_scores_dedup(q, docs, sup, sd)
+    torch.cuda.synchronize()
+    assert torch.equal(k4, k2)
+    jtid, jqid, _rep, inv = dedup_pairs(sup)
+    assert torch.equal(super_scores_dedup_v1(q[jqid], docs, jtid, sd)[inv].reshape(B, -1),
+                       k4)
+
+
+def _k4_cases(n_units, B):
+    """Sorted unit ids of query-major pairs (query b = pair // n) for K4's
+    group table: a run longer than every pair width, runs that cross the
+    first design's 32-pair windows, single-pair runs, ids past the last
+    unit and below 0 (clamped chunks), and units no pair names."""
+    runs = [(-2, 1), (0, 300), (2, 5), (3, 1), (4, 29), (5, 40), (7, 1), (8, 33),
+            (n_units - 1, 64), (n_units + 4, 2), (n_units + 9, 1)]
+    ids = np.concatenate([np.full(c, u) for u, c in runs]).astype(np.int32)
+    P = len(ids)
+    ids = np.concatenate([ids, np.full(B * -(-P // B) - P, n_units - 1, np.int32)])
+    return ids.reshape(B, -1)
+
+
+@pytest.mark.parametrize("sd,ch", [(128, 128), (16384, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_super_scores_dedup_group_cases(sd, ch, dtype):
+    """K4 at sd = 128 (a tile) and sd = 16,384 on ``_k4_cases``' runs, each
+    pair in a random query-major order: equal to K2 on the same probe table
+    bit for bit (and to the first design at 16,384), within the stated
+    tolerance of the plain version; its group table equals the plain one."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        PAIR_WIDTHS,
+        group_table,
+        group_table_plain,
+        n_units,
+        pair_width,
+        sort_pairs,
+        super_scores,
+        super_scores_dedup,
+        super_scores_dedup_plain,
+        super_scores_v1,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(30)
+    D, B = 384, 64
+    units = 40 if sd == 128 else 12
+    N = units * sd
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev, dt)
+    table = _k4_cases(units, B)
+    flat = table.reshape(-1).copy()
+    rng.shuffle(flat)
+    ids = torch.from_numpy(flat.reshape(B, -1)).to(dev)
+    S = ids.shape[1]
+    got = super_scores_dedup(q, docs, ids, sd, ch=ch)
+    k2 = super_scores(q, docs, ids, sd, ch=ch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, k2)
+    if ch % 256 == 0:
+        assert torch.equal(k2, super_scores_v1(q, docs, ids, sd, ch=ch))
+    tol = 1e-5 if dtype == "float32" else 1e-3
+    torch.testing.assert_close(got, super_scores_dedup_plain(q, docs, ids, sd, ch=ch),
+                               rtol=tol, atol=tol)
+    tid, _qid, _dst = sort_pairs(ids, S)
+    U = n_units(N, sd, ch)
+    for group in PAIR_WIDTHS + (pair_width(tid.shape[0], U),):
+        g_start, g_len, g_key = group_table(tid, U, group)
+        p_start, p_len, p_key = group_table_plain(tid, U, group)
+        used = p_len > 0
+        assert torch.equal(g_len, p_len) and int(g_len.sum()) == tid.shape[0]
+        assert torch.equal(g_start[used], p_start[used])
+        assert torch.equal(g_key[used], p_key[used])
+        assert int(g_len.max()) <= group
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_gather_tile_scores_matches_plain(dtype):
+    """Pass 3 on the card (K4 at tile grain) against its plain version on
+    the CPU: unit rows, a bias that kills rows, a partial last tile and
+    tile ids past the end. Tolerance 1e-5: the kernel sums in depth order,
+    the einsum in its own."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.ops import dense
+
+    dev = _card()
+    rng = np.random.default_rng(31)
+    N, D, B, KT = 128 * 300 - 50, 384, 96, 160
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dt)
+    q = torch.from_numpy(_unit(rng, B, D))
+    b = np.zeros(N, np.float32)
+    b[rng.choice(N, 900, replace=False)] = -np.inf
+    bias = torch.from_numpy(b)
+    tt = np.stack([rng.choice(300, KT, replace=False) for _ in range(B)])
+    tt[:, :3] = [299, 300, 310]  # the partial tile and two past the end
+    top = torch.from_numpy(tt)
+    before = cs.super_scores_dedup.launches
+    got, gidx = dense.gather_tile_scores(q.to(dev), docs.to(dev), top.to(dev),
+                                         bias.to(dev))
+    torch.cuda.synchronize()
+    assert cs.super_scores_dedup.launches == before + 1
+    want, widx = dense.gather_tile_scores(q, docs, top, bias)
+    assert torch.equal(gidx.cpu(), widx)
+    got = got.cpu()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.isinf(got[:, 128:384]).all() and torch.isfinite(got).float().mean() > 0.9
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_rescored_tile_max_equals_k1_bitwise(dtype):
+    """Pass 3's scores are K1's arithmetic: each rescored tile's max over
+    its alive rows equals K1's tile max for that (query, tile) bit for bit,
+    with a bias that kills rows (a whole tile of them) and a partial last
+    tile, so the certificate's ``covered`` flag compares like with like."""
+    from hybridsearch_tpu_torch.ops import dense
+    from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats
+
+    dev = _card()
+    rng = np.random.default_rng(32)
+    N, D, B = 128 * 257 - 77, 384, 256
+    dt = getattr(torch, dtype)
+    docs = torch.from_numpy(_unit(rng, N, D)).to(dev, dt)
+    q = torch.from_numpy(_unit(rng, B, D)).to(dev)
+    b = np.zeros(N, np.float32)
+    b[rng.choice(N, 3000, replace=False)] = -np.inf
+    b[128:256] = -np.inf
+    d, bias_p, n_tiles, _ = dense._pad_rows(docs, torch.from_numpy(b).to(dev), 128)
+    top = torch.stack([torch.randperm(n_tiles, device=dev) for _ in range(B)])
+    s = dense._tile_scores(q, d, top, bias_p, N, 128).view(B, n_tiles, 128)
+    q_mm = q.to(torch.bfloat16) if dt == torch.bfloat16 else q
+    (k1,) = tile_stats(q_mm, d, bias_p, n_valid=N)
+    torch.cuda.synchronize()
+    assert torch.equal(s.amax(dim=2), torch.gather(k1.T, 1, top))
+    assert torch.isinf(k1[1]).all() and torch.isfinite(k1[-1]).all()
 
 
 def _csr_case(dev, rng, n_docs=65536, V=64, B=256, S=2, T=8):
@@ -348,18 +543,43 @@ def test_gpu_gated_wrappers_count_launches_and_reject_bad_input():
 
     dev = _card()
     docs = torch.zeros((2048, 384), device=dev)
-    qp = torch.zeros((8, 384), device=dev)
+    q = torch.zeros((3, 384), device=dev)
+    ids = torch.zeros((3, 2), dtype=torch.int32, device=dev)
     tid = torch.zeros(8, dtype=torch.int32, device=dev)
     before = cs.super_scores_dedup.launches
-    assert cs.super_scores_dedup(qp, docs, tid, 1024).shape == (8, 1024)
+    assert cs.super_scores_dedup(q, docs, ids, 1024).shape == (3, 2 * 1024)
+    assert cs.super_scores_dedup.launches == before + 1
+    # no pairs: nothing launches, nothing is counted
+    assert cs.super_scores_dedup(q, docs, ids[:, :0], 1024).shape == (3, 0)
     assert cs.super_scores_dedup.launches == before + 1
     with pytest.raises(ValueError):
-        cs.super_scores_dedup(qp.half(), docs.half(), tid, 1024)
-    with pytest.raises(ValueError):  # one query row short
-        cs.super_scores_dedup(qp[:7], docs, tid, 1024)
+        cs.super_scores_dedup(q.half(), docs.half(), ids, 1024)
+    with pytest.raises(ValueError):  # one query short
+        cs.super_scores_dedup(q, docs, ids[:2], 1024)
     with pytest.raises(ValueError):  # sd % ch != 0
-        cs.super_scores_dedup(qp, docs, tid, 1000)
+        cs.super_scores_dedup(q, docs, ids, 1000)
+    with pytest.raises(ValueError):  # the ids on another device
+        cs.super_scores_dedup(q, docs, ids.cpu(), 1024)
     assert cs.super_scores_dedup.launches == before + 1
+    # the first designs take CUDA tensors only, and their own shapes
+    before = (cs.super_scores_v1.launches, cs.super_scores_dedup_v1.launches)
+    sup = torch.zeros((4, 2), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cs.super_scores_v1(q[:1].cpu().expand(4, -1), docs.cpu(), sup, 1024)
+    with pytest.raises(ValueError):
+        cs.super_scores_dedup_v1(q[:1].cpu().expand(8, -1), docs.cpu(), tid.cpu(), 1024)
+    with pytest.raises(ValueError):  # ch % 256 != 0
+        cs.super_scores_v1(q[:1].expand(4, -1), docs, sup.to(dev), 128, ch=128)
+    assert (cs.super_scores_v1.launches, cs.super_scores_dedup_v1.launches) == before
+    # tile_scores launches K4 and counts nothing of its own
+    before = (cs.super_scores.launches, cs.super_scores_dedup.launches)
+    out = cs.tile_scores(q, docs, torch.zeros((3, 5), dtype=torch.long, device=dev))
+    assert out.shape == (3, 5 * 128)
+    assert not hasattr(cs.tile_scores, "launches")
+    assert (cs.super_scores.launches, cs.super_scores_dedup.launches) == (before[0],
+                                                                          before[1] + 1)
+    cs.super_scores(q, docs, sup.to(dev)[:3], 1024)
+    assert cs.super_scores.launches == before[0] + 1
 
     ids = torch.zeros((16, 128), dtype=torch.int32, device=dev)
     ws = torch.zeros((16, 128), device=dev)

@@ -88,10 +88,14 @@ def test_super_scores_dedup_matches_pallas_and_k2(dtype):
 
     tdt = getattr(torch, dtype)
     tq, tdocs = torch.from_numpy(q).to(tdt), torch.from_numpy(docs).to(tdt)
-    tid, qid, _rep, inv = tst.dedup_pairs(torch.from_numpy(sup))
-    out = tcs.super_scores_dedup(tq[qid], tdocs, tid, sd, ch=ch)  # plain on the CPU
-    assert out.shape == (B * S, sd)
-    got = out[inv].reshape(B, S * sd)
+    # the card route's lean bookkeeping sorts as JAX's dedup_pairs does, and
+    # K4 writes each pair's rows to its query-major place: no unpermute
+    tid, qid, dst = tcs.sort_pairs(torch.from_numpy(sup), S)
+    np.testing.assert_array_equal(tid.numpy(), np.asarray(jtid))
+    np.testing.assert_array_equal(qid.numpy(), np.asarray(jqid))
+    # plain on the CPU, through that bookkeeping
+    got = tcs.super_scores_dedup(tq, tdocs, torch.from_numpy(sup), sd, ch=ch)
+    assert got.shape == (B, S * sd)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, tcs.super_scores_plain(tq, tdocs, torch.from_numpy(sup),
                                                    sd, ch=ch))
@@ -154,8 +158,8 @@ def test_place_fused_matches_pallas_and_the_two_step_path():
 def test_gated_wrappers_refuse_other_devices():
     meta = torch.empty((256, 128), device="meta")
     with pytest.raises(ValueError):
-        tcs.super_scores_dedup(torch.empty((4, 128), device="meta"), meta,
-                               torch.zeros(4, dtype=torch.int32, device="meta"), 256,
+        ids = torch.zeros((4, 1), dtype=torch.int32, device="meta")
+        tcs.super_scores_dedup(torch.empty((4, 128), device="meta"), meta, ids, 256,
                                ch=128)
     z = torch.zeros((2, 3), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
