@@ -3,6 +3,8 @@
 
     python3 chip_probes.py              # K2/K4's scoring body, K1 and K3
     python3 chip_probes.py --only ss    # the scoring body alone
+    python3 chip_probes.py --only k5k7  # K5's and K7's designs
+    python3 chip_probes.py --only k7    # K7's alone
 
 K1 (``csrc/tile_stats.cu``): every configuration of the kernel worth
 trying -- (query block BQ, queries a thread TN, blocks an SM, ring stages)
@@ -29,6 +31,26 @@ and the plain version (pass 3), and timed on the score kernel alone.
 ``hst_super_scores`` / ``hst_super_scores_dedup`` launch the configuration
 ``ss::launch_pw`` names for each pair width.
 
+K5 (``csrc/place_fused.cu``): configurations of the design -- (threads a
+block, blocks an SM, ring stages, window entries a stage, shared-memory
+atomics or plain adds, the row's store: every thread's 16-byte stores, a
+bulk copy from one buffer, or from two) -- on windows
+shaped as the levers path's (B = 256 queries of one wide slot of about
+5,000 entries and three narrow ones over 16,384-doc supertiles, four empty
+slots, at S = 2, 4, 8, 16), each held bit-equal to the first design
+(``hst_place_fused_v1``) and timed beside it, and the same launch with
+the scatter compiled out (the loads and the store alone) and with the
+loads of all but the first stages compiled out (the scatter of stale
+stages and the store).
+
+K7 (``csrc/impact_rescore.cu``): configurations (threads a block, blocks
+an SM its registers must allow, entries a thread a segment, segments held
+ahead in registers) at the impact ladder's (T, p, C) -- the three rungs, the margin rescore and
+T = 32 -- each held bit-equal to the first design and timed beside it.
+K5 and K7 are timed by CUDA-graph replays (device time; events around
+back-to-back calls would time the host's launches at these sizes), the
+shipped wrappers and the first designs both ways.
+
 The variants are compiled from the checkout's sources into
 ``hybridsearch_tpu_torch/_build/probes``. Times are CUDA events around 20
 back-to-back launches. The last two lines are the card's name and power
@@ -45,6 +67,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -60,6 +83,26 @@ SS_CONFIGS = [(128, 32, 8, 3, 3), (256, 32, 8, 2, 3), (128, 64, 8, 3, 3),
               (128, 128, 8, 2, 3), (128, 128, 16, 2, 4), (256, 128, 8, 1, 4),
               (256, 128, 16, 1, 4)]
 SS_PROBES = (2, 4, 8, 16)
+SMEM_BLOCK = 232448  # dynamic shared memory a block may take
+# K5: (threads, blocks an SM, ring stages, entries a stage, shared-memory
+# atomics (1) or plain adds (0), store: 16-byte stores (0), a bulk copy
+# (TMA) from one buffer (1) or from two (2))
+K5_CONFIGS = [(256, 2, 4, 1024, 0, 1), (256, 2, 2, 2048, 0, 0), (256, 2, 2, 2048, 0, 1),
+              (256, 2, 3, 2048, 0, 0), (256, 2, 3, 2048, 0, 1), (256, 2, 2, 1536, 0, 1),
+              (384, 2, 2, 2048, 0, 1), (256, 2, 2, 2048, 1, 1), (256, 1, 2, 2048, 0, 2),
+              (512, 2, 2, 2048, 0, 1)]
+K5_PROBES = (2, 4, 8, 16)
+# K7: (threads, blocks an SM the registers must allow, entries a thread a
+# group, a one-column group's adds fused with its lookups); (T, p, C) of
+# the ladder's rungs, the margin call and T = 32
+K7_CONFIGS = [(1024, 2, 2, 1), (1024, 2, 3, 1), (1024, 2, 4, 1), (1024, 2, 1, 1),
+              (1024, 2, 2, 0), (1024, 2, 3, 0), (1024, 2, 4, 0), (1024, 1, 8, 1),
+              (1024, 1, 8, 0), (1024, 2, 8, 1)]
+# the first design's column loop, and the same loop run zero times
+K7_V1_WALK = "  for (int t = 0; t < T; ++t) {\n    const int* it = ib"
+K7_V1_NO_WALK = "  for (int t = 0; t < 0; ++t) {\n    const int* it = ib"
+K7_SHAPES = [(8, 256, 1024), (8, 1024, 2048), (8, 4096, 4096), (8, 1024, 128),
+             (32, 4096, 10240)]
 SS_TILES = (512, 1024, 2048)
 
 
@@ -230,6 +273,343 @@ def _probe_one(fn, cfg, cut, kind, n, row, q, docs, qid, dst, g_start, g_len, g_
         raise AssertionError(f"scoring body {cfg} differs at {kind}={n}")
 
 
+def _k5_name(cfg, mode="") -> str:
+    return "probe_k5_" + "_".join(map(str, cfg)) + mode
+
+
+def _k7_name(cfg) -> str:
+    return "probe_k7_" + "_".join(map(str, cfg))
+
+
+# the K5 kernel's scatter and its loads, for the variants that leave one out
+K5_SCATTER = ("    scatter<kT, kAtomic>(P, d, ring + (s % NS) * 2 * P.entries,\n"
+              "                         bufs + static_cast<long long>(cur) * P.r_len);\n")
+K5_LOADS = ("    issue<kT, kPiece>(P, desc[(s + NS - 1) % (NS + 1)],\n"
+            "                      ring + ((s + NS - 1) % NS) * 2 * P.entries);\n")
+
+
+def build_k5k7(work: str):
+    """Compile K5's and K7's configurations, two sources built side by
+    side; returns the two loaded libraries and the register lines."""
+    from hybridsearch_tpu_torch.ops import cuda_build
+
+    csrc = os.path.join(REPO, "hybridsearch_tpu_torch", "csrc")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(csrc, "place_fused.cu")) as f:
+        k5 = f.read()
+    if K5_SCATTER not in k5 or K5_LOADS not in k5:
+        raise RuntimeError("place_fused.cu no longer has the lines probed here")
+    k5_sig = ("(const void* lo, const void* hi, const void* base, const int* ids, "
+              "const float* ws, long long n_entries, long long rows, int n_slots, "
+              "const int* slot_rows, int r_len, float* out, int entries, int grid, "
+              "void* s)")
+    k5_body = ("{{ {ns}SlotRows sr = {{}}; for (int j = 0; j < n_slots; ++j) sr.v[j] = "
+               "slot_rows[j]; const {ns}Params<long long> P{{static_cast<const long long*>(lo), "
+               "static_cast<const long long*>(hi), static_cast<const long long*>(base), "
+               "ids, ws, out, n_entries, rows, n_slots, r_len, entries}}; return "
+               "{ns}launch<{t}, {b}, {st}, 4, long long, {atomic}, {store}>(P, sr, grid, "
+               "static_cast<cudaStream_t>(s)); }}")
+    parts = [k5]
+    # the kernel with the scatter left out, and with the loads left out, in
+    # namespaces of their own
+    for mode, cut in (("noscatter", K5_SCATTER), ("noload", K5_LOADS)):
+        body = k5[k5.index("namespace {"):k5.index("}  // namespace") + 15]
+        parts.append(f"namespace {mode} {{\n" + body.replace(cut, "") + "\n}\n")
+    for cfg in K5_CONFIGS:
+        t, b, st, _e, atomic, store = cfg
+        for mode in ("", "noscatter", "noload"):
+            ns = f"{mode}::" if mode else ""
+            parts.append(f'extern "C" int {_k5_name(cfg, mode)}{k5_sig} '
+                         + k5_body.format(ns=ns, t=t, b=b, st=st,
+                                          atomic="true" if atomic else "false",
+                                          store=store))
+    with open(os.path.join(csrc, "impact_rescore.cu")) as f:
+        k7_src = f.read()
+    if K7_V1_WALK not in k7_src:
+        raise RuntimeError("impact_rescore.cu no longer has the first design's walk")
+    k7 = [k7_src]
+    # the first design with its column walk compiled out, in a namespace of
+    # its own: what the table, the inserts and the read-back cost
+    body = k7_src[k7_src.index("namespace {"):k7_src.index("}  // namespace") + 15]
+    k7.append("namespace nowalk {\n" + body.replace(K7_V1_WALK, K7_V1_NO_WALK) + "\n}\n")
+    k7.append('extern "C" int probe_k7_v1_nowalk(const int* cand, const int* ids, '
+              "const float* ws, long long B, int C, int T, int p, int n_docs, "
+              "int log2_slots, float* out, void* s) { const size_t smem = "
+              "(static_cast<size_t>(1) << log2_slots) * 8; cudaFuncSetAttribute("
+              "nowalk::impact_rescore_v1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+              "static_cast<int>(smem)); nowalk::impact_rescore_v1_kernel<<<static_cast<"
+              "unsigned>(B), 1024, smem, static_cast<cudaStream_t>(s)>>>(cand, ids, ws, C, T, "
+              "p, n_docs, log2_slots, out); return static_cast<int>(cudaGetLastError()); }")
+    for cfg in K7_CONFIGS:
+        t, mb, e, fuse = cfg
+        k7.append(f'extern "C" int {_k7_name(cfg)}(const int* cand, const int* ids, '
+                  "const float* ws, long long B, int C, int T, int p, int n_docs, "
+                  "int log2_slots, float* out, void* s) { return "
+                  f"launch<{t}, {mb}, {e}, {'true' if fuse else 'false'}>(cand, ids, ws, "
+                  "B, C, T, p, n_docs, log2_slots, out, static_cast<cudaStream_t>(s)); }")
+    # registers, local memory and resident blocks an SM of every
+    # configuration and of the first design
+    for cfg in K7_CONFIGS + [None]:
+        kern = ("impact_rescore_v1_kernel" if cfg is None else
+                "impact_rescore_kernel<{}, {}, {}, {}>".format(
+                    *cfg[:3], "true" if cfg[3] else "false"))
+        name = "probe_k7_v1" if cfg is None else _k7_name(cfg)
+        k7.append(f'extern "C" int {name}_attrs(int smem, int* out) {{ '
+                  f"cudaFuncAttributes a; cudaError_t e = cudaFuncGetAttributes(&a, {kern}); "
+                  "if (e != cudaSuccess) return static_cast<int>(e); int blocks = 0; "
+                  f"cudaFuncSetAttribute({kern}, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+                  "232448); e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, "
+                  f"{kern}, {1024 if cfg is None else cfg[0]}, smem); out[0] = a.numRegs; "
+                  "out[1] = static_cast<int>(a.localSizeBytes); out[2] = blocks; "
+                  "return static_cast<int>(e); }")
+    procs = []
+    for stem, text in (("k5_probes", "\n".join(parts) + "\n"),
+                       ("k7_probes", "\n".join(k7) + "\n")):
+        src, so = os.path.join(work, stem + ".cu"), os.path.join(work, stem + ".so")
+        with open(src, "w") as f:
+            f.write(text)
+        procs.append((src, so, subprocess.Popen(
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", csrc, "-shared",
+             "-o", so, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    libs, regs = [], []
+    for src, so, proc in procs:
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {src}:\n{text}")
+        regs += [ln.strip() for ln in text.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        libs.append(ctypes.CDLL(so))
+    return libs[0], libs[1], regs
+
+
+def k5_csr(dev):
+    """A CSR shaped as the levers path's: 32 supertiles of 16,384 docs, 8 wide
+    terms from 2% to 90% of a supertile's docs (a Zipf background word's
+    window, 330 to 14,750 entries) and 56 narrow ones (0.1-3%)."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    N, V = 524_288, 64
+    rng = np.random.default_rng(5)
+    wide = (0.9, 0.6, 0.4, 0.25, 0.15, 0.08, 0.04, 0.02)
+    t_l, d_l = [], []
+    for term in range(V):
+        frac = wide[term] if term < 8 else float(rng.uniform(0.001, 0.03))
+        hit = np.flatnonzero(rng.random(N) < frac)
+        t_l.append(np.full(len(hit), term))
+        d_l.append(hit)
+    t_a, d_a = np.concatenate(t_l), np.concatenate(d_l)
+    w_a = (rng.random(len(t_a)) * 8 + 0.01).astype(np.float32)
+    return st.build_super_postings(t_a, d_a, w_a, N, V, dev)
+
+
+def k5_windows(sp, S: int, dev):
+    """Window bounds of B = 256 queries probing S of the 32 supertiles: slot
+    0 a wide term (rows from a few hundred to 15,000 entries, as the path's
+    background words give), slots 1-3 narrow ones, slots 4-7 empty; the
+    path's caps (16384,) + (512,) * 7. int64 bounds, as the path hands
+    them over."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    B, V = 256, 64
+    rng = np.random.default_rng(6 + S)
+    term_ids = np.full((B, 8), V)
+    term_ids[:, 0] = rng.integers(0, 8, B)
+    term_ids[:, 1:4] = rng.integers(8, V, (B, 3))
+    sup_s = np.sort(np.stack([rng.permutation(32)[:S] for _ in range(B)]), axis=1)
+    wcaps = (16384,) + (512,) * 7
+    lo, hi, base, _ovf = st._flat_windows(sp.sup_pos, torch.from_numpy(term_ids).to(dev),
+                                          torch.from_numpy(sup_s).to(dev), sp.super_docs,
+                                          wcaps)
+    return lo, hi, base, wcaps
+
+
+def probe_k5(lib) -> list:
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    P_, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sig = [P_, P_, P_, P_, P_, L, L, I, P_, I, P_, I, I, P_]
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows_out = []
+    sp = k5_csr(dev)
+    for S in K5_PROBES:
+        lo, hi, base, wcaps = k5_windows(sp, S, dev)
+        BS, T = lo.shape
+        R = sp.super_tiles * 128
+        n_read = int((torch.minimum(hi, (lo // 128 + torch.tensor(
+            cs._slot_rows(wcaps), device=dev)) * 128) - lo).clamp_min(0).sum())
+        bound_ms = (n_read * 8 + BS * T * 16 + BS * 8 + BS * R * 4) / 3.35e12 * 1e3
+        want = cs.place_fused_v1(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps,
+                                 sp.super_tiles)
+        v1 = lambda: cs.place_fused_v1(lo, hi, base, sp.ids_rows, sp.ws_rows,  # noqa: E731
+                                       wcaps, sp.super_tiles)
+        shipped = lambda: cs.place_fused(lo, hi, base, sp.ids_rows,  # noqa: E731
+                                         sp.ws_rows, wcaps, sp.super_tiles)
+        if not torch.equal(shipped(), want):
+            raise AssertionError(f"K5 differs from the first design at S={S}")
+        row = {"S": S, "rows": BS, "entries_read": n_read, "bound_ms": bound_ms,
+               "v1_ms": events_ms(v1), "v1_device_ms": graph_ms(v1),
+               "shipped_ms": events_ms(shipped), "shipped_device_ms": graph_ms(shipped),
+               "configs": []}
+        slot_rows = (ctypes.c_int * T)(*cs._slot_rows(wcaps))
+        for cfg in K5_CONFIGS:
+            t, per_sm, st_, e, _atomic, store = cfg
+            smem = 4 * R * (2 if store == 2 else 1) + 8 * st_ * e + 128 + 40 * (st_ + 1)
+            if smem > min(cs.SMEM_BLOCK, cs.SMEM_SM // per_sm - cs.SMEM_RESERVED):
+                continue
+            for grid in (min(BS, sms * per_sm), BS):
+                _probe_k5_one(lib, cfg, grid, S, BS, T, R, lo, hi, base, sp, slot_rows,
+                              e, want, sig, row)
+        print(f"  K5 S={S} B*S={BS}: v1 {row['v1_ms']:.4f} ms (device "
+              f"{row['v1_device_ms']:.4f}), shipped wrapper {row['shipped_ms']:.4f} ms "
+              f"(device {row['shipped_device_ms']:.4f}), bound {bound_ms:.4f} ms "
+              f"({n_read} window entries)", flush=True)
+        rows_out.append(row)
+        del want
+    return rows_out
+
+
+def _probe_k5_one(lib, cfg, grid, S, BS, T, R, lo, hi, base, sp, slot_rows, e, want, sig,
+                  row):
+    """One K5 configuration at one grid (persistent blocks, or a block a
+    row): checked bit-equal to the first design, timed with and without its
+    scatter and its loads, appended to row["configs"]."""
+    dev = lo.device
+    times = {}
+    for mode in ("", "noscatter", "noload"):
+        fn = getattr(lib, _k5_name(cfg, mode))
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+        out = torch.empty((BS, R), device=dev)
+
+        def call():
+            rc = fn(lo.data_ptr(), hi.data_ptr(), base.data_ptr(),
+                    sp.ids_rows.data_ptr(), sp.ws_rows.data_ptr(),
+                    sp.ids_rows.numel(), BS, T, slot_rows, R, out.data_ptr(),
+                    e, grid, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"CUDA error {rc} at launch")
+
+        call()
+        torch.cuda.synchronize()
+        if not mode:
+            same = torch.equal(out.view_as(want), want)
+            if not same:
+                raise AssertionError(f"K5 {cfg} differs from the first design "
+                                     f"at S={S}")
+        times[mode or "device_ms"] = graph_ms(call)
+    row["configs"].append({"config": list(cfg), "grid": grid, "bit_equal_to_v1": True,
+                           "device_ms": times["device_ms"],
+                           "no_scatter_device_ms": times["noscatter"],
+                           "no_load_device_ms": times["noload"]})
+    print(f"  K5 S={S} (threads, blocks/SM, stages, entries, atomic, store)={cfg} "
+          f"grid {grid}: device {times['device_ms']:.4f} ms, without the scatter "
+          f"{times['noscatter']:.4f}, without the loads {times['noload']:.4f}; "
+          "bit-equal to v1 True", flush=True)
+
+
+def probe_k7(lib) -> list:
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+
+    P_, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sig = [P_, P_, P_, L, I, I, I, I, I, P_, P_]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    B, nd = 256, 524_288
+    nnz = 8 * nd
+    attrs = {}
+    for cfg in K7_CONFIGS + [None]:
+        fn = getattr(lib, ("probe_k7_v1" if cfg is None else _k7_name(cfg)) + "_attrs")
+        fn.argtypes, fn.restype = [I, P_], I
+        for C in (1024, 4096):
+            got = (ctypes.c_int * 3)()
+            if fn(8 << ci.rescore_slots(C), got):
+                raise RuntimeError(f"K7 {cfg}: attributes not read")
+            attrs[f"{cfg or 'v1'} C={C}"] = list(got)
+            print(f"  K7 {cfg or 'v1'} at C={C}: {got[0]} registers, {got[1]} bytes local, "
+                  f"{got[2]} blocks an SM", flush=True)
+    run = (torch.arange(nnz, device=dev) * 7919 % nd).int()
+    rows_out = []
+    for (T, p, C), fill in [(shape, fill) for shape in K7_SHAPES for fill in
+                            ("full", "runs", "short")]:
+        starts = torch.randint(0, nnz - p, (B, T), generator=gen, device=dev).int()
+        pos = (starts.long()[:, :, None] + torch.arange(p, device=dev)).reshape(B, T * p)
+        ids_flat = run[pos]
+        ws_flat = torch.rand((B, T * p), generator=gen, device=dev) + 0.01
+        ws_flat[:, ::7] = 0.0
+        if fill != "full":  # runs as the path slices them, pads past them: length
+            # 0 .. 2p ("runs") or 0 .. p/4 ("short", a deep rung's mostly short runs)
+            top = 2 * p if fill == "runs" else max(1, p // 4)
+            length = torch.randint(0, top, (B, T, 1), generator=gen, device=dev)
+            pad = (torch.arange(p, device=dev) >= length).reshape(B, T * p)
+            ids_flat = torch.where(pad, nd, ids_flat).int()
+            ws_flat = torch.where(pad, 0.0, ws_flat)
+        cand = ids_flat[:, torch.randperm(T * p, generator=gen, device=dev)[:C]].clone()
+        cand[:, 1::13] = cand[:, :1]
+        cand[:, -3:] = torch.tensor([nd, nd + 2, -1], device=dev)
+        want = ci.rescore_v1(cand, ids_flat, ws_flat, p, nd)
+        v1 = lambda: ci.rescore_v1(cand, ids_flat, ws_flat, p, nd)  # noqa: E731
+        shipped = lambda: ci.rescore(cand, ids_flat, ws_flat, p, nd)  # noqa: E731
+        if not torch.equal(shipped(), want):
+            raise AssertionError(f"K7 differs from the first design at {(T, p, C)}")
+        bound_ms = (B * C * 8 + B * T * p * 8) / 3.35e12 * 1e3
+        log2 = ci.rescore_slots(C)
+        row = {"T": T, "p": p, "C": C, "fill": fill, "bound_ms": bound_ms,
+               "v1_ms": events_ms(v1),
+               "v1_device_ms": graph_ms(v1), "shipped_ms": events_ms(shipped),
+               "shipped_device_ms": graph_ms(shipped),
+               "shipped_plan": list(ci.rescore_plan(C, T, p)), "configs": []}
+        for cfg in K7_CONFIGS:
+            t, _mb, e, _fuse = cfg
+            if t * e > 4 * T * p:  # three quarters of the threads or more idle in a group
+                continue
+            fn = getattr(lib, _k7_name(cfg))
+            fn.argtypes, fn.restype = sig, I
+            out = torch.empty((B, C), device=dev)
+
+            def call():
+                rc = fn(cand.data_ptr(), ids_flat.data_ptr(), ws_flat.data_ptr(), B, C, T,
+                        p, nd, log2, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"CUDA error {rc} at launch")
+
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"K7 {cfg} differs from the first design at "
+                                     f"(T, p, C)={(T, p, C)}")
+            ms = graph_ms(call)
+            row["configs"].append({"config": list(cfg), "device_ms": ms,
+                                   "bit_equal_to_v1": True})
+            print(f"  K7 {fill} (T, p, C)={(T, p, C)} (threads, blocks/SM, entries a thread a group, fused)={cfg}: "
+                  f"device {ms:.4f} ms, bit-equal to v1 True", flush=True)
+        for label, fn, check in [("v1_nowalk", lib.probe_k7_v1_nowalk, False)]:
+            fn.argtypes, fn.restype = sig, I
+            out = torch.empty((B, C), device=dev)
+
+            def call():
+                rc = fn(cand.data_ptr(), ids_flat.data_ptr(), ws_flat.data_ptr(), B, C, T,
+                        p, nd, log2, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"CUDA error {rc} at launch")
+
+            call()
+            torch.cuda.synchronize()
+            if check and not torch.equal(out, want):
+                raise AssertionError(f"K7 {label} differs from the first design")
+            row[label] = graph_ms(call)
+            print(f"  K7 {fill} (T, p, C)={(T, p, C)} {label}: device {row[label]:.4f} ms",
+                  flush=True)
+        print(f"  K7 {fill} (T, p, C)={(T, p, C)}: v1 {row['v1_ms']:.4f} ms (device "
+              f"{row['v1_device_ms']:.4f}), shipped wrapper {row['shipped_ms']:.4f} ms "
+              f"(device {row['shipped_device_ms']:.4f}; plan {row['shipped_plan']}), "
+              f"bound {bound_ms:.4f} ms", flush=True)
+        rows_out.append(row)
+    rows_out.append({"attributes": attrs})
+    return rows_out
+
+
 def build(work: str) -> tuple:
     """Compile the K1 configurations (with the first design) and K3 with
     and without its chunk barrier; returns the two loaded libraries."""
@@ -278,6 +658,25 @@ def events_ms(fn, reps: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device milliseconds a call: CUDA events around replays of a CUDA graph
+    of ``reps`` calls, so host work (done once, at capture) is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def probe_k1(lib) -> list:
@@ -371,7 +770,8 @@ def probe_k3(lib) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ss",), help="probe the scoring body alone")
+    ap.add_argument("--only", choices=("ss", "k5k7", "k7"),
+                    help="probe the scoring body alone, K5 and K7 alone, or K7 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA card (torch.cuda.is_available() is false)",
@@ -383,6 +783,15 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     work = os.path.join(REPO, "hybridsearch_tpu_torch", "_build", "probes")
+    if args.only in ("k5k7", "k7"):
+        lib5, lib7, regs = build_k5k7(work)
+        for line in regs:
+            print("  " + line, flush=True)
+        out = {"device": smi, "k5": probe_k5(lib5) if args.only == "k5k7" else None,
+               "k7": probe_k7(lib7), "k5k7_registers": regs}
+        print(smi, flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
     lib_ss, regs = build_ss(work)
     for line in regs:
         print("  " + line, flush=True)

@@ -34,12 +34,15 @@ indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), pass 3 of the dense top-k (K4 at
 tile grain, tile_scores), the run slices (K6, slice_runs) and the
 candidate rescore (K7, rescore); pass 3, K6 and K7 must launch in the
-timed batches, and are then timed at every rung the batches reached. K1,
-K2, K3 and K4 keep their first designs as yardsticks (``tile_stats_v1``,
-``super_scores_v1``, ``place_windows_v1``, ``super_scores_dedup_v1``):
-the kernel check, the per-rung rows of K2 and K4 and the "redesigned
-kernels" rows (K1 at every batch size of both paths, K3 at every rung)
-hold each bit-equal to its first design and time the two side by side.
+timed batches, and are then timed at every rung the batches reached. K1-K5
+and K7 keep their first designs as yardsticks (``tile_stats_v1``,
+``super_scores_v1``, ``place_windows_v1``, ``super_scores_dedup_v1``,
+``place_fused_v1``, ``rescore_v1``): the kernel check, the per-rung rows
+of K2, K4, K5 and K7 and the "redesigned kernels" rows (K1 at every batch
+size of both paths, K3 at every rung) hold each bit-equal to its first
+design and time the two side by side; the rows of K2, K5, K6 and K7 mark
+the goal of at least half the kernel's bound met or missed and give each
+route's host time (events around back-to-back calls less device time).
 "Regime 1" serves a corpus a quarter of the size, below
 ``SPARSE_HYBRID_MIN_DOCS``, through the full [B, n] fused program; one
 batch is served twice and must be equal bit for bit. A corpus with larger topics is served on the
@@ -277,11 +280,13 @@ def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     K3 and to its plain version, on a CSR whose windows overflow the 8,192
     cap, with empty windows and probes past the position table, at
     B*S = 2B rows and wcaps = (8192,)*8 (the shape at which the TPU kernel
-    faulted) and a mixed cap tuple."""
+    faulted) and a mixed cap tuple; on the card K5 also bit-equal to its
+    first design there."""
     from hybridsearch_tpu_torch.ops import supertile as st
     from hybridsearch_tpu_torch.ops.cuda_supertile import (
-        place_fused, place_fused_plain, place_windows, super_scores, super_scores_dedup,
-        super_scores_dedup_plain, super_scores_dedup_v1, window_entries)
+        place_fused, place_fused_plain, place_fused_v1, place_windows, super_scores,
+        super_scores_dedup, super_scores_dedup_plain, super_scores_dedup_v1,
+        window_entries)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 3)
@@ -338,12 +343,15 @@ def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
         two = torch.equal(got, place_windows(l_w, w_w, sp.super_tiles))
         plain = torch.equal(got, place_fused_plain(lo, hi, base, sp.ids_rows,
                                                    sp.ws_rows, wcaps, sp.super_tiles))
+        same_v1 = (torch.equal(got, place_fused_v1(lo, hi, base, sp.ids_rows, sp.ws_rows,
+                                                   wcaps, sp.super_tiles))
+                   if dev.type == "cuda" else None)
         any_ovf = any_ovf or bool(ovf.any())
         print(f"    place_fused wcaps={wcaps} B*S={lo.shape[0]}: {int(ovf.sum())} "
               f"queries overflow, {int((lo == hi).sum())} empty windows; bit-equal "
               f"to window gather + place_windows {two}, to its plain version "
-              f"{plain}", flush=True)
-        if not (two and plain):
+              f"{plain}, to place_fused_v1 {same_v1}", flush=True)
+        if not (two and plain and same_v1 is not False):
             raise AssertionError(f"place_fused disagrees at wcaps={wcaps}")
     if not any_ovf:
         raise AssertionError("the place_fused check had no overflowing window")
@@ -354,9 +362,10 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
     """K6 and K7 against their plain versions at the impact ladder's shapes,
     bit for bit: postings whose windows name a doc at most once (as a
     term's run does), slices of random starts and lengths, candidates drawn
-    from the slices with repeats, sentinels and -1."""
+    from the slices with repeats, sentinels and -1; on the card K7 also
+    bit-equal to its first design."""
     from hybridsearch_tpu_torch.ops.cuda_impact import (
-        rescore, rescore_plain, slice_runs, slice_runs_plain)
+        rescore, rescore_plain, rescore_v1, slice_runs, slice_runs_plain)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
@@ -382,9 +391,12 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
         g7 = rescore(cand, ids_f, ws_f, p, nd)
         w7 = rescore_plain(cand, ids_f, ws_f, p, nd)
         e7 = max_err(g7, w7)
+        same_v1 = (torch.equal(g7, rescore_v1(cand, ids_f, ws_f, p, nd))
+                   if dev.type == "cuda" else None)
         print(f"    T={T} p={p} C={C}: slice_runs err {e6:.3g}, rescore err "
-              f"{e7:.3g} (tol 0, bitwise)", flush=True)
-        if not (same6 and torch.equal(g7, w7)):
+              f"{e7:.3g} (tol 0, bitwise), rescore bit-equal to rescore_v1 {same_v1}",
+              flush=True)
+        if not (same6 and torch.equal(g7, w7) and same_v1 is not False):
             raise AssertionError(f"an impact kernel disagrees with its plain "
                                  f"version at T={T} p={p} C={C}")
     sync(dev)
@@ -532,7 +544,8 @@ class Capture:
 
 
 # kernels kept beside their first designs, which they must equal bit for bit
-V1_KERNELS = ("tile_stats", "super_scores", "place_windows", "super_scores_dedup")
+V1_KERNELS = ("tile_stats", "super_scores", "place_windows", "super_scores_dedup",
+              "place_fused", "rescore")
 
 
 def v1_call(name: str, args, kwargs):
@@ -542,6 +555,7 @@ def v1_call(name: str, args, kwargs):
     ``dedup_pairs`` with their query rows gathered and wrote [P, sd] in
     sorted order: its caller's sort, gather and unpermute are done once
     here, outside the timed call."""
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
     from hybridsearch_tpu_torch.ops import cuda_topk
     from hybridsearch_tpu_torch.ops.supertile import dedup_pairs
@@ -554,7 +568,8 @@ def v1_call(name: str, args, kwargs):
         run = lambda: cs.super_scores_dedup_v1(qp, docs, tid, sd, ch)  # noqa: E731
         return run()[inv].reshape(ids.shape[0], -1), run
     v1 = {"tile_stats": cuda_topk.tile_stats_v1, "super_scores": cs.super_scores_v1,
-          "place_windows": cs.place_windows_v1}[name]
+          "place_windows": cs.place_windows_v1, "place_fused": cs.place_fused_v1,
+          "rescore": ci.rescore_v1}[name]
     return v1(*args, **kwargs), lambda: v1(*args, **kwargs)
 
 
@@ -664,12 +679,14 @@ def v1_fields(name: str, args, kwargs, dev: torch.device) -> dict:
     Off the card the first design does not run: all None."""
     if dev.type != "cuda":
         return {"bit_equal_to_v1": None, "v1_ms": None, "v1_device_ms": None}
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
     from hybridsearch_tpu_torch.ops import cuda_topk
 
     kernel, _plain = kernel_fns(name)
     with _restoring_launches(kernel, cuda_topk.tile_stats_v1, cs.super_scores_v1,
-                             cs.place_windows_v1, cs.super_scores_dedup_v1):
+                             cs.place_windows_v1, cs.super_scores_dedup_v1,
+                             cs.place_fused_v1, ci.rescore_v1):
         got = kernel(*args, **kwargs)
         want, run = v1_call(name, args, kwargs)
         got = got if isinstance(got, tuple) else (got,)
@@ -785,6 +802,30 @@ def _timed(fn, dev) -> tuple:
                                                   else None)
 
 
+def goal_fields(row: dict) -> dict:
+    """A kernel row's goals and host time: at least half its bound (device
+    ms at most twice the bound), no slower than its first design where it
+    has one (device ms), and the route's host ms (events around
+    back-to-back calls less device ms: the wrapper's work a call, when it
+    outlasts the kernel). None off the card."""
+    if row.get("device_ms") is None:
+        return {"goal_half_of_bound_met": None, "host_ms": None}
+    out = {"goal_half_of_bound_met": row["device_ms"] <= 2 * row["bound_ms"],
+           "host_ms": row["ms"] - row["device_ms"]}
+    if row.get("v1_device_ms") is not None:
+        out["goal_no_slower_than_v1_met"] = row["device_ms"] <= row["v1_device_ms"]
+    return out
+
+
+def _goals_text(row: dict) -> str:
+    met = {True: "met", False: "missed", None: "n/a"}
+    text = (f"{100 * row['bound_ms'] / row['device_ms']:.1f}% of bound, goal 50% "
+            f"{met[row['goal_half_of_bound_met']]}; host {_fmt(row['host_ms'])} ms")
+    if "goal_no_slower_than_v1_met" in row:
+        text += f"; no slower than v1 {met[row['goal_no_slower_than_v1_met']]}"
+    return text
+
+
 def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
     """K4 and K5 at every rung of the levers run's warm-up batch, on the
     path's own inputs (``caps``: its captures of K4 and K5, one call of
@@ -793,9 +834,9 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
     first design (bit-equal, unpermuted) and K2 on the rung's probe table
     (bit-equal), and its kernel alone on pairs sorted outside the timed
     call, with the goals (route no slower than K2, kernel within 5% of K2)
-    marked met or missed. K5 beside the window
-    gather + K3 on the same window bounds (bit-equal), with the gather alone
-    and K3 alone."""
+    marked met or missed. K5 beside its first design (bit-equal) and the
+    window gather + K3 on the same window bounds (bit-equal), with the
+    gather alone and K3 alone, its goals (``goal_fields``) marked."""
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
 
     k4cap, k5cap = caps["super_scores_dedup"], caps["place_fused"]
@@ -836,8 +877,11 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
         S = probes[i]
         lo, hi, base, ids_rows, ws_rows, wcaps = args[:6]
         st_ = args[6] if len(args) > 6 else kwargs.get("super_tiles", 128)
-        row = {"S": S, "BS": int(lo.shape[0]), "wcaps": list(wcaps)}
+        row = {"S": S, "BS": int(lo.shape[0]), "wcaps": list(wcaps),
+               "launches": k5cap.counts.get(i, 0)}
         row.update(kernel_row("place_fused", args, kwargs, dev, plain_reps=1))
+        row.update(v1_fields("place_fused", args, kwargs, dev))
+        row.update(goal_fields(row))
         with _restoring_launches(cs.place_fused, cs.place_windows):
             gather = lambda: cs.window_entries(lo, hi, base, ids_rows, ws_rows, wcaps)  # noqa: E731
             l_w, w_w = gather()
@@ -868,7 +912,9 @@ def levers_by_probe(caps: dict, dev: torch.device, show: bool = True) -> tuple:
                   f"{_fmt(r['library_ms'])} ms", flush=True)
         for r in rows5:
             print(f"    place_fused S={r['S']} B*S={r['BS']} wcaps={r['wcaps']}: "
-                  f"{_fmt(r['ms'])} ms (device {_fmt(r['device_ms'])}); window gather + "
+                  f"{_fmt(r['ms'])} ms (device {_fmt(r['device_ms'])}); place_fused_v1 "
+                  f"{_fmt(r['v1_ms'])} (device {_fmt(r['v1_device_ms'])}), bit-equal "
+                  f"{r['bit_equal_to_v1']}; {_goals_text(r)}; window gather + "
                   f"place_windows {_fmt(r['two_step_ms'])} (device "
                   f"{_fmt(r['two_step_device_ms'])}), gather {_fmt(r['gather_ms'])} (device "
                   f"{_fmt(r['gather_device_ms'])}), place_windows {_fmt(r['k3_ms'])} (device "
@@ -915,7 +961,9 @@ def tile_scores_by_rung(cap: Capture, dev: torch.device, show: bool = True) -> l
 def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list:
     """K6 and K7 at every shape the batches gave them (K6 by slice depth p,
     K7 by (C, p): one rescore of the candidate union a rung, one of the
-    margin cushion), with the calls of that shape in the timed batches."""
+    margin cushion), with the calls of that shape in the timed batches; K7
+    beside its first design (bit-equal); both with their goals
+    (``goal_fields``) marked."""
     rows = []
     for name in ("slice_runs", "rescore"):
         cap = captures[name]
@@ -924,15 +972,21 @@ def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list
                    name == "rescore" else int(args[2].shape[0]),
                    "launches": cap.counts.get(key, 0)}
             row.update(kernel_row(name, args, kwargs, dev, plain_reps=1))
+            if name == "rescore":
+                row.update(v1_fields(name, args, kwargs, dev))
+            row.update(goal_fields(row))
             rows.append(row)
             if not show:
                 continue
+            v1 = (f"; rescore_v1 {_fmt(row['v1_ms'])} ms (device "
+                  f"{_fmt(row['v1_device_ms'])}), bit-equal {row['bit_equal_to_v1']}"
+                  if name == "rescore" else "")
             print(f"    {name} {'p' if name == 'slice_runs' else '(C, p)'}={key} "
                   f"B={row['B']}: {row['ms']:.4f} ms (device {row['device_ms']:.4f}"
-                  f" ms), bound {row['bound_ms']:.4f}"
-                  f" ms ({row['bound_by']}), plain {row['plain_ms']:.4f} ms, "
-                  f"library {row['library_ms']} ms, {row['launches']} launches "
-                  f"in the timed batches, err {row['max_abs_err']:.3g}", flush=True)
+                  f" ms){v1}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                  f"{_goals_text(row)}; plain {row['plain_ms']:.4f} ms, library "
+                  f"{row['library_ms']} ms, {row['launches']} launches in the timed "
+                  f"batches, err {row['max_abs_err']:.3g}", flush=True)
     return rows
 
 
@@ -1023,7 +1077,8 @@ def _bound_and_library(name, args, kwargs):
         end = torch.minimum(hi.long(), (lo.long() // 128 + caps) * 128)
         n_read = int((end - lo.long()).clamp_min(0).sum())
         # the window entries read (id and weight), the bounds, the output
-        nbytes = n_read * 8 + BS * T * 8 + BS * 4 + BS * R * 4
+        nbytes = (n_read * 8 + BS * T * (lo.element_size() + hi.element_size())
+                  + BS * base.element_size() + BS * R * 4)
         flops = float(n_read)
         buf = torch.zeros(BS * R + 1, device=lo.device)
         rowoff = torch.arange(BS, device=lo.device)[:, None] * R
@@ -1302,7 +1357,7 @@ def main(argv=None) -> int:
                          IMPACT_SHAPES["cpu" if rehearsal else "card"])
     clock.phase("kernels", "K1-K7 match their plain versions at the slice's "
                 "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit"
-                + ("" if rehearsal else "; K1-K4 equal their first designs"))
+                + ("" if rehearsal else "; K1-K5 and K7 equal their first designs"))
 
     # -- 4. end to end: the clustered path on the small-topic corpus, then
     # -- 5. its kernels on their own inputs; the same index again with the two

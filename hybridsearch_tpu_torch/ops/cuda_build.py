@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Optional
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -53,9 +55,12 @@ _SIGNATURES = {
     "hst_group_table": (_P, _I, _I, _I, _P, _P),
     "hst_place_windows": (_P, _P, _L, _L, _I, _P, _P),
     "hst_place_windows_v1": (_P, _P, _L, _L, _I, _P, _P),
-    "hst_place_fused": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),
+    "hst_place_fused": (_P, _P, _P, _I, _P, _P, _L, _L, _I, _P, _I, _P, _I, _I, _I, _I,
+                        _P),
+    "hst_place_fused_v1": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),
     "hst_slice_runs": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
-    "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
+    "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _I, _P),
+    "hst_impact_rescore_v1": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -120,6 +125,8 @@ def build() -> dict:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib, last_build
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             info = build()
@@ -130,6 +137,12 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib, last_build = lib, info
         return _lib
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s card: the launchers'
+    stream argument, without building a ``torch.cuda.Stream`` a call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(rc: int, name: str) -> None:

@@ -21,11 +21,11 @@ Counterpart of ``hybridsearch_tpu/ops/pallas_supertile.py``:
     windows [lo, hi) of each term slot, with no staged window arrays; the
     same bits as ``window_entries`` + K3.
 
-``super_scores_v1``, ``super_scores_dedup_v1`` and ``place_windows_v1``
-launch the kernels' first designs, which the redesigns must equal bit for
-bit (CUDA tensors only; no served path calls them). Each other wrapper
-launches its kernel for CUDA tensors and runs its plain version only for
-CPU tensors. K4 and K5 serve the ladder when
+``super_scores_v1``, ``super_scores_dedup_v1``, ``place_windows_v1`` and
+``place_fused_v1`` launch the kernels' first designs, which the redesigns
+must equal bit for bit (CUDA tensors only; no served path calls them).
+Each other wrapper launches its kernel for CUDA tensors and runs its plain
+version only for CPU tensors. K4 and K5 serve the ladder when
 ``EngineConfig.perf.scores_dedup`` / ``perf.place_fused`` are set; K4 at
 tile grain serves pass 3 always.
 """
@@ -33,6 +33,7 @@ tile grain serves pass 3 always.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,6 +52,17 @@ MAX_K2_KEYS = 6144  # K2's in-launch pre-pass counts the keys in shared memory
 # callers lay out each term slot in whole chunks, so a chunk adds at most
 # one weight to a cell and every cell's sum runs in slot order
 PLACE_CHUNK = 1024
+# shared memory: what one block may take, what an SM holds, and what the
+# card reserves of it for each block
+SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
+# K5's plan (place_fused_plan): threads a block, blocks an SM, ring stages
+# and window entries a stage. Measured on an H100 at the levers path's
+# shapes (chip_probes.py --only k5k7).
+PLACE_FUSED_THREADS, PLACE_FUSED_BLOCKS = 256, 2
+PLACE_FUSED_STAGES, PLACE_FUSED_ENTRIES = 3, 2048
+# shared memory beside the buffer and the ring: the slot rows (32 ints) and
+# a descriptor of 40 bytes for each of stages + 1 stages
+PLACE_FUSED_FIXED = 128 + 40 * (PLACE_FUSED_STAGES + 1)
 _PLAIN_BUDGET = 1 << 29  # bytes of gathered rows per plain-version step
 _GATHER_BUDGET = 1 << 30  # bytes of gathered doc tiles per plain tile_scores step
 
@@ -463,6 +475,40 @@ def _slot_rows(wcaps) -> list:
     return [int(wc) // ROW + 1 for wc in wcaps]
 
 
+@functools.lru_cache(maxsize=64)
+def _slot_rows_arg(wcaps: tuple):
+    """``_slot_rows(wcaps)`` as the launchers' C int array, built once a
+    cap tuple (the path repeats a handful of them)."""
+    rows = _slot_rows(wcaps)
+    return (ctypes.c_int * len(rows))(*rows)
+
+
+@functools.lru_cache(maxsize=64)
+def place_fused_plan(r_len: int, sms: int):
+    """(threads a block, ring stages, entries a stage, blocks, shared-memory
+    bytes) of K5 for a row buffer of ``r_len`` floats on a card of ``sms``
+    SMs: ``PLACE_FUSED_BLOCKS`` blocks an SM when the buffer and a ring of
+    ``PLACE_FUSED_STAGES`` stages of ``PLACE_FUSED_ENTRIES`` fit, else one,
+    with the entries a stage halved to fit (down to 128); None when no ring
+    fits beside the buffer (more than 445 tiles of 128)."""
+    stages = PLACE_FUSED_STAGES
+    for per_sm in (PLACE_FUSED_BLOCKS, 1):
+        room = (min(SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED) - 4 * r_len
+                - PLACE_FUSED_FIXED)
+        entries = PLACE_FUSED_ENTRIES
+        while entries >= 128:
+            if 8 * stages * entries <= room:
+                return (PLACE_FUSED_THREADS, stages, entries, sms * per_sm,
+                        4 * r_len + 8 * stages * entries + PLACE_FUSED_FIXED)
+            entries //= 2
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def window_entries(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
                    ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
                    ech: int = PLACE_CHUNK):
@@ -507,6 +553,44 @@ def place_fused_plain(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
     return place_windows_plain(l, w, super_tiles, tile)
 
 
+def _fused_checked(name: str, lo, hi, base, ids_rows, ws_rows, wcaps,
+                   super_tiles: int, tile: int):
+    """The K5 launchers' argument checks; returns (BS, T, r_len)."""
+    if not lo.is_cuda:
+        raise ValueError(f"{name}: unsupported device {lo.device}")
+    if lo.dim() != 2 or hi.shape != lo.shape or base.shape != lo.shape[:1]:
+        raise ValueError(f"{name}: shapes lo {tuple(lo.shape)} hi "
+                         f"{tuple(hi.shape)} base {tuple(base.shape)}")
+    BS, T = lo.shape
+    if len(wcaps) != T or T > 32:
+        raise ValueError(f"{name}: {len(wcaps)} caps for {T} slots (at most 32)")
+    if (ids_rows.dtype != torch.int32 or ws_rows.dtype != torch.float32
+            or ids_rows.shape != ws_rows.shape or ids_rows.dim() != 2
+            or ids_rows.shape[1] != ROW):
+        raise ValueError(f"{name}: ids_rows / ws_rows must be [M, 128] "
+                         "int32 / float32")
+    if not (ids_rows.is_contiguous() and ws_rows.is_contiguous()):
+        raise ValueError(f"{name}: the CSR rows must be contiguous")
+    dev = lo.get_device()
+    if (hi.get_device() != dev or base.get_device() != dev
+            or ids_rows.get_device() != dev or ws_rows.get_device() != dev):
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if tile != TILE or super_tiles * tile * 4 > SMEM_BLOCK:
+        raise ValueError(f"{name}: a {super_tiles}x{tile} float buffer "
+                         "is not taken")
+    return BS, T, super_tiles * tile
+
+
+def _bounds(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor):
+    """(lo, hi, base) in one index type K5 reads -- int64 if any is int64,
+    else int32 -- contiguous, each itself where it is already so; and
+    whether that type is int64. The path's bounds are int64: no copy."""
+    dt = torch.int64 if torch.int64 in (lo.dtype, hi.dtype, base.dtype) else torch.int32
+    out = tuple(t if t.dtype == dt and t.is_contiguous() else t.to(dt).contiguous()
+                for t in (lo, hi, base))
+    return out, dt == torch.int64
+
+
 def place_fused(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
                 ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
                 super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
@@ -515,46 +599,52 @@ def place_fused(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
     supertile base doc ids, ``ids_rows`` [M, 128] int32 / ``ws_rows``
     [M, 128] float32 the doc-sorted CSR, ``wcaps`` T per-slot caps
     (T <= 32). Keeps exactly the entries ``window_entries`` stages."""
-    if lo.device.type == "cpu":
+    if not lo.is_cuda and lo.device.type == "cpu":
         return place_fused_plain(lo, hi, base, ids_rows, ws_rows, wcaps,
                                  super_tiles, tile)
-    if not lo.is_cuda:
-        raise ValueError(f"place_fused: unsupported device {lo.device}")
-    if lo.dim() != 2 or hi.shape != lo.shape or base.shape != lo.shape[:1]:
-        raise ValueError(f"place_fused: shapes lo {tuple(lo.shape)} hi "
-                         f"{tuple(hi.shape)} base {tuple(base.shape)}")
-    BS, T = lo.shape
-    if len(wcaps) != T or T > 32:
-        raise ValueError(f"place_fused: {len(wcaps)} caps for {T} slots (at most 32)")
-    if (ids_rows.dtype != torch.int32 or ws_rows.dtype != torch.float32
-            or ids_rows.shape != ws_rows.shape or ids_rows.dim() != 2
-            or ids_rows.shape[1] != ROW):
-        raise ValueError("place_fused: ids_rows / ws_rows must be [M, 128] "
-                         "int32 / float32")
-    if not (ids_rows.is_contiguous() and ws_rows.is_contiguous()):
-        raise ValueError("place_fused: the CSR rows must be contiguous")
-    if any(t.device != lo.device for t in (hi, base, ids_rows, ws_rows)):
-        raise ValueError("place_fused: all tensors must be on one device")
-    if tile != TILE or super_tiles * tile * 4 > 232448:
-        raise ValueError(f"place_fused: a {super_tiles}x{tile} float buffer "
-                         "is not taken")
-    R = super_tiles * tile
-    lo32 = lo.to(torch.int32).contiguous()
-    hi32 = hi.to(torch.int32).contiguous()
-    base32 = base.to(torch.int32).contiguous()
-    out = torch.empty((BS, R), dtype=torch.float32, device=lo.device)
+    BS, T, R = _fused_checked("place_fused", lo, hi, base, ids_rows, ws_rows, wcaps,
+                              super_tiles, tile)
+    plan = place_fused_plan(R, _sm_count(lo.get_device()))
+    if plan is None:
+        raise ValueError(f"place_fused: a {super_tiles}x{tile} float buffer leaves "
+                         "no room for the window ring")
+    threads, stages, entries, blocks, _smem = plan
+    (lo_k, hi_k, base_k), idx64 = _bounds(lo, hi, base)
+    out = ws_rows.new_empty((BS, R))
     if BS == 0:
         return out.reshape(BS, super_tiles, tile)
-    rows = (ctypes.c_int * T)(*_slot_rows(wcaps))
-    lib = cuda_build.library()
-    rc = lib.hst_place_fused(
-        lo32.data_ptr(), hi32.data_ptr(), base32.data_ptr(), ids_rows.data_ptr(),
-        ws_rows.data_ptr(), ids_rows.numel(), BS, T, rows, R, out.data_ptr(),
-        torch.cuda.current_stream(lo.device).cuda_stream,
-    )
+    rc = cuda_build.library().hst_place_fused(
+        lo_k.data_ptr(), hi_k.data_ptr(), base_k.data_ptr(), idx64, ids_rows.data_ptr(),
+        ws_rows.data_ptr(), ids_rows.numel(), BS, T, _slot_rows_arg(tuple(wcaps)), R,
+        out.data_ptr(), threads, stages, entries, min(BS, blocks),
+        cuda_build.stream_of(lo))
     cuda_build.check(rc, "hst_place_fused")
     place_fused.launches += 1
     return out.reshape(BS, super_tiles, tile)
 
 
 place_fused.launches = 0
+
+
+def place_fused_v1(lo: torch.Tensor, hi: torch.Tensor, base: torch.Tensor,
+                   ids_rows: torch.Tensor, ws_rows: torch.Tensor, wcaps,
+                   super_tiles: int = 128, tile: int = TILE) -> torch.Tensor:
+    """``place_fused`` by the kernel's first design (``hst_place_fused_v1``),
+    the yardstick the redesign is held to bit for bit and timed against.
+    No served path calls it; CUDA tensors only."""
+    BS, T, R = _fused_checked("place_fused_v1", lo, hi, base, ids_rows, ws_rows,
+                              wcaps, super_tiles, tile)
+    lo32, hi32, base32 = (t.to(torch.int32).contiguous() for t in (lo, hi, base))
+    out = torch.empty((BS, R), dtype=torch.float32, device=lo.device)
+    if BS == 0:
+        return out.reshape(BS, super_tiles, tile)
+    rc = cuda_build.library().hst_place_fused_v1(
+        lo32.data_ptr(), hi32.data_ptr(), base32.data_ptr(), ids_rows.data_ptr(),
+        ws_rows.data_ptr(), ids_rows.numel(), BS, T, _slot_rows_arg(tuple(wcaps)), R,
+        out.data_ptr(), cuda_build.stream_of(lo))
+    cuda_build.check(rc, "hst_place_fused_v1")
+    place_fused_v1.launches += 1
+    return out.reshape(BS, super_tiles, tile)
+
+
+place_fused_v1.launches = 0

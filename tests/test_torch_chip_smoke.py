@@ -47,6 +47,9 @@ def test_cpu_rehearsal_runs_every_phase():
     assert any("] impact kernel timing:" in ln and "pass 3 at" in ln for ln in lines)
     assert sum("bit-equal to window gather + place_windows True" in ln
                for ln in lines) == 2
+    # K5 and K7 are held to their first designs (which run on the card only)
+    assert sum("to place_fused_v1 None" in ln for ln in lines) == 2
+    assert sum("rescore bit-equal to rescore_v1 None" in ln for ln in lines) == 2
     # the redesigned kernels' rows: K1 at every batch size of both paths
     # that run it, K3 at every rung of the clustered path
     assert any("] redesigned kernels: tile_stats at B = " in ln for ln in lines)

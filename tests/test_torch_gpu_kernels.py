@@ -20,8 +20,9 @@ bit. K2 and K4 run one scoring body and are held to each other and to
 their first designs bit for bit; pass 3 on the card (K4 at tile grain) is
 held to its plain version within 1e-5 and its tile maxima to K1's bit for
 bit (the same fmaf chain a score). K5 adds the
-same weights in the same slot order as the staged windows + K3, and is held
-to them bit for bit. The run-ordered BM25 sum and the top-k scatter must
+same weights in the same slot order as the staged windows + K3 and as its
+first design, and is held to both bit for bit; K7 to its first design and
+its plain version likewise. The run-ordered BM25 sum and the top-k scatter must
 repeat bit for bit.
 """
 
@@ -538,6 +539,72 @@ def test_gpu_place_fused_equals_the_two_step_path_bitwise(wcaps):
     assert (got.reshape(512, -1) != 0).any(dim=1).float().mean() > 0.5
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("idx", ["int64", "int32"])
+@pytest.mark.parametrize("S", [2, 16])
+@pytest.mark.parametrize("wcaps", [(8192,) * 8, (8192, 2048, 2048, 2048, 512, 512,
+                                                  512, 512)])
+def test_gpu_place_fused_equals_v1_bitwise(wcaps, S, idx, aligned):
+    """K5 against its first design at B*S = 512 and 4,096 rows, with
+    overflowing, empty and past-the-table windows, on int64 bounds (the
+    path's) and int32 ones, and on CSR rows 4 bytes off 16-byte alignment
+    (the kernel's 4-byte copies); and against the staged windows + K3."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+    from hybridsearch_tpu_torch.ops.cuda_supertile import (
+        place_fused,
+        place_fused_v1,
+        place_windows,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(17)
+    sp, term_ids, sup_s = _csr_case(dev, rng, S=S)
+    lo, hi, base, ovf = st._flat_windows(sp.sup_pos, term_ids, sup_s, sp.super_docs,
+                                         wcaps)
+    assert lo.shape == (256 * S, 8) and ovf.any() and (lo == hi).any()
+    lo, hi, base = (t.to(getattr(torch, idx)) for t in (lo, hi, base))
+    ids_rows, ws_rows = sp.ids_rows, sp.ws_rows
+    if not aligned:
+        flat_i = torch.empty(ids_rows.numel() + 1, dtype=torch.int32, device=dev)
+        flat_w = torch.empty(ws_rows.numel() + 1, device=dev)
+        flat_i[1:], flat_w[1:] = ids_rows.reshape(-1), ws_rows.reshape(-1)
+        ids_rows, ws_rows = flat_i[1:].view_as(ids_rows), flat_w[1:].view_as(ws_rows)
+        assert ids_rows.data_ptr() % 16 and ws_rows.data_ptr() % 16
+    got = place_fused(lo, hi, base, ids_rows, ws_rows, wcaps, sp.super_tiles)
+    want = place_fused_v1(lo, hi, base, ids_rows, ws_rows, wcaps, sp.super_tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    l_cat, w_cat, _ovf = st._resident_windows(sp.sup_pos, sp.ids_rows, sp.ws_rows,
+                                              term_ids, sup_s, sp.super_docs, wcaps)
+    rows = 256 * S
+    assert torch.equal(got, place_windows(l_cat.reshape(rows, -1),
+                                          w_cat.reshape(rows, -1), sp.super_tiles))
+    assert (got.reshape(rows, -1) != 0).any(dim=1).float().mean() > 0.5
+
+
+def test_gpu_place_fused_few_rows_and_empty_slots_equal_v1_bitwise():
+    """Fewer rows than blocks, rows whose every window is empty between
+    rows that are not, and no slots at all: each row still written whole."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+    from hybridsearch_tpu_torch.ops.cuda_supertile import place_fused, place_fused_v1
+
+    dev = _card()
+    rng = np.random.default_rng(18)
+    sp, term_ids, sup_s = _csr_case(dev, rng, B=5, S=3)
+    wcaps = (8192,) * 8
+    lo, hi, base, _ovf = st._flat_windows(sp.sup_pos, term_ids, sup_s, sp.super_docs,
+                                          wcaps)
+    hi[1::3] = lo[1::3]
+    got = place_fused(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps, sp.super_tiles)
+    assert torch.equal(got, place_fused_v1(lo, hi, base, sp.ids_rows, sp.ws_rows,
+                                           wcaps, sp.super_tiles))
+    assert (got[1::3] == 0).all() and (got[::3] != 0).any()
+    none = place_fused(lo[:, :0], hi[:, :0], base, sp.ids_rows, sp.ws_rows, (),
+                       sp.super_tiles)
+    torch.cuda.synchronize()
+    assert none.shape == got.shape and (none == 0).all()
+
+
 def test_gpu_gated_wrappers_count_launches_and_reject_bad_input():
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
 
@@ -693,6 +760,73 @@ def test_gpu_slice_runs_and_rescore_match_plain_bitwise(T, p, C):
     want = rescore_plain(cand, ids_flat, ws_flat, p, nd)
     assert torch.equal(got, want)
     assert (got[:, -3:] == 0).all() and (got > 0).any()
+
+
+# LADDER_SHAPES, then p not a multiple of 4 (4-byte copies): whole rows
+# staged, and a column cut into ring chunks
+V1_SHAPES = LADDER_SHAPES + [(8, 255, 1024), (8, 1022, 128), (8, 4097, 4096)]
+
+
+@pytest.mark.parametrize("T,p,C", V1_SHAPES)
+def test_gpu_rescore_equals_v1_bitwise(T, p, C):
+    """K7 against its first design and its plain version at the three
+    rungs, T = 16 and 32, the margin call, and widths p not a multiple of
+    4, with repeated candidates, sentinels and -1."""
+    from hybridsearch_tpu_torch.ops.cuda_impact import (
+        rescore,
+        rescore_plain,
+        rescore_v1,
+        slice_runs,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(14)
+    B, nd = 256, 600_000
+    ids, ws, starts, lengths = _impact_inputs(rng, dev, B, T, p, nd)
+    got_i, got_w = slice_runs(ids, ws, starts, lengths, p, nd)
+    ids_flat, ws_flat = got_i.reshape(B, T * p), got_w.reshape(B, T * p)
+    cand = ids_flat[:, torch.randperm(T * p, device=dev)[:C]].clone()
+    cand[:, 1::13] = cand[:, :1]
+    cand[:, -3:] = torch.tensor([nd, nd + 2, -1], device=dev)
+    got = rescore(cand, ids_flat, ws_flat, p, nd)
+    want = rescore_v1(cand, ids_flat, ws_flat, p, nd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, rescore_plain(cand, ids_flat, ws_flat, p, nd))
+    assert (got[:, -3:] == 0).all() and (got > 0).any()
+
+
+def test_gpu_first_designs_count_launches_and_refuse_cpu_tensors():
+    """``place_fused_v1`` and ``rescore_v1`` launch on CUDA tensors, count
+    their own launches (not the served wrappers'), and raise on CPU
+    tensors without counting."""
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    dev = _card()
+    ids = torch.zeros((16, 128), dtype=torch.int32, device=dev)
+    ws = torch.zeros((16, 128), device=dev)
+    lo = torch.zeros((4, 3), dtype=torch.int32, device=dev)
+    base = torch.zeros(4, dtype=torch.int32, device=dev)
+    cand = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    flat_i = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    flat_w = torch.zeros((2, 16), device=dev)
+    before = (cs.place_fused_v1.launches, cs.place_fused.launches,
+              ci.rescore_v1.launches, ci.rescore.launches)
+    assert cs.place_fused_v1(lo, lo + 5, base, ids, ws, (512,) * 3).shape == (4, 128, 128)
+    assert ci.rescore_v1(cand, flat_i, flat_w, 8, 100).shape == (2, 8)
+    torch.cuda.synchronize()
+    after = (before[0] + 1, before[1], before[2] + 1, before[3])
+    assert (cs.place_fused_v1.launches, cs.place_fused.launches,
+            ci.rescore_v1.launches, ci.rescore.launches) == after
+    with pytest.raises(ValueError):
+        cs.place_fused_v1(lo.cpu(), lo.cpu(), base.cpu(), ids.cpu(), ws.cpu(), (512,) * 3)
+    with pytest.raises(ValueError):
+        ci.rescore_v1(cand.cpu(), flat_i.cpu(), flat_w.cpu(), 8, 100)
+    with pytest.raises(ValueError):  # the ids on another device
+        cs.place_fused_v1(lo, lo, base, ids.cpu(), ws, (512,) * 3)
+    assert (cs.place_fused_v1.launches, cs.place_fused.launches,
+            ci.rescore_v1.launches, ci.rescore.launches) == after
 
 
 def test_gpu_rescore_shared_memory_limit_and_refusals():

@@ -241,6 +241,108 @@ def test_rescore_slots_and_limits():
     assert cuda_impact.rescore_slots(13108) == 15
 
 
+def _rescore_plan_np(C, T, p):
+    """``rescore_plan`` in numpy: the table's slot count from 1.25 C, the
+    block and the entries a thread from the width table."""
+    log2 = max(1, int(np.ceil(np.log2(np.ceil(5 * C / 4)))))
+    plans = np.array(cuda_impact.RESCORE_PLANS)
+    _widest, threads, entries = plans[np.searchsorted(plans[:, 0], p)]
+    return log2, int(threads), int(entries), 8 * 2 ** log2
+
+
+# the ladder's shapes (rungs at T = 8, 16, 32, the margin call), narrow and
+# odd widths, and the largest table
+PLAN_SHAPES = [(1024, 8, 256), (2048, 8, 1024), (4096, 8, 4096), (6144, 16, 4096),
+               (10240, 32, 4096), (128, 8, 1024), (1, 1, 1), (300, 3, 255),
+               (4096, 8, 4097), (13107, 32, 100_000), (5, 32, 3)]
+
+
+@pytest.mark.parametrize("C,T,p", PLAN_SHAPES)
+def test_rescore_plan_matches_numpy(C, T, p):
+    plan = cuda_impact.rescore_plan(C, T, p)
+    assert plan == _rescore_plan_np(C, T, p)
+    assert plan[0] == cuda_impact.rescore_slots(C)
+    assert plan[3] <= 232448  # every shape the first design takes fits
+    if p <= 4096:  # the ladder's columns: whole columns a group
+        assert plan[1] * plan[2] >= p
+
+
+def _rescore_walk_np(cand, ids, ws, p, n_docs, threads, entries):
+    """K7's walk in numpy: a row's T * p positions (column t at [t * p,
+    (t + 1) * p)) go in groups of at most threads * entries -- whole
+    columns when one fits, else parts of one column -- and thread i takes
+    the group's positions i + k * threads (k < entries); every position's
+    slot is looked up first, then the group's columns are added in order
+    (one add a slot a column). Checks that the groups cover each position
+    once, in order."""
+    B, C = cand.shape
+    T = ids.shape[1] // p
+    width = threads * entries
+    if p <= width:
+        cols = width // p
+        groups = [(t * p, min(T, t + cols) * p) for t in range(0, T, cols)]
+    else:
+        groups = [(t * p + s, t * p + min(p, s + width))
+                  for t in range(T) for s in range(0, p, width)]
+    out = np.zeros((B, C), np.float32)
+    for b in range(B):
+        acc = np.zeros(n_docs, np.float32)
+        live = np.zeros(n_docs, bool)
+        ok = (cand[b] >= 0) & (cand[b] < n_docs)
+        live[cand[b][ok]] = True
+        covered = []
+        for s0, s1 in groups:
+            q = s0 + np.arange(threads)[:, None] + np.arange(entries)[None, :] * threads
+            q = q[q < s1]
+            covered.extend(sorted(q.tolist()))
+            i, w = ids[b, q], ws[b, q]
+            hit = (i >= 0) & (i < n_docs) & (w != 0)
+            hit[hit] = live[i[hit]]
+            for t in range(s0 // p, -(-s1 // p)):
+                in_t = hit & (q // p == t)
+                assert np.unique(i[in_t]).size == in_t.sum()
+                acc[i[in_t]] += w[in_t]
+        assert covered == list(range(T * p))
+        out[b, ok] = acc[cand[b][ok]]
+    return out
+
+
+@pytest.mark.parametrize("T,p,C,threads,entries", [(6, 32, 64, 32, 2), (5, 300, 200, 64, 2),
+                                                   (4, 255, 100, 256, 1),
+                                                   (3, 1030, 512, 64, 8),
+                                                   (7, 100, 300, 64, 4)])
+def test_rescore_group_walk_matches_the_plain_version(T, p, C, threads, entries):
+    """The kernel's walk -- lookups of a group's positions first, then its
+    columns added in order; groups of several columns, of one, and parts of
+    one column, widths not a multiple of 4 among them -- gives the plain
+    version's bits."""
+    rng = np.random.default_rng(8)
+    nd = 2000
+    cand, ids, ws = _rescore_inputs(rng, 3, T, p, C, nd)
+    want = cuda_impact.rescore_plain(torch.from_numpy(cand), torch.from_numpy(ids),
+                                     torch.from_numpy(ws), p, nd).numpy()
+    got = _rescore_walk_np(cand, ids, ws, p, nd, threads, entries)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_rescore_v1_refuses_cpu_tensors_and_int32_inputs_pass_as_they_are():
+    """``rescore_v1`` is a yardstick for the card: it raises on CPU (or
+    meta) tensors and counts no launch. The wrappers take an int32,
+    contiguous tensor as it is and convert any other."""
+    for dev in ("cpu", "meta"):
+        cand = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError):
+            cuda_impact.rescore_v1(cand, torch.zeros((2, 16), dtype=torch.int32,
+                                                     device=dev),
+                                   torch.zeros((2, 16), device=dev), 8, 100)
+    assert cuda_impact.rescore_v1.launches == 0 and cuda_impact.rescore.launches == 0
+    t = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    assert cuda_impact._int32(t) is t and cuda_impact._contiguous(t) is t
+    assert cuda_impact._int32(t.long()).dtype == torch.int32
+    assert cuda_impact._int32(t.t()).is_contiguous()
+    assert torch.equal(cuda_impact._int32(t.t()), t.t())
+
+
 def test_cand_scores_bisect_matches_jax():
     rng = np.random.default_rng(6)
     V, nd = 20, 3000

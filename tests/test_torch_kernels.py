@@ -149,3 +149,156 @@ def test_first_designs_refuse_cpu_tensors():
                                   (129, 256), (256, 256), (1000, 256)])
 def test_query_block_is_the_smallest_width_that_holds_the_batch(B, bq):
     assert query_block(B) == bq
+
+
+# -- K5's redesign: its host-side plan and its stage walk, on the CPU ----------
+
+def _k5_plan_np(r_len, sms):
+    """``place_fused_plan`` as one numpy pick: every (blocks an SM, stages,
+    entries) candidate in preference order, the first that fits."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    entries = [cs.PLACE_FUSED_ENTRIES >> k
+               for k in range(cs.PLACE_FUSED_ENTRIES.bit_length())
+               if cs.PLACE_FUSED_ENTRIES >> k >= 128]
+    cand = np.array([(per_sm, cs.PLACE_FUSED_STAGES, e)
+                     for per_sm in (cs.PLACE_FUSED_BLOCKS, 1) for e in entries])
+    fixed = 4 * 32 + 40 * (cs.PLACE_FUSED_STAGES + 1)  # slot rows, stage descriptors
+    room = (np.minimum(cs.SMEM_BLOCK, cs.SMEM_SM // cand[:, 0] - cs.SMEM_RESERVED)
+            - 4 * r_len - fixed)
+    fits = 8 * cand[:, 1] * cand[:, 2] <= room
+    if not fits.any():
+        return None
+    per_sm, st, e = (int(x) for x in cand[int(np.argmax(fits))])
+    return (cs.PLACE_FUSED_THREADS, st, e, sms * per_sm, 4 * r_len + 8 * st * e + fixed)
+
+
+@pytest.mark.parametrize("super_tiles", [1, 8, 128, 256, 300, 440, 447, 448, 454])
+def test_place_fused_plan_matches_numpy(super_tiles):
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    r_len = super_tiles * 128
+    plan = cs.place_fused_plan(r_len, 132)
+    assert plan == _k5_plan_np(r_len, 132)
+    if plan is None:  # no ring fits beside the buffer
+        assert 4 * r_len + cs.PLACE_FUSED_FIXED + 8 * cs.PLACE_FUSED_STAGES * 128 > cs.SMEM_BLOCK
+        return
+    _threads, _stages, _entries, blocks, smem = plan
+    per_sm = blocks // 132
+    assert smem <= cs.SMEM_BLOCK and per_sm * (smem + cs.SMEM_RESERVED) <= cs.SMEM_SM
+    if super_tiles == 128:  # the path's buffer: the plan's first choice
+        assert plan[1:3] == (cs.PLACE_FUSED_STAGES, cs.PLACE_FUSED_ENTRIES)
+        assert per_sm == cs.PLACE_FUSED_BLOCKS
+
+
+def _k5_walk_np(lo, hi, base, ids, ws, slot_rows, r_len, entries, grid, piece):
+    """The K5 kernel's walk in numpy: block b takes rows b, b + grid, ...;
+    each slot's window [lo, end) is cut into stages of ``entries`` positions
+    from lo rounded down to ``piece``; a stage adds its staged positions
+    inside the window (one add a cell, checked), stages in slot order; a
+    row's buffer is written out once and starts the next row at zero."""
+    rows, T = lo.shape
+    n_entries = ids.size
+    out = np.full((rows, r_len), np.nan, np.float32)
+    for b in range(min(grid, rows)):
+        for r in range(b, rows, grid):
+            buf = np.zeros(r_len, np.float32)
+            for j in range(T):
+                lo_j = int(lo[r, j])
+                end = min(int(hi[r, j]), (lo_j // 128 + slot_rows[j]) * 128, n_entries)
+                if end <= lo_j:
+                    continue
+                a, ea = lo_j - lo_j % piece, -(-end // piece) * piece
+                assert ea <= n_entries
+                for s0 in range(a, ea, entries):
+                    pos = np.arange(s0, min(s0 + entries, ea))
+                    pos = pos[(pos >= lo_j) & (pos < end)]
+                    w = ws[pos]
+                    lv = ids[pos].astype(np.int64) - int(base[r])
+                    keep = (w != 0) & (lv >= 0) & (lv < r_len)
+                    assert np.unique(lv[keep]).size == keep.sum()
+                    buf[lv[keep]] += w[keep]
+            assert np.isnan(out[r]).all()  # written once
+            out[r] = buf
+    return out
+
+
+def _k5_case(seed, B=12, S=3, T=6, n_docs=4096, super_tiles=8):
+    """A doc-sorted CSR over supertiles of super_tiles * 128 docs, terms from
+    dense (windows past the caps) to sparse, and int64 window bounds of B
+    queries x S probes (one past the position table) for T slots."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    rng = np.random.default_rng(seed)
+    V = 24
+    t_l, d_l = [], []
+    for term in range(V):
+        frac = 0.7 if term % 6 == 0 else float(rng.uniform(0.01, 0.3))
+        hit = np.flatnonzero(rng.random(n_docs) < frac)
+        t_l.append(np.full(len(hit), term))
+        d_l.append(hit)
+    t_a, d_a = np.concatenate(t_l), np.concatenate(d_l)
+    w_a = (rng.random(len(t_a)) * 8 + 0.01).astype(np.float32)
+    w_a[::11] = 0.0
+    sp = st.build_super_postings(t_a, d_a, w_a, n_docs, V, torch.device("cpu"),
+                                 super_tiles=super_tiles)
+    term_ids = torch.from_numpy(rng.integers(0, V + 1, (B, T)))
+    sup_s = torch.from_numpy(np.sort(rng.integers(0, sp.n_super + 1, (B, S)), axis=1))
+    wcaps = (512,) + (256,) * (T - 1)
+    lo, hi, base, ovf = st._flat_windows(sp.sup_pos, term_ids, sup_s, sp.super_docs,
+                                         wcaps)
+    return sp, lo, hi, base, ovf, wcaps
+
+
+@pytest.mark.parametrize("entries,grid,piece", [(2048, 264, 4), (128, 5, 4), (64, 3, 1)])
+def test_place_fused_stage_walk_matches_the_plain_version(entries, grid, piece):
+    """The kernel's cut of each window into aligned stages, masked to the
+    window, and its row walk give the plain version's bits: overflowing,
+    empty and past-the-table windows, zero weights, fewer and more rows
+    than blocks."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    sp, lo, hi, base, ovf, wcaps = _k5_case(21)
+    assert ovf.any() and (lo == hi).any()
+    want = cs.place_fused_plain(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps,
+                                sp.super_tiles)
+    got = _k5_walk_np(lo.numpy(), hi.numpy(), base.numpy(), sp.ids_rows.numpy().ravel(),
+                      sp.ws_rows.numpy().ravel(), cs._slot_rows(wcaps),
+                      sp.super_tiles * 128, entries, grid, piece)
+    assert torch.equal(torch.from_numpy(got).reshape(want.shape), want)
+    assert (want != 0).any()
+
+
+def test_place_fused_host_work_caches_and_converts_nothing_it_need_not():
+    """The slot rows' C array is built once a cap tuple; int64 bounds (the
+    path's) and int32 ones pass through as they are, mixed ones meet at
+    int64, and only a non-contiguous one is copied."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    a = cs._slot_rows_arg((8192, 512, 512))
+    assert a is cs._slot_rows_arg((8192, 512, 512))
+    assert list(a) == cs._slot_rows((8192, 512, 512)) == [65, 5, 5]
+    lo = torch.zeros((6, 4), dtype=torch.int64)
+    base = torch.zeros(6, dtype=torch.int64)
+    (lo_k, hi_k, base_k), idx64 = cs._bounds(lo, lo, base)
+    assert idx64 and lo_k is lo and hi_k is lo and base_k is base
+    (lo_k, _hi, base_k), idx64 = cs._bounds(lo.int(), lo.int(), base.int())
+    assert not idx64 and lo_k.dtype == torch.int32 and base_k.dtype == torch.int32
+    (lo_k, hi_k, base_k), idx64 = cs._bounds(lo.int(), lo.t().contiguous().t(), base)
+    assert idx64 and all(t.dtype == torch.int64 and t.is_contiguous()
+                         for t in (lo_k, hi_k, base_k))
+
+
+def test_place_fused_v1_refuses_cpu_tensors():
+    """``place_fused_v1`` is a yardstick for the card: on CPU (or meta)
+    tensors it raises rather than run the plain version, and counts no
+    launch."""
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+
+    for dev in ("cpu", "meta"):
+        z = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError):
+            cs.place_fused_v1(z, z, torch.zeros(2, dtype=torch.int32, device=dev),
+                              torch.zeros((4, 128), dtype=torch.int32, device=dev),
+                              torch.zeros((4, 128), device=dev), (512, 512, 512))
+    assert cs.place_fused_v1.launches == 0 and cs.place_fused.launches == 0
