@@ -5,6 +5,7 @@
     python3 chip_probes.py --only ss    # the scoring body alone
     python3 chip_probes.py --only k5k7  # K5's and K7's designs
     python3 chip_probes.py --only k7    # K7's alone
+    python3 chip_probes.py --only k6    # K6's designs and its wrapper's host time
 
 K1 (``csrc/tile_stats.cu``): every configuration of the kernel worth
 trying -- (query block BQ, queries a thread TN, blocks an SM, ring stages)
@@ -47,7 +48,30 @@ K7 (``csrc/impact_rescore.cu``): configurations (threads a block, blocks
 an SM its registers must allow, entries a thread a segment, segments held
 ahead in registers) at the impact ladder's (T, p, C) -- the three rungs, the margin rescore and
 T = 32 -- each held bit-equal to the first design and timed beside it.
-K5 and K7 are timed by CUDA-graph replays (device time; events around
+K6 (``csrc/slice_runs.cu``, ``csrc/slice_runs_variants.cuh``): every
+variant of the design -- (how a row is read: 4-byte copies, 4-byte loads
+into a lane's chunk of 4, or aligned 16-byte words re-aligned across the
+warp by shuffles; lanes a row; entries a lane in flight a pass), each on a
+grid of a group a row or of one wave (also capped at 1, 2 or 4 blocks an
+SM) -- on slices drawn as the impact ladder draws them: B = 256 queries
+(32 on a compacted rung) of 3-5 real terms in T = 8 slots (17-32 in
+T = 32), the other slots sentinels of length 0; topic-word runs of 40-159
+entries and one Zipf(1.1) background word's run capped at 4,096; starts
+at every residue mod 4. Each variant is held bit-equal to the first
+design (``hst_slice_runs_v1``) and timed beside it, the shipped launcher,
+an empty kernel on the same replay harness (the floor of a launch), the
+two outputs zeroed by PyTorch and the shipped launcher with every length
+0 (what writing the outputs alone costs), and both designs writing into
+outputs 1,152 bytes apart in one allocation. Successive launches write ten
+output buffers in turn (writes that reach device memory, as a fresh
+allocation's may), and again one buffer, written again and again (writes
+that stay in L2, as in the smoke's replays of the wrapper, whose outputs
+are freed and reused within the captured graph). The wrapper's host time (events around 10 back-to-back calls less
+device time, and the host clock a call) is taken in turns against a copy
+of the wrapper as it was before its host work was cut, with the medians
+of several rounds, and so are its pieces.
+
+K5, K6 and K7 are timed by CUDA-graph replays (device time; events around
 back-to-back calls would time the host's launches at these sizes), the
 shipped wrappers and the first designs both ways.
 
@@ -62,6 +86,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -104,6 +129,22 @@ K7_V1_NO_WALK = "  for (int t = 0; t < 0; ++t) {\n    const int* it = ib"
 K7_SHAPES = [(8, 256, 1024), (8, 1024, 2048), (8, 4096, 4096), (8, 1024, 128),
              (32, 4096, 10240)]
 SS_TILES = (512, 1024, 2048)
+# K6: (how a row is read: 0 4-byte copies (Copy), 1 4-byte loads into
+# chunks of 4 (Ld4), 2 aligned 16-byte words and shuffles (Shfl); lanes a
+# row; entries (or chunks) a lane in flight a pass); (B, T, p) of the
+# ladder's rungs: B = 32 is a compacted rung
+K6_CONFIGS = [(0, 32, 2), (0, 32, 4), (0, 32, 8), (0, 32, 16), (0, 64, 4), (0, 64, 8),
+              (0, 64, 16), (0, 128, 2), (0, 128, 4), (0, 128, 8), (0, 256, 1), (0, 256, 2),
+              (0, 256, 4), (0, 256, 8), (0, 256, 16), (2, 32, 2), (2, 128, 2), (2, 256, 1),
+              (1, 32, 2), (1, 256, 1)]
+K6_WAVE_CAPPED = [(0, 256, 4), (0, 256, 8)]  # also one wave of 1, 2, 4 blocks an SM
+K6_SHAPES = [(256, 8, 256), (32, 8, 1024), (256, 8, 1024), (32, 8, 4096), (256, 8, 4096),
+             (256, 32, 256), (256, 32, 4096)]
+# postings entries, as many as the small-topic/source tier of chip_smoke.py
+# holds; 4,096 sentinels follow them
+K6_NNZ = 10_932_506
+K6_ROUNDS = 9  # rounds of the host-time turns; medians reported
+K6_OUTPUTS = 10  # output buffers a timed launch cycles through
 
 
 def _name(cfg) -> str:
@@ -610,6 +651,308 @@ def probe_k7(lib) -> list:
     return rows_out
 
 
+def _k6_name(cfg) -> str:
+    return "probe_k6_" + "_".join(map(str, cfg))
+
+
+def build_k6(work: str):
+    """Compile every K6 variant (the shipped copies of ``slice_runs.cu`` and
+    the others of ``slice_runs_variants.cuh``, each at a group a row or
+    one wave), an empty kernel and their attribute readers beside the
+    shipped launcher and the first design; returns the loaded library and
+    the register lines."""
+    from hybridsearch_tpu_torch.ops import cuda_build
+
+    csrc = os.path.join(REPO, "hybridsearch_tpu_torch", "csrc")
+    os.makedirs(work, exist_ok=True)
+    lines = [f'#include "{os.path.join(csrc, "slice_runs.cu")}"',
+             f'#include "{os.path.join(csrc, "slice_runs_variants.cuh")}"',
+             "__global__ void probe_k6_empty_kernel() {}",
+             'extern "C" int probe_k6_empty(unsigned grid, void* s) { '
+             "probe_k6_empty_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(s)>>>(); "
+             "return static_cast<int>(cudaGetLastError()); }"]
+    for cfg in K6_CONFIGS:
+        read, rt, u = cfg
+        row = f"k6::{('Copy', 'Ld4', 'Shfl')[read]}<{rt}, {u}>"
+        kern = f"k6::slice_runs_kernel<{row}>"
+        lines.append(
+            f'extern "C" int {_k6_name(cfg)}(const int* ids, const float* ws, '
+            "const int* st, const int* ln, long long rows, int p, int n_docs, int* io, "
+            "float* wo, int one_wave, void* s) { const k6::Args a{ids, ws, st, ln, rows, "
+            "p, n_docs, io, wo}; const cudaStream_t cs = static_cast<cudaStream_t>(s); "
+            f"return one_wave ? k6::launch_wave<{row}>(a, one_wave, cs) : "
+            f"k6::launch<{row}>(a, cs); }}")
+        lines.append(
+            f'extern "C" int {_k6_name(cfg)}_attrs(int* out) {{ cudaFuncAttributes a; '
+            f"cudaError_t e = cudaFuncGetAttributes(&a, {kern}); if (e != cudaSuccess) "
+            "return static_cast<int>(e); int blocks = 0; e = "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, {kern}, 256, 0); "
+            "out[0] = a.numRegs; out[1] = static_cast<int>(a.localSizeBytes); "
+            "out[2] = blocks; return static_cast<int>(e); }")
+    src, so = os.path.join(work, "k6_probes.cu"), os.path.join(work, "k6_probes.so")
+    with open(src, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-shared",
+                           "-o", so, src], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}{proc.stderr}")
+    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
+            if "registers" in ln or "spill" in ln]
+    return ctypes.CDLL(so), regs
+
+
+def k6_postings(dev):
+    """Postings of K6_NNZ entries (ids in [0, 524,288), weights > 0), then
+    4,096 sentinel entries (524,288, 0), as the impact tier lays them."""
+    nd = 524_288
+    rng = np.random.default_rng(6)
+    ids = np.concatenate([rng.integers(0, nd, K6_NNZ), np.full(4096, nd)]).astype(np.int32)
+    ws = np.concatenate([rng.random(K6_NNZ) + 0.01, np.zeros(4096)]).astype(np.float32)
+    return torch.from_numpy(ids).to(dev), torch.from_numpy(ws).to(dev), nd
+
+
+def k6_slices(rng, B: int, T: int, p: int, dev):
+    """(starts, lengths) [B, T] int32 as the ladder's encode draws them:
+    3-5 real terms a query at T = 8 (17-32 at T = 32), all but the last a
+    topic word of 40-159 entries, the last a Zipf(1.1) background word
+    over 30,000 words (a run of about 1.9 M / rank^1.1 entries, kept to
+    4,096); the other slots sentinels (start K6_NNZ, length 0); each
+    length cut to p; starts uniform, so at every residue mod 4."""
+    lo, hi = (3, 6) if T == 8 else (17, 33)
+    n_real = rng.integers(lo, hi, B)
+    real = np.arange(T)[None, :] < n_real[:, None]
+    kept = rng.integers(40, 160, (B, T))
+    rank = np.minimum(rng.zipf(1.1, B), 30_000)
+    kept[np.arange(B), n_real - 1] = np.minimum(1.9e6 / rank ** 1.1, 4096).astype(int)
+    starts = np.where(real, rng.integers(0, K6_NNZ - 4096, (B, T)), K6_NNZ)
+    lengths = np.where(real, np.minimum(kept, p), 0)
+    t = lambda a: torch.from_numpy(a.astype(np.int32)).to(dev)  # noqa: E731
+    return t(starts), t(lengths)
+
+
+def slice_runs_first_wrapper(doc_ids, weights, starts, lengths, p, n_docs):
+    """``slice_runs`` with the host work its wrapper did before it was cut
+    (four device lookups, two allocations, two contiguity calls, the
+    stream through a helper), launching the same kernel: the before of the
+    host-time turns, nothing else."""
+    from hybridsearch_tpu_torch.ops import cuda_build
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+
+    if not doc_ids.is_cuda:
+        raise ValueError("CUDA tensors only")
+    if doc_ids.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise ValueError("dtypes")
+    if doc_ids.dim() != 1 or weights.shape != doc_ids.shape:
+        raise ValueError("postings shapes")
+    if starts.shape != lengths.shape:
+        raise ValueError("starts vs lengths")
+    dev = doc_ids.get_device()
+    if (weights.get_device() != dev or starts.get_device() != dev
+            or lengths.get_device() != dev):
+        raise ValueError("devices")
+    if p < 1 or p > doc_ids.shape[0] or not 0 <= n_docs < 2**31:
+        raise ValueError("range")
+    rows = starts.numel()
+    st, ln = ci._int32(starts), ci._int32(lengths)
+    ids = doc_ids.new_empty((rows, p))
+    ws = weights.new_empty((rows, p))
+    rc = cuda_build.library().hst_slice_runs(
+        ci._contiguous(doc_ids).data_ptr(), ci._contiguous(weights).data_ptr(),
+        st.data_ptr(), ln.data_ptr(), rows, p, n_docs, ids.data_ptr(), ws.data_ptr(),
+        cuda_build.stream_of(doc_ids))
+    cuda_build.check(rc, "hst_slice_runs")
+    return ids, ws
+
+
+def _host_ms(fn, reps: int = 200) -> float:
+    """Median host milliseconds a call: the host clock around each of
+    ``reps`` calls (launches queue on the card)."""
+    import time
+
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e3
+
+
+def probe_k6(lib) -> dict:
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+
+    P_, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    sig = [P_, P_, P_, P_, L, I, I, P_, P_, P_]
+    dev = torch.device("cuda")
+    lib.probe_k6_empty.argtypes, lib.probe_k6_empty.restype = [ctypes.c_uint, P_], I
+    attrs = {}
+    for cfg in K6_CONFIGS:
+        fn = getattr(lib, _k6_name(cfg) + "_attrs")
+        fn.argtypes, fn.restype = [P_], I
+        got = (ctypes.c_int * 3)()
+        if fn(got):
+            raise RuntimeError(f"K6 {cfg}: attributes not read")
+        attrs[str(cfg)] = list(got)
+        print(f"  K6 {cfg}: {got[0]} registers, {got[1]} bytes local, {got[2]} blocks "
+              "an SM", flush=True)
+    ids, ws, nd = k6_postings(dev)
+    rng = np.random.default_rng(7)
+    rows_out, host_rows = [], []
+    for B, T, p in K6_SHAPES:
+        starts, lengths = k6_slices(rng, B, T, p, dev)
+        rows = B * T
+        ln = lengths.long()
+        bound_ms = (int(ln.sum()) * 8 + rows * 8 + rows * p * 8) / 3.35e12 * 1e3
+        want = ci.slice_runs_v1(ids, ws, starts, lengths, p, nd)
+        outs = [(torch.empty_like(want[0]), torch.empty_like(want[1]))
+                for _ in range(K6_OUTPUTS)]
+
+        # the same outputs with the weights' plane 1,152 bytes past the ids'
+        # plane in one allocation (no power-of-two distance between them)
+        skew = [(f[:rows * p], f[rows * p + 288:].view(torch.float32)) for f in
+                (torch.empty(2 * rows * p + 288, dtype=torch.int32, device=dev)
+                 for _ in range(K6_OUTPUTS))]
+        no_lengths = torch.zeros_like(lengths)
+
+        def raw(fn, grid=None, outputs=outs, lens=lengths, ring=K6_OUTPUTS):
+            turn = itertools.count()
+
+            def call():  # on the current stream: the capture's, in a capture
+                stream = torch.cuda.current_stream().cuda_stream
+                if grid is not None:
+                    rc = fn(grid, stream)
+                else:  # the next output: the first call writes outputs[0]
+                    o = outputs[next(turn) % ring]
+                    rc = fn(ids.data_ptr(), ws.data_ptr(), starts.data_ptr(),
+                            lens.data_ptr(), rows, p, nd, o[0].data_ptr(),
+                            o[1].data_ptr(), stream)
+                if rc:
+                    raise RuntimeError(f"CUDA error {rc} at launch")
+            return call
+
+        fill_turn = itertools.count()
+
+        def fill():  # what writing the outputs alone costs: both planes zeroed
+            o = outs[next(fill_turn) % K6_OUTPUTS]
+            o[0].zero_(), o[1].zero_()
+
+        def equal_to_v1(call) -> bool:
+            outs[0][0].zero_(), outs[0][1].zero_()
+            call()
+            torch.cuda.synchronize()
+            return torch.equal(outs[0][0], want[0]) and torch.equal(outs[0][1], want[1])
+
+        for name in ("hst_slice_runs", "hst_slice_runs_v1"):
+            getattr(lib, name).argtypes, getattr(lib, name).restype = sig, I
+        row = {"B": B, "T": T, "p": p, "rows": rows, "bound_ms": bound_ms,
+               "sentinel_rows": int((ln == 0).sum()), "full_rows": int((ln == p).sum()),
+               "residues": [int(((starts % 4) == r).sum()) for r in range(4)],
+               "empty_1_device_ms": graph_ms(raw(lib.probe_k6_empty, 1)),
+               "empty_v1grid_device_ms": graph_ms(raw(lib.probe_k6_empty, rows)),
+               "v1_device_ms": graph_ms(raw(lib.hst_slice_runs_v1)),
+               "shipped_device_ms": graph_ms(raw(lib.hst_slice_runs)),
+               "v1_one_output_device_ms": graph_ms(raw(lib.hst_slice_runs_v1, ring=1)),
+               "shipped_one_output_device_ms": graph_ms(raw(lib.hst_slice_runs, ring=1)),
+               "fill_device_ms": graph_ms(fill),
+               "shipped_no_lengths_device_ms": graph_ms(raw(lib.hst_slice_runs,
+                                                            lens=no_lengths)),
+               "v1_skewed_planes_device_ms": graph_ms(raw(lib.hst_slice_runs_v1,
+                                                          outputs=skew)),
+               "shipped_skewed_planes_device_ms": graph_ms(raw(lib.hst_slice_runs,
+                                                               outputs=skew)),
+               "configs": []}
+        if not equal_to_v1(raw(lib.hst_slice_runs)):
+            raise AssertionError(f"K6 differs from the first design at {(B, T, p)}")
+        # grid: a group a row (0), one wave (-1), or one wave of at most k
+        # blocks an SM (k > 0: fewer rows written at once)
+        for cfg, one_wave in [(c, w) for c in K6_CONFIGS for w in (-1, 0)] + [
+                (c, k) for c in K6_WAVE_CAPPED for k in (1, 2, 4)]:
+            if cfg[0] and p % 4:
+                continue
+            fn = getattr(lib, _k6_name(cfg))
+            fn.argtypes, fn.restype = sig[:9] + [I, P_], I
+            call = raw(lambda *a, fn=fn, w=one_wave: fn(*a[:9], w, a[9]))
+            if not equal_to_v1(call):
+                raise AssertionError(f"K6 {cfg} differs from the first design at "
+                                     f"{(B, T, p)}")
+            ms = graph_ms(call)
+            one_ms = graph_ms(raw(lambda *a, fn=fn, w=one_wave: fn(*a[:9], w, a[9]),
+                                  ring=1))
+            grid = ("a group a row" if one_wave == 0 else "one wave" if one_wave < 0
+                    else f"one wave of {one_wave} blocks an SM")
+            row["configs"].append({"config": list(cfg), "grid": grid, "device_ms": ms,
+                                   "one_output_device_ms": one_ms,
+                                   "bit_equal_to_v1": True})
+            print(f"  K6 (B, T, p)={(B, T, p)} (read, lanes a row, in flight)={cfg}, "
+                  f"{grid}: device {ms:.4f} ms (one output: {one_ms:.4f}), bit-equal to "
+                  "v1 True", flush=True)
+        print(f"  K6 (B, T, p)={(B, T, p)}: {row['sentinel_rows']} of {rows} rows "
+              f"sentinels, {row['full_rows']} full, residues {row['residues']}; v1 device "
+              f"{row['v1_device_ms']:.4f} ms, shipped {row['shipped_device_ms']:.4f} (one "
+              f"output: v1 {row['v1_one_output_device_ms']:.4f}, shipped "
+              f"{row['shipped_one_output_device_ms']:.4f}), "
+              f"empty kernel {row['empty_1_device_ms']:.4f} (1 block) / "
+              f"{row['empty_v1grid_device_ms']:.4f} ({rows} blocks), both outputs "
+              f"zeroed {row['fill_device_ms']:.4f}, shipped with every length 0 "
+              f"{row['shipped_no_lengths_device_ms']:.4f}, with the planes 1,152 bytes "
+              f"apart: v1 {row['v1_skewed_planes_device_ms']:.4f}, shipped "
+              f"{row['shipped_skewed_planes_device_ms']:.4f}; bound {bound_ms:.4f} ms",
+              flush=True)
+        rows_out.append(row)
+        if B == 256 and p <= 1024:
+            host_rows.append(_k6_host(lib, ids, ws, starts, lengths, p, nd, (B, T, p)))
+        del want, outs, skew
+    return {"shapes": rows_out, "host": host_rows, "attributes": attrs}
+
+
+def _k6_host(lib, ids, ws, starts, lengths, p, nd, shape) -> dict:
+    """Host time of the shipped wrapper against the wrapper before its
+    host work was cut, in turns (events less device ms, and the host clock
+    a call), and the host clock of its pieces: the checks, the allocations
+    (two, or one and two views), the stream lookup, the launcher's ctypes
+    call with its pointers, and an empty kernel's launch; medians of
+    K6_ROUNDS rounds."""
+    from hybridsearch_tpu_torch.ops import cuda_build
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+
+    rows = starts.numel()
+    ids_out, ws_out = ids.new_empty((rows, p)), ws.new_empty((rows, p))
+    hst = cuda_build.library().hst_slice_runs
+    fns = {"before": lambda: slice_runs_first_wrapper(ids, ws, starts, lengths, p, nd),
+           "after": lambda: ci.slice_runs(ids, ws, starts, lengths, p, nd)}
+    pieces = {
+        "checks": lambda: ci._slice_checked("slice_runs", ids, ws, starts, lengths, p, nd),
+        "alloc_two": lambda: (ids.new_empty((rows, p)), ws.new_empty((rows, p))),
+        "alloc_one": lambda: (lambda o: (o[0], o[1].view(torch.float32)))(
+            ids.new_empty((2, rows, p))),
+        "stream": lambda: torch._C._cuda_getCurrentRawStream(ids.get_device()),
+        "launcher": lambda: hst(ids.data_ptr(), ws.data_ptr(), starts.data_ptr(),
+                                lengths.data_ptr(), rows, p, nd, ids_out.data_ptr(),
+                                ws_out.data_ptr(),
+                                torch._C._cuda_getCurrentRawStream(ids.get_device())),
+        "empty_launch": lambda: lib.probe_k6_empty(
+            1, torch._C._cuda_getCurrentRawStream(ids.get_device()))}
+    before = ci.slice_runs.launches
+    dev_ms = {k: graph_ms(f) for k, f in fns.items()}
+    samples = {k: [] for k in list(fns) + [k + "_clock" for k in fns] + list(pieces)}
+    for _ in range(K6_ROUNDS):
+        for k in ("before", "after", "after", "before"):
+            samples[k].append(events_ms(fns[k], reps=10) - dev_ms[k])
+            samples[k + "_clock"].append(_host_ms(fns[k], reps=50))
+        for k, fn in pieces.items():
+            samples[k].append(_host_ms(fn, reps=50))
+    ci.slice_runs.launches = before
+    out = {"shape": list(shape), "device_ms": dev_ms}
+    out.update({k + "_host_ms_median": float(np.median(v)) for k, v in samples.items()})
+    print(f"  K6 host (B, T, p)={shape}: events less device, median of {K6_ROUNDS} "
+          f"rounds: before {out['before_host_ms_median']:.4f} ms, after "
+          f"{out['after_host_ms_median']:.4f}; host clock a call: before "
+          f"{out['before_clock_host_ms_median']:.4f}, after "
+          f"{out['after_clock_host_ms_median']:.4f}; pieces (host clock a call): " +
+          ", ".join(f"{k} {out[k + '_host_ms_median']:.4f}" for k in pieces), flush=True)
+    return out
+
+
 def build(work: str) -> tuple:
     """Compile the K1 configurations (with the first design) and K3 with
     and without its chunk barrier; returns the two loaded libraries."""
@@ -770,8 +1113,9 @@ def probe_k3(lib) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ss", "k5k7", "k7"),
-                    help="probe the scoring body alone, K5 and K7 alone, or K7 alone")
+    ap.add_argument("--only", choices=("ss", "k5k7", "k7", "k6"),
+                    help="probe the scoring body alone, K5 and K7 alone, K7 alone, or "
+                    "K6 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA card (torch.cuda.is_available() is false)",
@@ -783,6 +1127,14 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     work = os.path.join(REPO, "hybridsearch_tpu_torch", "_build", "probes")
+    if args.only == "k6":
+        lib6, regs = build_k6(work)
+        for line in regs:
+            print("  " + line, flush=True)
+        out = {"device": smi, "k6": probe_k6(lib6), "k6_registers": regs}
+        print(smi, flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
     if args.only in ("k5k7", "k7"):
         lib5, lib7, regs = build_k5k7(work)
         for line in regs:

@@ -34,13 +34,14 @@ indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), pass 3 of the dense top-k (K4 at
 tile grain, tile_scores), the run slices (K6, slice_runs) and the
 candidate rescore (K7, rescore); pass 3, K6 and K7 must launch in the
-timed batches, and are then timed at every rung the batches reached. K1-K5
-and K7 keep their first designs as yardsticks (``tile_stats_v1``,
+timed batches, and are then timed at every rung the batches reached. Every
+kernel keeps its first design as a yardstick (``tile_stats_v1``,
 ``super_scores_v1``, ``place_windows_v1``, ``super_scores_dedup_v1``,
-``place_fused_v1``, ``rescore_v1``): the kernel check, the per-rung rows
-of K2, K4, K5 and K7 and the "redesigned kernels" rows (K1 at every batch
-size of both paths, K3 at every rung) hold each bit-equal to its first
-design and time the two side by side; the rows of K2, K5, K6 and K7 mark
+``place_fused_v1``, ``slice_runs_v1``, ``rescore_v1``), which no served
+batch may launch: the kernel check, the per-rung rows of K2, K4, K5, K6
+and K7 and the "redesigned kernels" rows (K1 at every batch size of both
+paths, K3 at every rung) hold each bit-equal to its first design and time
+the two side by side; the rows of K2, K5, K6 and K7 mark
 the goal of at least half the kernel's bound met or missed and give each
 route's host time (events around back-to-back calls less device time).
 "Regime 1" serves a corpus a quarter of the size, below
@@ -362,10 +363,10 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
     """K6 and K7 against their plain versions at the impact ladder's shapes,
     bit for bit: postings whose windows name a doc at most once (as a
     term's run does), slices of random starts and lengths, candidates drawn
-    from the slices with repeats, sentinels and -1; on the card K7 also
-    bit-equal to its first design."""
+    from the slices with repeats, sentinels and -1; on the card K6 and K7
+    also bit-equal to their first designs."""
     from hybridsearch_tpu_torch.ops.cuda_impact import (
-        rescore, rescore_plain, rescore_v1, slice_runs, slice_runs_plain)
+        rescore, rescore_plain, rescore_v1, slice_runs, slice_runs_plain, slice_runs_v1)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
@@ -383,6 +384,9 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
         want = slice_runs_plain(ids, ws, starts, lengths, p, nd)
         e6 = max_err(got, want)
         same6 = all(torch.equal(g, w) for g, w in zip(got, want))
+        same6_v1 = (all(torch.equal(g, w) for g, w in zip(
+            got, slice_runs_v1(ids, ws, starts, lengths, p, nd)))
+            if dev.type == "cuda" else None)
         ids_f, ws_f = got[0].reshape(B, T * p), got[1].reshape(B, T * p)
         pick = torch.randint(0, T * p, (C,), generator=gen, device=dev)
         cand = ids_f[:, pick].clone()
@@ -394,9 +398,10 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
         same_v1 = (torch.equal(g7, rescore_v1(cand, ids_f, ws_f, p, nd))
                    if dev.type == "cuda" else None)
         print(f"    T={T} p={p} C={C}: slice_runs err {e6:.3g}, rescore err "
-              f"{e7:.3g} (tol 0, bitwise), rescore bit-equal to rescore_v1 {same_v1}",
-              flush=True)
-        if not (same6 and torch.equal(g7, w7) and same_v1 is not False):
+              f"{e7:.3g} (tol 0, bitwise), slice_runs bit-equal to slice_runs_v1 "
+              f"{same6_v1}, rescore bit-equal to rescore_v1 {same_v1}", flush=True)
+        if not (same6 and torch.equal(g7, w7) and same6_v1 is not False
+                and same_v1 is not False):
             raise AssertionError(f"an impact kernel disagrees with its plain "
                                  f"version at T={T} p={p} C={C}")
     sync(dev)
@@ -545,7 +550,17 @@ class Capture:
 
 # kernels kept beside their first designs, which they must equal bit for bit
 V1_KERNELS = ("tile_stats", "super_scores", "place_windows", "super_scores_dedup",
-              "place_fused", "rescore")
+              "place_fused", "slice_runs", "rescore")
+
+
+def first_designs() -> tuple:
+    """The wrappers of the kernels' first designs (``V1_KERNELS``)."""
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
+    from hybridsearch_tpu_torch.ops import cuda_topk
+
+    return (cuda_topk.tile_stats_v1, cs.super_scores_v1, cs.place_windows_v1,
+            cs.super_scores_dedup_v1, cs.place_fused_v1, ci.slice_runs_v1, ci.rescore_v1)
 
 
 def v1_call(name: str, args, kwargs):
@@ -569,7 +584,7 @@ def v1_call(name: str, args, kwargs):
         return run()[inv].reshape(ids.shape[0], -1), run
     v1 = {"tile_stats": cuda_topk.tile_stats_v1, "super_scores": cs.super_scores_v1,
           "place_windows": cs.place_windows_v1, "place_fused": cs.place_fused_v1,
-          "rescore": ci.rescore_v1}[name]
+          "slice_runs": ci.slice_runs_v1, "rescore": ci.rescore_v1}[name]
     return v1(*args, **kwargs), lambda: v1(*args, **kwargs)
 
 
@@ -679,14 +694,8 @@ def v1_fields(name: str, args, kwargs, dev: torch.device) -> dict:
     Off the card the first design does not run: all None."""
     if dev.type != "cuda":
         return {"bit_equal_to_v1": None, "v1_ms": None, "v1_device_ms": None}
-    from hybridsearch_tpu_torch.ops import cuda_impact as ci
-    from hybridsearch_tpu_torch.ops import cuda_supertile as cs
-    from hybridsearch_tpu_torch.ops import cuda_topk
-
     kernel, _plain = kernel_fns(name)
-    with _restoring_launches(kernel, cuda_topk.tile_stats_v1, cs.super_scores_v1,
-                             cs.place_windows_v1, cs.super_scores_dedup_v1,
-                             cs.place_fused_v1, ci.rescore_v1):
+    with _restoring_launches(kernel, *first_designs()):
         got = kernel(*args, **kwargs)
         want, run = v1_call(name, args, kwargs)
         got = got if isinstance(got, tuple) else (got,)
@@ -961,8 +970,8 @@ def tile_scores_by_rung(cap: Capture, dev: torch.device, show: bool = True) -> l
 def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list:
     """K6 and K7 at every shape the batches gave them (K6 by slice depth p,
     K7 by (C, p): one rescore of the candidate union a rung, one of the
-    margin cushion), with the calls of that shape in the timed batches; K7
-    beside its first design (bit-equal); both with their goals
+    margin cushion), with the calls of that shape in the timed batches;
+    each beside its first design (bit-equal) with its goals
     (``goal_fields``) marked."""
     rows = []
     for name in ("slice_runs", "rescore"):
@@ -972,15 +981,13 @@ def impact_by_rung(captures: dict, dev: torch.device, show: bool = True) -> list
                    name == "rescore" else int(args[2].shape[0]),
                    "launches": cap.counts.get(key, 0)}
             row.update(kernel_row(name, args, kwargs, dev, plain_reps=1))
-            if name == "rescore":
-                row.update(v1_fields(name, args, kwargs, dev))
+            row.update(v1_fields(name, args, kwargs, dev))
             row.update(goal_fields(row))
             rows.append(row)
             if not show:
                 continue
-            v1 = (f"; rescore_v1 {_fmt(row['v1_ms'])} ms (device "
-                  f"{_fmt(row['v1_device_ms'])}), bit-equal {row['bit_equal_to_v1']}"
-                  if name == "rescore" else "")
+            v1 = (f"; {name}_v1 {_fmt(row['v1_ms'])} ms (device "
+                  f"{_fmt(row['v1_device_ms'])}), bit-equal {row['bit_equal_to_v1']}")
             print(f"    {name} {'p' if name == 'slice_runs' else '(C, p)'}={key} "
                   f"B={row['B']}: {row['ms']:.4f} ms (device {row['device_ms']:.4f}"
                   f" ms){v1}; bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
@@ -1357,7 +1364,7 @@ def main(argv=None) -> int:
                          IMPACT_SHAPES["cpu" if rehearsal else "card"])
     clock.phase("kernels", "K1-K7 match their plain versions at the slice's "
                 "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit"
-                + ("" if rehearsal else "; K1-K5 and K7 equal their first designs"))
+                + ("" if rehearsal else "; K1-K7 equal their first designs"))
 
     # -- 4. end to end: the clustered path on the small-topic corpus, then
     # -- 5. its kernels on their own inputs; the same index again with the two
@@ -1583,12 +1590,16 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
             fn.launches = 0
         for cap in captures.values():
             cap.counts.clear()
+        v1_before = [fn.launches for fn in first_designs()]
         lat, results = [], []
         for qs in batches:
             t = time.perf_counter()
             results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
             lat.append(time.perf_counter() - t)
         launches = {name: fn.launches for name, fn in kernels.items()}
+        if [fn.launches for fn in first_designs()] != v1_before:
+            raise AssertionError(f"{label}: a first design (_v1) launched on the "
+                                 "served path")
     finally:
         setattr(searcher_mod, ladder_name, real_ladder)
         for cap in captures.values():

@@ -59,6 +59,7 @@ _SIGNATURES = {
                         _P),
     "hst_place_fused_v1": (_P, _P, _P, _P, _P, _L, _L, _I, _P, _I, _P, _P),
     "hst_slice_runs": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
+    "hst_slice_runs_v1": (_P, _P, _P, _P, _L, _I, _I, _P, _P, _P),
     "hst_impact_rescore": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _I, _I, _P),
     "hst_impact_rescore_v1": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P, _P),
 }

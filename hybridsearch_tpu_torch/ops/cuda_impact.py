@@ -16,13 +16,14 @@ Counterpart of ``hybridsearch_tpu/ops/pallas_impact.py``:
     entries before it adds them (``rescore_plan``), and adds the columns in
     order.
 
-``rescore_v1`` launches the rescore kernel's first design, which the
-redesign must equal bit for bit (CUDA tensors only; no served path calls
-it). Each other wrapper launches its kernel for CUDA tensors and runs its
-plain version only for CPU tensors; the plain versions compute the same
-numbers in the same order (the card's results equal them bit for bit).
-The wrappers convert or copy nothing that is already int32 and contiguous:
-their host work runs once a launch, every rung.
+``slice_runs_v1`` and ``rescore_v1`` launch the kernels' first designs,
+which the redesigns must equal bit for bit (CUDA tensors only; no served
+path calls them). Each other wrapper launches its kernel for CUDA tensors
+and runs its plain version only for CPU tensors; the plain versions
+compute the same numbers in the same order (the card's results equal them
+bit for bit). The wrappers convert or copy nothing that is already int32
+and contiguous: their host work runs once a launch, every rung. The slice
+wrappers check their arguments on every device, the CPU's included.
 """
 
 from __future__ import annotations
@@ -69,6 +70,46 @@ def slice_runs_plain(doc_ids: torch.Tensor, weights: torch.Tensor,
     return ids, ws
 
 
+def _slice_checked(name: str, doc_ids: torch.Tensor, weights: torch.Tensor,
+                   starts: torch.Tensor, lengths: torch.Tensor, p: int,
+                   n_docs: int) -> None:
+    """The slice launchers' argument checks, on tensors of any device."""
+    if doc_ids.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise ValueError(f"{name}: doc_ids must be int32 and weights float32")
+    if doc_ids.dim() != 1 or weights.shape != doc_ids.shape:
+        raise ValueError(f"{name}: postings shapes {tuple(doc_ids.shape)} "
+                         f"{tuple(weights.shape)}")
+    if starts.shape != lengths.shape:
+        raise ValueError(f"{name}: starts {tuple(starts.shape)} vs lengths "
+                         f"{tuple(lengths.shape)}")
+    if not doc_ids.device == weights.device == starts.device == lengths.device:
+        raise ValueError(f"{name}: all tensors must be on one device")
+    if p < 1 or p > doc_ids.shape[0] or not 0 <= n_docs < 2**31:
+        raise ValueError(f"{name}: p={p}, n_docs={n_docs} out of range")
+
+
+def _slice_launch(wrapper, fn, name: str, doc_ids: torch.Tensor,
+                  weights: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor,
+                  p: int, n_docs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the slice kernel ``fn`` into new outputs and count the launch
+    on ``wrapper``. (Two allocations: one [2, rows, p] allocation and two
+    views of it took longer on the host, chip_probes.py --only k6.)"""
+    rows = starts.numel()
+    ids, ws = doc_ids.new_empty((rows, p)), weights.new_empty((rows, p))
+    if rows == 0:
+        return ids, ws
+    if not (starts.dtype == lengths.dtype == torch.int32 and starts.is_contiguous()
+            and lengths.is_contiguous()):
+        starts, lengths = _int32(starts), _int32(lengths)
+    if not (doc_ids.is_contiguous() and weights.is_contiguous()):
+        doc_ids, weights = doc_ids.contiguous(), weights.contiguous()
+    rc = fn(doc_ids.data_ptr(), weights.data_ptr(), starts.data_ptr(), lengths.data_ptr(),
+            rows, p, n_docs, ids.data_ptr(), ws.data_ptr(), cuda_build.stream_of(doc_ids))
+    cuda_build.check(rc, name)
+    wrapper.launches += 1
+    return ids, ws
+
+
 def slice_runs(doc_ids: torch.Tensor, weights: torch.Tensor,
                starts: torch.Tensor, lengths: torch.Tensor, p: int,
                n_docs: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,40 +118,33 @@ def slice_runs(doc_ids: torch.Tensor, weights: torch.Tensor,
     positions >= ``lengths`` [B, T]. ``doc_ids`` int32 and ``weights``
     float32 [nnz + p_max] carry p_max sentinel entries past the last run,
     so every slice with p <= p_max is in bounds (the caller keeps p there)."""
+    _slice_checked("slice_runs", doc_ids, weights, starts, lengths, p, n_docs)
     if not doc_ids.is_cuda:
         if doc_ids.device.type == "cpu":
             return slice_runs_plain(doc_ids, weights, starts, lengths, p, n_docs)
         raise ValueError(f"slice_runs: unsupported device {doc_ids.device}")
-    if doc_ids.dtype != torch.int32 or weights.dtype != torch.float32:
-        raise ValueError("slice_runs: doc_ids must be int32 and weights float32")
-    if doc_ids.dim() != 1 or weights.shape != doc_ids.shape:
-        raise ValueError(f"slice_runs: postings shapes {tuple(doc_ids.shape)} "
-                         f"{tuple(weights.shape)}")
-    if starts.shape != lengths.shape:
-        raise ValueError(f"slice_runs: starts {tuple(starts.shape)} vs lengths "
-                         f"{tuple(lengths.shape)}")
-    dev = doc_ids.get_device()
-    if (weights.get_device() != dev or starts.get_device() != dev
-            or lengths.get_device() != dev):
-        raise ValueError("slice_runs: all tensors must be on one device")
-    if p < 1 or p > doc_ids.shape[0] or not 0 <= n_docs < 2**31:
-        raise ValueError(f"slice_runs: p={p}, n_docs={n_docs} out of range")
-    rows = starts.numel()
-    st, ln = _int32(starts), _int32(lengths)
-    ids = doc_ids.new_empty((rows, p))
-    ws = weights.new_empty((rows, p))
-    if rows == 0:
-        return ids, ws
-    rc = cuda_build.library().hst_slice_runs(
-        _contiguous(doc_ids).data_ptr(), _contiguous(weights).data_ptr(),
-        st.data_ptr(), ln.data_ptr(), rows, p, n_docs, ids.data_ptr(),
-        ws.data_ptr(), cuda_build.stream_of(doc_ids))
-    cuda_build.check(rc, "hst_slice_runs")
-    slice_runs.launches += 1
-    return ids, ws
+    return _slice_launch(slice_runs, cuda_build.library().hst_slice_runs,
+                         "hst_slice_runs", doc_ids, weights, starts, lengths, p, n_docs)
 
 
 slice_runs.launches = 0
+
+
+def slice_runs_v1(doc_ids: torch.Tensor, weights: torch.Tensor,
+                  starts: torch.Tensor, lengths: torch.Tensor, p: int,
+                  n_docs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``slice_runs`` by the kernel's first design (``hst_slice_runs_v1``),
+    the yardstick the redesign is held to bit for bit and timed against.
+    No served path calls it; CUDA tensors only."""
+    _slice_checked("slice_runs_v1", doc_ids, weights, starts, lengths, p, n_docs)
+    if not doc_ids.is_cuda:
+        raise ValueError(f"slice_runs_v1: unsupported device {doc_ids.device}")
+    return _slice_launch(slice_runs_v1, cuda_build.library().hst_slice_runs_v1,
+                         "hst_slice_runs_v1", doc_ids, weights, starts, lengths, p,
+                         n_docs)
+
+
+slice_runs_v1.launches = 0
 
 
 def rescore_plain(cand: torch.Tensor, ids_flat: torch.Tensor,

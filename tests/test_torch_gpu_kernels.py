@@ -13,9 +13,9 @@ on unit vectors (|score| <= 1) that is ~D * 6e-8, inside rtol = atol =
 1e-5. bf16 docs (with bf16-rounded queries) give exact float32 products,
 so the same bound holds; 1e-3 is kept as the stated bf16 tolerance. The
 placement kernel adds the same float32 values in slot order: 1e-6 abs.
-The impact kernels are held to 0: the slice kernel copies, and the
-rescore kernel adds the same float32 weights in the same column order as
-its plain version. Two k-means fits from one seed must be equal bit for
+The impact kernels are held to 0: the slice kernel copies (and is held
+to its first design bit for bit), and the rescore kernel adds the same
+float32 weights in the same column order as its plain version. Two k-means fits from one seed must be equal bit for
 bit. K2 and K4 run one scoring body and are held to each other and to
 their first designs bit for bit; pass 3 on the card (K4 at tile grain) is
 held to its plain version within 1e-5 and its tile maxima to K1's bit for
@@ -760,6 +760,83 @@ def test_gpu_slice_runs_and_rescore_match_plain_bitwise(T, p, C):
     want = rescore_plain(cand, ids_flat, ws_flat, p, nd)
     assert torch.equal(got, want)
     assert (got[:, -3:] == 0).all() and (got > 0).any()
+
+
+def _slice_cases(rng, dev, nnz, rows, p, nd):
+    """Postings of nnz entries whose windows name a doc at most once, a
+    tail of p sentinels (nd, 0), and (starts, lengths) [rows] int32 with
+    starts at every residue mod 4 and lengths 0, < p, = p and > p in turn;
+    then a run that ends at the tail (its slice reads into the sentinels),
+    the sentinel slot (start nnz, length 0) and a negative length."""
+    run = np.arange(nnz, dtype=np.int64) * 7919 % nd
+    ids = np.concatenate([run, np.full(p, nd)]).astype(np.int32)
+    ws = np.concatenate([rng.random(nnz) + 0.01, np.zeros(p)]).astype(np.float32)
+    starts = (rng.integers(0, nnz - p, rows) // 4) * 4 + np.arange(rows) % 4
+    kind = (np.arange(rows) // 4) % 4
+    short = rng.integers(1, p, rows)
+    lengths = np.choose(kind, [np.zeros(rows, np.int64), short, np.full(rows, p),
+                               p + 1 + short])
+    starts[-3:], lengths[-3:] = [nnz - 3, nnz, 5], [3, 0, -2]
+    t = lambda a, dt: torch.from_numpy(a.astype(dt)).to(dev)  # noqa: E731
+    return (t(ids, np.int32), t(ws, np.float32), t(starts, np.int32),
+            t(lengths, np.int32))
+
+
+# (B, T, p): the ladder's (T, p) at B = 256 (T = 32: 8,192 rows), p not a
+# multiple of 4, and B = 1 (8 rows)
+SLICE_SHAPES = sorted({(256, T, p) for T, p, _C in LADDER_SHAPES}
+                      | {(256, 8, 255), (256, 8, 1022), (256, 8, 4097), (1, 8, 256),
+                         (1, 8, 4096), (256, 32, 256)})
+
+
+@pytest.mark.parametrize("B,T,p", SLICE_SHAPES)
+def test_gpu_slice_runs_equals_v1_and_plain_bitwise(B, T, p):
+    """K6 against its first design and its plain version, bit for bit, on
+    starts at every residue mod 4, lengths 0, < p, = p, > p and negative,
+    a slice that reads into the sentinel tail and the sentinel slot."""
+    from hybridsearch_tpu_torch.ops.cuda_impact import (
+        slice_runs,
+        slice_runs_plain,
+        slice_runs_v1,
+    )
+
+    dev = _card()
+    rng = np.random.default_rng(24)
+    nd = 600_000
+    ids, ws, starts, lengths = _slice_cases(rng, dev, 2_000_000, B * T, p, nd)
+    starts, lengths = starts.reshape(B, T), lengths.reshape(B, T)
+    got = slice_runs(ids, ws, starts, lengths, p, nd)
+    v1 = slice_runs_v1(ids, ws, starts, lengths, p, nd)
+    plain = slice_runs_plain(ids, ws, starts, lengths, p, nd)
+    torch.cuda.synchronize()
+    for want in (v1, plain):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[0].shape == got[1].shape == (B * T, p)
+    assert got[0].is_contiguous() and got[1].is_contiguous()
+    assert (got[0][-2] == nd).all() and (got[1][-2] == 0).all()  # the sentinel slot
+
+
+def test_gpu_slice_runs_v1_counts_launches_and_refuses_cpu_tensors():
+    """``slice_runs_v1`` launches on CUDA tensors and counts its own
+    launches (not the served wrapper's); it raises on CPU tensors and on
+    mixed devices without counting."""
+    from hybridsearch_tpu_torch.ops import cuda_impact as ci
+
+    dev = _card()
+    ids = torch.zeros(64, dtype=torch.int32, device=dev)
+    ws = torch.zeros(64, device=dev)
+    starts = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    before = (ci.slice_runs_v1.launches, ci.slice_runs.launches)
+    out = ci.slice_runs_v1(ids, ws, starts, starts + 3, 16, 100)
+    torch.cuda.synchronize()
+    assert out[0].shape == out[1].shape == (16, 16)
+    after = (before[0] + 1, before[1])
+    assert (ci.slice_runs_v1.launches, ci.slice_runs.launches) == after
+    with pytest.raises(ValueError):
+        ci.slice_runs_v1(ids.cpu(), ws.cpu(), starts.cpu(), starts.cpu(), 16, 100)
+    with pytest.raises(ValueError):  # the weights on another device
+        ci.slice_runs_v1(ids, ws.cpu(), starts, starts, 16, 100)
+    assert (ci.slice_runs_v1.launches, ci.slice_runs.launches) == after
 
 
 # LADDER_SHAPES, then p not a multiple of 4 (4-byte copies): whole rows

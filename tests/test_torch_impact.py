@@ -177,6 +177,92 @@ def test_slice_runs_matches_pallas_interpret():
     np.testing.assert_array_equal(tw.numpy(), np.asarray(ow))
 
 
+def _slice_cases(rng, nnz, rows, p):
+    """(starts, lengths) [rows] int32 for postings of nnz entries and a
+    tail of p sentinels: starts at every residue mod 4 and lengths 0, < p,
+    = p and > p in turn; then a run that ends at the tail (its slice reads
+    into the sentinels), the sentinel slot (start nnz, length 0) and a
+    negative length."""
+    starts = (rng.integers(0, nnz - p, rows) // 4) * 4 + np.arange(rows) % 4
+    kind = (np.arange(rows) // 4) % 4
+    short = rng.integers(1, max(2, p), rows)
+    lengths = np.choose(kind, [np.zeros(rows, np.int64), short, np.full(rows, p),
+                               p + 1 + short])
+    tail = min(p - 1, 3) if p > 1 else 1
+    starts[-3:], lengths[-3:] = [nnz - tail, nnz, 5], [tail, 0, -2]
+    return starts.astype(np.int32), lengths.astype(np.int32)
+
+
+@pytest.mark.parametrize("p", [1, 4, 63, 256])
+def test_slice_runs_plain_matches_jax_on_masked_slices(p):
+    """K6's plain version (and the wrapper, which runs it on CPU tensors)
+    equals the JAX package's slice_impact_runs (align=1) on starts at every
+    residue mod 4 and lengths 0, < p, = p, > p and negative, with slices
+    that read into the sentinel tail."""
+    rng = np.random.default_rng(11)
+    nnz, nd, B, T = 3001, 900, 4, 8
+    ids = np.concatenate([rng.integers(0, nd, nnz), np.full(p, nd)]).astype(np.int32)
+    ws = np.concatenate([rng.random(nnz) + 0.01, np.zeros(p)]).astype(np.float32)
+    starts, lengths = _slice_cases(rng, nnz, B * T, p)
+    starts, lengths = starts.reshape(B, T), lengths.reshape(B, T)
+    ji, jw = jimp.slice_impact_runs(jnp.asarray(ids), jnp.asarray(ws),
+                                    jnp.asarray(starts), jnp.asarray(lengths),
+                                    p_depth=p, n_docs=nd, align=1)
+    args = (torch.from_numpy(ids), torch.from_numpy(ws), torch.from_numpy(starts),
+            torch.from_numpy(lengths), p, nd)
+    for ti, tw in (cuda_impact.slice_runs_plain(*args), cuda_impact.slice_runs(*args)):
+        np.testing.assert_array_equal(ti.numpy().reshape(B, T, p), np.asarray(ji))
+        np.testing.assert_array_equal(tw.numpy().reshape(B, T, p), np.asarray(jw))
+    assert (np.asarray(ji)[-1, -2] == nd).all()  # the sentinel slot is all pad
+
+
+def _slice_args(**bad):
+    """Valid CPU arguments of slice_runs, with the named ones replaced."""
+    args = dict(doc_ids=torch.zeros(64, dtype=torch.int32), weights=torch.zeros(64),
+                starts=torch.zeros((2, 8), dtype=torch.int32),
+                lengths=torch.zeros((2, 8), dtype=torch.int32), p=16, n_docs=100)
+    args.update(bad)
+    return args
+
+
+@pytest.mark.parametrize("bad", [
+    dict(doc_ids=torch.zeros(64, dtype=torch.int64)),  # dtype
+    dict(weights=torch.zeros(64, dtype=torch.float64)),  # dtype
+    dict(doc_ids=torch.zeros((8, 8), dtype=torch.int32),
+         weights=torch.zeros((8, 8))),  # postings not 1-d
+    dict(weights=torch.zeros(63)),  # postings of two lengths
+    dict(lengths=torch.zeros((2, 7), dtype=torch.int32)),  # starts vs lengths
+    dict(weights=torch.zeros(64, device="meta")),  # mixed devices
+    dict(starts=torch.zeros((2, 8), dtype=torch.int32, device="meta")),  # mixed
+    dict(p=0), dict(p=65),  # p out of range
+    dict(n_docs=-1), dict(n_docs=2**31),  # n_docs out of range
+], ids=["ids-int64", "ws-float64", "ids-2d", "ws-shape", "lengths-shape",
+        "ws-device", "starts-device", "p-0", "p-past-postings", "n_docs-negative",
+        "n_docs-int32-overflow"])
+def test_slice_runs_refuses_bad_input(bad):
+    """Both slice wrappers raise on each input the kernel does not take,
+    on the CPU too (the checks run before the plain version), and count
+    no launch."""
+    before = (cuda_impact.slice_runs.launches, cuda_impact.slice_runs_v1.launches)
+    for fn in (cuda_impact.slice_runs, cuda_impact.slice_runs_v1):
+        with pytest.raises(ValueError):
+            fn(**_slice_args(**bad))
+    assert (cuda_impact.slice_runs.launches, cuda_impact.slice_runs_v1.launches) == before
+    ids, ws = cuda_impact.slice_runs(**_slice_args())  # the valid call runs plain
+    assert ids.shape == ws.shape == (16, 16) and (ids == 100).all()
+
+
+def test_slice_runs_v1_refuses_cpu_tensors():
+    """``slice_runs_v1`` is a yardstick for the card: it raises on CPU (or
+    meta) tensors that pass every other check, and counts no launch."""
+    for dev in ("cpu", "meta"):
+        args = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                for k, v in _slice_args().items()}
+        with pytest.raises(ValueError, match="device"):
+            cuda_impact.slice_runs_v1(**args)
+    assert cuda_impact.slice_runs_v1.launches == 0 and cuda_impact.slice_runs.launches == 0
+
+
 def _rescore_inputs(rng, Bq, T, p, C, nd):
     """Posting rows as the path builds them (T columns of p, a doc at most
     once per column below nd, pads (nd, 0) in column tails) and candidates
