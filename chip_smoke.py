@@ -47,8 +47,24 @@ route's host time (events around back-to-back calls less device time).
 "Regime 1" serves a corpus a quarter of the size, below
 ``SPARSE_HYBRID_MIN_DOCS``, through the full [B, n] fused program; one
 batch is served twice and must be equal bit for bit. A corpus with larger topics is served on the
-clustered path last. No corpus's topic structure comes from a published
-source, so their qps describe these corpora only.
+clustered path. Each of those runs is given the hashing encoder.
+
+Last, "small-topic/source/minilm" runs the default configuration as a user
+keeps it: small-topic under ``layout="source"`` with no encoder given, so
+the Indexer's ``default_encoder`` serves the bi-encoder that
+``models/PROMOTED.json`` promotes (``models/hst-bi-v3``: 4 layers, hidden
+384, bf16 activations); the run fails on any other encoder or weights. Its
+index build splits the embed stage into tokenize and trunk, its served
+batches must launch K1, K4 (pass 3), K6 and K7 and match the exact
+reference on every certified row, and the encode span is set beside the
+batch wall time. The trunk is then timed alone at a query batch (256, 8)
+and an index batch (2048, 64) against the card's bf16 peak, its float32
+forward and ``scaled_dot_product_attention`` (a yardstick only), and the
+cross-encoder (``models/hst-ms-marco-MiniLM-L-6-v2-synth``) scores the
+served top-20 of one batch through ``predict`` and
+``CrossEncoderReranker.rerank``; the rehearsal writes tiny seeded
+checkpoints in their place. No corpus's topic structure comes from a
+published source, so their qps describe these corpora only.
 
 Every phase prints one line with its elapsed seconds before the next
 starts. The last two lines are a JSON object of per-kernel numbers and the
@@ -1143,8 +1159,13 @@ def _bound_and_library(name, args, kwargs):
 
 
 def profile_batch(searcher, queries) -> str:
-    """One more batch under torch.profiler: the summed time of the device's
-    kernels and copies against the batch's wall time (taken inside the
+    """One more batch under torch.profiler (``profile_call``)."""
+    return profile_call(lambda: searcher.search_batch(queries, top_k=TOP_K, log=False))
+
+
+def profile_call(fn) -> str:
+    """``fn()`` under torch.profiler: the summed time of the device's
+    kernels and copies against the call's wall time (taken inside the
     profiled region, so profiler start-up is not counted), and the kernels
     that took the most device time. ``trace_span`` ranges also show up on
     the device timeline; they overlap the kernels and are left out."""
@@ -1154,7 +1175,7 @@ def profile_batch(searcher, queries) -> str:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        searcher.search_batch(queries, top_k=TOP_K, log=False)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     per_name: dict = {}
@@ -1250,7 +1271,8 @@ def p1_stages(sz: dict, dev: torch.device, seed: int, clock: Clock) -> dict:
             cfg = EngineConfig()
             cfg.index.layout = "clustered"
             cfg.index.dim = sz["dim"]
-            searcher = Searcher(config=cfg, use_query_memory=False, device=dev)
+            searcher = Searcher(config=cfg, encoder=hashing_encoder(sz, dev),
+                                use_query_memory=False, device=dev)
             searcher.indexer.index_documents(docs)
         finally:
             rec.restore()
@@ -1445,6 +1467,9 @@ def main(argv=None) -> int:
     order = list(KERNEL_META)
     numbers.sort(key=lambda row: order.index(row["name"]))
 
+    detail["corpora"]["small-topic/source/minilm"] = serve_minilm(
+        sz, dev, args.seed, clock, kind, smi, rehearsal)
+
     if rehearsal:
         # plain versions on the host: no device numbers to report
         print(json.dumps({"ok": True, "rehearsal": "cpu"}), flush=True)
@@ -1496,11 +1521,23 @@ def _path_captures(layout: str) -> dict:
                                    kernel=kernel_fns("super_scores_dedup")[0])}
 
 
+def hashing_encoder(sz: dict, dev: torch.device):
+    """The hashing encoder every run but the minilm phase serves, pinned so
+    that the Indexer's default (the in-repo transformer, where a checkpoint
+    is found) does not change what those runs measure."""
+    from hybridsearch_tpu_torch.models.encoder import HashingEncoder
+
+    return HashingEncoder(dim=sz["dim"], device=dev)
+
+
 def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
-                 clock: Clock, label: str, at_scale: bool = True):
+                 clock: Clock, label: str, at_scale: bool = True, prepare=None):
     """Index one corpus under ``layout`` through ``Indexer.index_documents``
-    and, ``at_scale``, build its ladder's lexical structures. Returns
-    (searcher, make_queries, index timings)."""
+    and, ``at_scale``, build its ladder's lexical structures. The searcher
+    serves the hashing encoder unless ``prepare`` is given: then the
+    Indexer resolves its own default encoder, and ``prepare(searcher)``
+    runs before indexing and returns a function that adds stages to the
+    index timings. Returns (searcher, make_queries, index timings)."""
     from hybridsearch_tpu_torch.config import EngineConfig
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
@@ -1510,9 +1547,13 @@ def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     cfg = EngineConfig()
     cfg.index.layout = layout
     cfg.index.dim = sz["dim"]
-    searcher = Searcher(config=cfg, use_query_memory=False, device=dev)
+    searcher = Searcher(config=cfg, use_query_memory=False, device=dev,
+                        encoder=None if prepare else hashing_encoder(sz, dev))
+    finish = prepare(searcher) if prepare else None
     built = searcher.indexer.index_documents(docs)
     del docs
+    if finish:
+        finish(built["timings_s"])
     stages = ", ".join(f"{k} {v:.1f}" for k, v in built["timings_s"].items())
     clock.phase("index_documents", f"{label}: {stages}")
     t = time.perf_counter()
@@ -1743,6 +1784,266 @@ def check_batches(searcher, batches, results, exact_rows, sw: float, lw: float):
         jaccards += jac
         del fused
     return checked, best_effort_ok, jaccards
+
+
+# -- the minilm phase: the default encoder on the default layout ----------------
+
+# the bi-encoder models/PROMOTED.json promotes, and the cross-encoder
+MINILM_CKPT = os.path.join("models", "hst-bi-v3")
+CROSS_CKPT = os.path.join("models", "hst-ms-marco-MiniLM-L-6-v2-synth")
+# (B, L) of the trunk timings on the card: a query batch and an index batch
+TRUNK_SHAPES = ((256, 8), (2048, 64))
+BF16_FLOP_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+CE_DEPTH = 20  # served docs a query the cross-encoder scores
+# bf16 against the same module's float32 forward on the card (as
+# tests/test_torch_gpu_models.py): least cosine between embeddings; largest
+# and mean absolute difference between cross-encoder logits (which span
+# about -1 to 5 here). Measured on 256 served pairs on an H100: largest
+# 0.243, mean 0.010.
+EMB_COS_BOUND, LOGIT_MAX_BOUND, LOGIT_MEAN_BOUND = 0.999, 0.5, 0.05
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """Set (or, for None, remove) environment variables, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def tiny_checkpoints(root: str, dim: int) -> tuple:
+    """The rehearsal's stand-ins for the in-repo checkpoints, written as
+    native checkpoints under ``root`` from a seed: a one-layer bi-encoder
+    promoted by ``root/PROMOTED.json`` as the repo promotes hst-bi-v3, and a
+    one-layer cross-encoder. Returns their directories."""
+    from hybridsearch_tpu_torch.models import bert, minilm
+
+    dirs = []
+    for name, cls, max_pos in (("hst-bi-tiny", bert.BiEncoder, 16),
+                               ("hst-ms-marco-MiniLM-L-6-v2-tiny", bert.CrossEncoder, 32)):
+        cfg = bert.BertConfig(vocab_size=1024, hidden_dim=dim, num_layers=1, num_heads=2,
+                              mlp_dim=2 * dim, max_position=max_pos)
+        model = cls(cfg)
+        bert.init_params(model, torch.Generator().manual_seed(0))
+        dirs.append(os.path.join(root, name))
+        minilm.save_trained_checkpoint(model, cfg, dirs[-1], note="chip_smoke rehearsal")
+    with open(os.path.join(root, "PROMOTED.json"), "w") as f:
+        json.dump({"all-MiniLM-L6-v2": "hst-bi-tiny"}, f)
+    return tuple(dirs)
+
+
+def _served_from(model, ckpt: str, what: str) -> None:
+    """Fail unless ``model`` holds the in-repo trained weights of ``ckpt``."""
+    got = getattr(model, "checkpoint", None)
+    if (getattr(model, "weights_origin", None) != "in-repo-trained" or not got
+            or os.path.normpath(got) != os.path.normpath(ckpt)):
+        raise AssertionError(f"{what}: {type(model).__name__} from {got} "
+                             f"({getattr(model, 'weights_origin', None)}), not {ckpt}")
+
+
+def _float32_twin(model):
+    """The same module and weights with float32 activations."""
+    import dataclasses
+
+    twin = type(model)(dataclasses.replace(model.cfg, dtype=torch.float32))
+    twin.load_state_dict(model.state_dict())
+    return twin.to(next(model.parameters()).device).eval()
+
+
+def trunk_rows(enc, texts_by_shape: dict, dev: torch.device, smi: str) -> list:
+    """The bi-encoder's forward at each (B, L) on real tokens: CUDA-event ms,
+    model FLOP/s (8H^2 + 4HF + 4HL a token a layer) against the card's bf16
+    peak, the largest cosine gap to the module's float32 forward, and layer
+    0's attention against ``scaled_dot_product_attention`` on the same q, k,
+    v (the yardstick; the path does not call it)."""
+    from hybridsearch_tpu_torch.models.bert import trunk_flops
+
+    model, rows = enc.model, []
+    twin = _float32_twin(model)
+    att = model.bert.layer_0.attention
+    seen = {}
+    hook = att.register_forward_hook(lambda mod, inp, out: seen.update(x=inp[0]))
+    try:
+        for (B, L), texts in texts_by_shape.items():
+            ids, mask = enc.tokenizer.batch_encode(texts, L)
+            ids = np.pad(ids.astype(np.int64), ((0, 0), (0, L - ids.shape[1])))
+            mask = np.pad(mask, ((0, 0), (0, L - mask.shape[1])))
+            ids_t, mask_t = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+            with torch.inference_mode():
+                ms = time_ms(lambda: model(ids_t, mask_t), dev, reps=10)
+                got, want = model(ids_t, mask_t), twin(ids_t, mask_t)
+                cos_gap = float((1 - (got * want).sum(1)).max())
+                q, k, v = att.heads(seen["x"])
+                path = att.context(q, k, v, mask_t)
+                keep = mask_t[:, None, None, :] > 0
+                sdpa = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+                sdpa_err = float((path.float() - sdpa.float()).abs().max())
+                att_ms = time_ms(lambda: att.context(q, k, v, mask_t), dev, reps=20)
+                sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=keep), dev, reps=20)
+            if not torch.isfinite(got).all() or cos_gap > 1 - EMB_COS_BOUND:
+                raise AssertionError(f"trunk at B={B} L={L}: bf16 against float32 cosine "
+                                     f"gap {cos_gap}")
+            flops = trunk_flops(model.cfg, B * L, L)
+            row = {"B": B, "L": L, "ms": ms, "flops": flops,
+                   "tflop_per_s": flops / ms / 1e9,
+                   "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOP_PER_S,
+                   "bound_ms": flops / BF16_FLOP_PER_S * 1e3,
+                   "cos_gap_vs_float32": cos_gap, "attention_ms": att_ms,
+                   "sdpa_ms": sdpa_ms, "sdpa_max_abs_diff": sdpa_err}
+            rows.append(row)
+            print(f"    trunk B={B} L={L}: {ms:.4f} ms, {row['tflop_per_s']:.2f} TFLOP/s "
+                  f"({100 * row['bf16_peak_share']:.2f}% of {BF16_FLOP_PER_S / 1e12:.0f} "
+                  f"TFLOP/s bf16), bf16 vs float32 cosine gap {cos_gap:.3g}; layer-0 "
+                  f"attention {att_ms:.4f} ms, scaled_dot_product_attention {sdpa_ms:.4f} "
+                  f"ms, max diff {sdpa_err:.3g} ({smi})", flush=True)
+    finally:
+        hook.remove()
+    return rows
+
+
+def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
+                 smi: str, rehearsal: bool) -> dict:
+    """The default configuration end to end: small-topic under
+    ``layout="source"`` with no encoder given, so the Indexer's
+    ``default_encoder`` serves the promoted in-repo bi-encoder (the run
+    fails on any other encoder or weights). The index build splits its
+    embed stage into tokenize and trunk; the served batches take the impact
+    ladder (K1, K4 at tile grain, K6, K7, each of which must launch) and
+    every certified row is held against the exact reference; the encode
+    span is set beside the batch wall time. Then the trunk alone at a query
+    and an index batch shape, and the cross-encoder on the served top-20 of
+    one batch (``predict``, and ``CrossEncoderReranker.rerank`` on one
+    query)."""
+    import tempfile
+
+    from hybridsearch_tpu_torch.models.minilm import MiniLMCrossEncoder, MiniLMEncoder
+    from hybridsearch_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from hybridsearch_tpu_torch.utils.tracing import GLOBAL_TIMER
+
+    label = "small-topic/source/minilm"
+    with tempfile.TemporaryDirectory() as tmp, _environ(
+            HST_ENCODER="auto", HST_CKPT_DISCOVERY="1",
+            HST_MODEL_DIR=tmp if rehearsal else None):
+        bi_ckpt, ce_ckpt = (tiny_checkpoints(tmp, sz["dim"]) if rehearsal
+                            else (MINILM_CKPT, CROSS_CKPT))
+        spent = [0.0]
+
+        def prepare(searcher):
+            enc = searcher.indexer.encoder  # the Indexer's default_encoder
+            if not isinstance(enc, MiniLMEncoder):
+                raise AssertionError(f"{label}: the default encoder is "
+                                     f"{type(enc).__name__}, not MiniLMEncoder")
+            _served_from(enc, bi_ckpt, label)
+            tokenize = enc.tokenizer.batch_encode
+
+            def timed(*a, **k):
+                t = time.perf_counter()
+                out = tokenize(*a, **k)
+                spent[0] += time.perf_counter() - t
+                return out
+
+            enc.tokenizer.batch_encode = timed
+
+            def finish(timings):
+                del enc.tokenizer.batch_encode
+                timings["tokenize_s"] = spent[0]
+                timings["trunk_s"] = timings["embed_s"] - spent[0]
+
+            return finish
+
+        searcher, make_queries, timings = index_corpus(
+            "small-topic", "source", sz, dev, seed, clock, label, prepare=prepare)
+        enc = searcher.indexer.encoder
+        warm = make_queries(sz["batch"])
+        batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+        before = len(GLOBAL_TIMER._samples.get("encode", ()))
+        run = serve_batches(searcher, label, "source", warm, batches, sz, dev, clock,
+                            kind, smi, main_path=False)
+        encode_ms = [x * 1e3 for x in list(GLOBAL_TIMER._samples["encode"])[before:]]
+        # the warm-up batch's span comes first
+        encode_ms = encode_ms[-len(batches):]
+        stats = run["stats"]
+        stats.update(index_timings_s=timings, encoder=enc.checkpoint,
+                     weights_origin=enc.weights_origin, encode_span_ms=encode_ms)
+        wall = np.mean(stats["batch_ms"])
+        clock.phase(label, (
+            f"{enc.checkpoint} ({enc.weights_origin}, {enc.cfg.num_layers} layers, hidden "
+            f"{enc.cfg.hidden_dim}, bf16); index_documents tokenize "
+            f"{timings['tokenize_s']:.1f} s + trunk {timings['trunk_s']:.1f} s of embed "
+            f"{timings['embed_s']:.1f} s; encode span {np.mean(encode_ms):.2f} ms a batch "
+            f"(host) of {wall:.2f} ms wall; launches {json.dumps(run['launches'])} "
+            f"({kind}; {smi})"))
+
+        queries = batches[0]
+        if dev.type == "cuda":
+            stats["profile"] = profile_batch(searcher, queries)
+            clock.phase("profile", f"{label}: " + stats["profile"])
+            stats["encode_profile"] = profile_call(lambda: enc.encode(queries))
+            clock.phase("encode profile", f"{label}: {len(queries)} queries: "
+                        + stats["encode_profile"])
+            docs = searcher.indexer.contents
+            texts = {(B, L): (queries if L <= 8 else docs)[:B] for B, L in TRUNK_SHAPES}
+            stats["trunk"] = trunk_rows(enc, texts, dev, smi)
+            clock.phase("trunk timing", f"{label}: (B, L) = {list(TRUNK_SHAPES)}")
+
+        top = searcher.search_batch(queries, top_k=CE_DEPTH, log=False)
+        pairs = [(q, content) for q, row in zip(queries, top) for _s, content, _i in row]
+        ce = MiniLMCrossEncoder(device=dev)
+        _served_from(ce, ce_ckpt, "cross-encoder")
+        ce_stats: dict = {}
+        t = time.perf_counter()
+        scores = ce.predict(pairs, stats=ce_stats)
+        sync(dev)
+        cold_ms = (time.perf_counter() - t) * 1e3
+        warm_ms = time_ms(lambda: ce.predict(pairs), dev, reps=3)
+        if scores.shape != (len(pairs),) or not torch.isfinite(scores).all():
+            raise AssertionError("cross-encoder scores are not finite")
+        sub = pairs[:256]
+        ids, types, mask = ce.tokenizer.batch_encode_pairs(sub, ce.max_seq_len)
+        with torch.inference_mode():
+            f32 = _float32_twin(ce.model)(*(torch.from_numpy(a.astype(np.int64)).to(dev)
+                                            for a in (ids, mask, types)))
+        diff = (ce.predict(sub) - f32).abs()
+        ce_err, ce_mean = float(diff.max()), float(diff.mean())
+        if ce_err > LOGIT_MAX_BOUND or ce_mean > LOGIT_MEAN_BOUND:
+            raise AssertionError(f"cross-encoder bf16 against float32: largest {ce_err}, "
+                                 f"mean {ce_mean}")
+        reranker = CrossEncoderReranker(model=ce)
+        t = time.perf_counter()
+        reranked = reranker.rerank(queries[0], top[0])
+        rerank_ms = (time.perf_counter() - t) * 1e3
+        got = [s for s, _c, _i in reranked]
+        if sorted(i for *_x, i in reranked) != sorted(i for *_x, i in top[0]) or \
+                got != sorted(got, reverse=True):
+            raise AssertionError("rerank is not the served rows sorted by score")
+        stats["cross_encoder"] = {
+            "pairs": len(pairs), "cold_ms": cold_ms, "ms": warm_ms,
+            "pairs_per_s": len(pairs) / (warm_ms / 1e3), "stats": ce_stats,
+            "bf16_vs_float32_max_abs": ce_err, "bf16_vs_float32_mean_abs": ce_mean,
+            "float32_logit_range": [float(f32.min()), float(f32.max())],
+            "rerank_ms": rerank_ms,
+            "rerank_docs": len(top[0]), "checkpoint": ce.checkpoint}
+        clock.phase("cross-encoder", (
+            f"{ce.checkpoint}: predict on {len(pairs)} (query, top-{CE_DEPTH} doc) pairs "
+            f"{warm_ms:.2f} ms ({len(pairs) / (warm_ms / 1e3):.0f} pairs/s; first call "
+            f"with tokenization {cold_ms:.2f} ms), {ce_stats['tokens_padded']} tokens "
+            f"padded in {ce_stats['dispatches']} dispatches, bf16 vs float32 on "
+            f"{len(sub)} pairs: largest diff {ce_err:.3g}, mean {ce_mean:.3g} (logits "
+            f"{float(f32.min()):.2f} to {float(f32.max()):.2f}); CrossEncoderReranker.rerank of {len(top[0])} docs "
+            f"{rerank_ms:.2f} ms ({kind}; {smi})"))
+    return stats
 
 
 if __name__ == "__main__":

@@ -30,7 +30,7 @@ class MeshConfig:
 class ModelConfig:
     """Encoder configuration. `kind` selects the implementation:
     - "hashing": deterministic offline hashing encoder (no pretrained weights)
-    - "minilm": MiniLM-class transformer (JAX package only, for now)
+    - "minilm": MiniLM-class transformer (models/minilm.py)
     Reference defaults: all-MiniLM-L6-v2, 384-dim (core.py:118).
     """
 

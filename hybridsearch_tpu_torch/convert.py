@@ -10,10 +10,11 @@ postings, the impact tier, and the clustered permutation of the corpus.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.builder import Indexer
@@ -145,3 +146,43 @@ def indexer(contents: Sequence[str], encoder: HashingEncoder, dense: DenseIndex,
     idx.doc_ids = idx.store.replace_documents(docs)
     idx.contents = docs
     return idx
+
+
+# Flax leaf name -> torch parameter name
+_FLAX_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+              "bias": "bias"}
+
+
+def bert_state(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """State dict of a ``models/bert.py`` module from flat Flax arrays keyed
+    ``"params/<module path>/<leaf>"``: Flax ``[in, out]`` kernels transposed
+    into ``nn.Linear``'s ``[out, in]``, LayerNorm scales and embedding
+    tables as the modules' weights."""
+    out = {}
+    for key, arr in flat.items():
+        path = key.split("/")
+        if path[0] == "params":
+            path = path[1:]
+        *mods, leaf = path
+        a = np.array(arr, dtype=np.float32)
+        if leaf == "kernel":
+            a = np.ascontiguousarray(a.T)
+        out[".".join(mods + [_FLAX_LEAF[leaf]])] = torch.from_numpy(a)
+    return out
+
+
+def bert_flat(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``bert_state``: flat float32 numpy arrays in the
+    ``hst_params.npz`` layout."""
+    out = {}
+    for name, sub in module.named_modules():
+        base = "params/" + name.replace(".", "/")
+        if isinstance(sub, nn.Linear):
+            out[base + "/kernel"] = sub.weight.detach().float().cpu().numpy().T.copy()
+            out[base + "/bias"] = sub.bias.detach().float().cpu().numpy()
+        elif isinstance(sub, nn.Embedding):
+            out[base + "/embedding"] = sub.weight.detach().float().cpu().numpy()
+        elif isinstance(sub, nn.LayerNorm):
+            out[base + "/scale"] = sub.weight.detach().float().cpu().numpy()
+            out[base + "/bias"] = sub.bias.detach().float().cpu().numpy()
+    return out

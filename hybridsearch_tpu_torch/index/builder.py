@@ -8,6 +8,10 @@ the permutation, so the store, the dense index and BM25 see one ordering.
 BM25 is fitted through the token-hash path (HashVocabulary), the state the
 JAX package's native bulk path builds.
 
+Given no encoder, the Indexer serves ``models/encoder.py``
+``default_encoder`` at the index's width, as the JAX package does: the
+promoted transformer checkpoint where one is found, else hashing.
+
 Incremental adds, persistence, export/import and the IVF index of the JAX
 module are still to port.
 """
@@ -68,10 +72,10 @@ class Indexer:
     @property
     def encoder(self):
         if self._encoder is None:
-            from hybridsearch_tpu_torch.models.encoder import HashingEncoder
+            from hybridsearch_tpu_torch.models.encoder import default_encoder
 
-            self._encoder = HashingEncoder(dim=self.config.index.dim,
-                                           device=self.device)
+            self._encoder = default_encoder(dim=self.config.index.dim,
+                                            device=self.device)
         return self._encoder
 
     def embed(self, texts: Sequence[str], batch_size: int = 2048) -> torch.Tensor:

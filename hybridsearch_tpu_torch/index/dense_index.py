@@ -102,8 +102,10 @@ class DenseIndex:
             self.deleted_count = int((snap.bias[:n] == NEG_INF_F32).sum())
 
     def delete(self, row_ids) -> None:
-        """Tombstone rows (score bias -> -inf)."""
-        ids = torch.as_tensor(np.asarray(row_ids, dtype=np.int64), device=self.device)
+        """Tombstone rows (score bias -> -inf). A row named twice, or already
+        tombstoned, is counted once."""
+        ids = torch.as_tensor(np.unique(np.asarray(row_ids, dtype=np.int64)),
+                              device=self.device)
         with self._lock:
             snap = self._snap
             bias = snap.bias.clone()

@@ -1,18 +1,28 @@
 """Text encoders producing the document/query embedding space.
 
-Counterpart of ``hybridsearch_tpu/models/encoder.py``, limited to the
-deterministic offline ``HashingEncoder``: tokens and token bigrams hash into
-a fixed bucket table of random vectors, and a text's embedding is the
-weighted mean of its features' vectors (bigrams down-weighted). Features
-are hash-identical to the JAX package's (same tokenizer, same FNV-1a); the
-table comes from a ``torch.Generator`` on the device, which cannot repeat
-``jax.random``'s bits, so a test that compares the two carries the JAX
-table across (``convert.hashing_encoder``).
+Counterpart of ``hybridsearch_tpu/models/encoder.py``. An ``Encoder`` maps
+texts to a float32 tensor [len(texts), dim] on its device:
+
+- ``HashingEncoder``: tokens and token bigrams hash into a fixed bucket
+  table of random vectors, and a text's embedding is the weighted mean of
+  its features' vectors (bigrams down-weighted). Features are
+  hash-identical to the JAX package's (same tokenizer, same FNV-1a); the
+  table comes from a ``torch.Generator`` on the device, which cannot repeat
+  ``jax.random``'s bits, so a test that compares the two carries the JAX
+  table across (``convert.hashing_encoder``).
+- ``ByteTrigramEncoder``: the same gather-mean over hashed UTF-8 byte
+  trigrams, for any script.
+- ``MiniLMEncoder`` (``models/minilm.py``): the transformer bi-encoder.
+
+``default_encoder`` picks MiniLM when a checkpoint of the requested width is
+found, else hashing.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import os
+import warnings
+from typing import Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +32,15 @@ from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # the JAX package exposes the token hash under this name here
 stable_hash = stable_token_hash
+
+
+class Encoder(Protocol):
+    dim: int
+    name: str
+
+    def encode(self, texts: Sequence[str]) -> torch.Tensor:
+        """[len(texts), dim] float32 embeddings on the encoder's device."""
+        ...
 
 
 class HashingEncoder:
@@ -103,3 +122,71 @@ class HashingEncoder:
         summed = (vecs * w_t[..., None]).sum(dim=1)
         denom = w_t.sum(dim=1, keepdim=True).clamp_min(1e-9)
         return summed / denom
+
+
+class ByteTrigramEncoder(HashingEncoder):
+    """Language-agnostic byte-trigram hashing encoder: a text's features are
+    the FNV-1a hashes of its UTF-8 byte trigrams (lowercased, whitespace
+    runs folded to one space, one space added at each end), each of weight
+    1 (a repeated trigram counts again), cut at ``max_tokens``. Same table
+    and gather-mean as ``HashingEncoder``."""
+
+    def __init__(self, dim: int = 384, n_buckets: int = 1 << 15,
+                 seed: int = 7, max_tokens: int = 512,
+                 name: str = "byte-trigram-encoder", device: DeviceLike = None) -> None:
+        super().__init__(dim=dim, n_buckets=n_buckets, seed=seed,
+                         bigram_weight=0.0, max_tokens=max_tokens,
+                         name=name, device=device)
+
+    def _feature_arrays(self, text: str) -> Tuple[np.ndarray, np.ndarray]:
+        raw = (" " + " ".join(text.lower().split()) + " ").encode("utf-8")
+        if len(raw) < 3:
+            return np.zeros(1, np.int64), np.zeros(1, np.float32)
+        arr = np.frombuffer(raw, dtype=np.uint8).astype(np.uint64)
+        h = np.full(len(arr) - 2, 0xCBF29CE484222325, dtype=np.uint64)
+        with np.errstate(over="ignore"):
+            for k in range(3):
+                h = (h ^ arr[k:len(arr) - 2 + k]) * np.uint64(0x100000001B3)
+        ids = (h % np.uint64(self.n_buckets)).astype(np.int64)[: self.max_tokens]
+        return ids, np.ones(len(ids), np.float32)
+
+    def features(self, texts: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+        feats = [self._feature_arrays(t) for t in texts]
+        longest = max(len(f) for f, _w in feats)
+        L = max(8, 1 << (longest - 1).bit_length())
+        ids = np.zeros((len(texts), L), dtype=np.int64)
+        ws = np.zeros((len(texts), L), dtype=np.float32)
+        for i, (f, w) in enumerate(feats):
+            ids[i, :len(f)] = f
+            ws[i, :len(w)] = w
+        return ids, ws
+
+
+def default_encoder(dim: int = 384, kind: str = "auto", device: DeviceLike = None,
+                    **kwargs) -> Encoder:
+    """MiniLM with a checkpoint's weights if one is found, else the hashing
+    encoder, on ``device``.
+
+    ``HST_ENCODER`` (hashing|minilm|auto) overrides an "auto" kind. In auto
+    mode a discovered checkpoint is served only when its width is ``dim``
+    (the embedding space is a contract with the index built on it); one of
+    another width is skipped with a warning. A discovered checkpoint that
+    fails to load raises: there is no silent fallback."""
+    if kind == "auto":
+        kind = os.environ.get("HST_ENCODER", "auto")
+    if kind in ("auto", "minilm"):
+        from hybridsearch_tpu_torch.models.minilm import (
+            MiniLMEncoder,
+            checkpoint_dim,
+            find_checkpoint,
+        )
+
+        ckpt = find_checkpoint("MiniLM")
+        width = checkpoint_dim(ckpt) if ckpt else None
+        if kind == "auto" and width not in (None, dim):
+            warnings.warn(f"checkpoint {ckpt} is {width} wide and {dim} was asked "
+                          "for: serving the hashing encoder", stacklevel=2)
+            ckpt = None
+        if kind == "minilm" or ckpt:
+            return MiniLMEncoder(dim=dim, checkpoint=ckpt, device=device, **kwargs)
+    return HashingEncoder(dim=dim, device=device, **kwargs)

@@ -56,6 +56,15 @@ def test_cpu_rehearsal_runs_every_phase():
     assert any(ln.startswith("    tile_stats small-topic B=") for ln in lines)
     assert any(ln.startswith("    tile_stats small-topic/source B=") for ln in lines)
     assert any(ln.startswith("    place_windows B*S=") for ln in lines)
+    minilm = "small-topic/source/minilm"
+    assert any(f"] index_documents: {minilm}" in ln and "tokenize_s" in ln
+               and "trunk_s" in ln for ln in lines)
+    for phase in ("search_batch", "reference"):
+        assert any(f"] {phase}: {minilm}" in ln for ln in lines), phase
+    assert any(f"] {minilm}: " in ln and "hst-bi-tiny (in-repo-trained" in ln
+               and "encode span" in ln for ln in lines)
+    assert any("] cross-encoder: " in ln and "CrossEncoderReranker.rerank" in ln
+               for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

@@ -10,6 +10,10 @@ Run on a machine with an NVIDIA Hopper card:
 
 Tolerances: fused scores 1e-4 (float32 sums in another order); ids equal
 except inside near-ties within the certificate margin eps_num = 1e-4.
+
+Each searcher is given the hashing encoder: the Indexer's default would
+serve the in-repo transformer checkpoint where one is found, and these
+tests hold the kernels' routes, not the encoder.
 """
 
 import numpy as np
@@ -19,6 +23,12 @@ import torch
 pytestmark = pytest.mark.gpu
 
 EPS = 1e-4
+
+
+def _hashing():
+    from hybridsearch_tpu_torch.models.encoder import HashingEncoder
+
+    return HashingEncoder(dim=384, device="cuda")
 
 
 def _corpus(rng, n_docs):
@@ -72,7 +82,8 @@ def _route_matches_cpu(monkeypatch, layout, kernels):
     texts, queries = _corpus(rng, 24576)  # 192 tiles: K1's route
     cfg = EngineConfig()
     cfg.index.layout = layout
-    gpu = sm.Searcher(config=cfg, use_query_memory=False, device="cuda")
+    gpu = sm.Searcher(config=cfg, encoder=_hashing(), use_query_memory=False,
+                      device="cuda")
     gpu.indexer.index_documents(texts)
     cpu = _cpu_copy(gpu, layout)
     monkeypatch.setattr(sm, "SPARSE_HYBRID_MIN_DOCS", 0)
@@ -113,7 +124,8 @@ def test_gpu_supertile_levers_equal_the_default_route(monkeypatch):
     texts, queries = _corpus(rng, 24576)
     cfg = EngineConfig()
     cfg.index.layout = "clustered"
-    gpu = sm.Searcher(config=cfg, use_query_memory=False, device="cuda")
+    gpu = sm.Searcher(config=cfg, encoder=_hashing(), use_query_memory=False,
+                      device="cuda")
     gpu.indexer.index_documents(texts)
     monkeypatch.setattr(sm, "SPARSE_HYBRID_MIN_DOCS", 0)
     kernels = (cs.super_scores, cs.place_windows, cs.super_scores_dedup, cs.place_fused)

@@ -262,3 +262,21 @@ def test_index_documents_matches_jax_build(monkeypatch):
                               tidx.encoder, tidx.dense, tidx.bm25, config=cfg,
                               perm=perm)
     assert carried.contents == jidx.contents
+
+
+def test_dense_delete_counts_each_row_once():
+    """A row named twice in one delete, or deleted again later, is
+    tombstoned and counted once: the true count, held here rather than
+    against the JAX package, whose delete counts a repeated id twice."""
+    from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+
+    rng = np.random.default_rng(0)
+    idx = DenseIndex(dim=8, device=CPU).build(rng.standard_normal((10, 8)))
+    idx.delete([3, 3])
+    assert (idx.deleted_count, len(idx)) == (1, 9)
+    idx.delete([3])
+    assert (idx.deleted_count, len(idx)) == (1, 9)
+    idx.delete(np.array([5, 3, 7, 5]))
+    assert (idx.deleted_count, len(idx)) == (3, 7)
+    dead = torch.isinf(idx._snap.bias[:10]).nonzero().flatten().tolist()
+    assert dead == [3, 5, 7]
