@@ -1449,6 +1449,7 @@ def main(argv=None) -> int:
         detail["pass3_by_rung"] = pass3
         clock.phase("impact kernel timing", "small-topic/source main-path inputs, "
                     f"pass 3 at kd = {[r['tiles_per_query'] for r in pass3]}")
+    oneshot = oneshot_record(run)
     del run, caps
 
     detail["tile_stats_by_batch"] = k1_rows
@@ -1458,6 +1459,10 @@ def main(argv=None) -> int:
         f"B*S = {[r['BS'] for r in k3_rows]} on main-path inputs" +
         ("; times not reported (cpu rehearsal)" if rehearsal else
          ", each bit-equal to its first design")))
+
+    detail["corpora"]["small-topic/source/lifecycle"] = serve_lifecycle(
+        sz, dev, args.seed, clock, kind, smi, oneshot)
+    del oneshot
 
     detail["regime_1"] = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
 
@@ -1784,6 +1789,339 @@ def check_batches(searcher, batches, results, exact_rows, sw: float, lw: float):
         jaccards += jac
         del fused
     return checked, best_effort_ok, jaccards
+
+
+# -- the lifecycle run: a grown, tombstoned, saved and reloaded index ----------
+
+LIFECYCLE_DIR = "chiprun_out/lifecycle"  # removed at the end of the run
+LIFECYCLE_DELETE_SHARE = 0.01  # of the docs, tombstoned before the save
+
+
+def bm25_triples(bm25) -> tuple:
+    """The (term hash, doc, weight) triples of the compacted postings,
+    sorted: free of the vocabulary's order."""
+    st = bm25._compacted_state()
+    po = st.postings
+    h = np.repeat(np.asarray(st.vocab.id_to_hash, np.uint64), po.lengths_host)
+    d = po.doc_ids[:len(h)].cpu().numpy()
+    w = po.weights[:len(h)].cpu().numpy()
+    order = np.lexsort((d, h))
+    return h[order], d[order], w[order]
+
+
+def triples_digest(triples) -> str:
+    import hashlib
+
+    dig = hashlib.sha256()
+    for a in triples:
+        dig.update(np.ascontiguousarray(a).tobytes())
+    return dig.hexdigest()
+
+
+def oneshot_record(run: dict) -> dict:
+    """What the lifecycle run is held to, taken from small-topic/source's
+    one-shot index while it is alive: the digest of its BM25 triples, its
+    dense rows (on the host), its batches and their served rows."""
+    idx = run["searcher"].indexer
+    snap = idx.dense._snap
+    return {"bm25_digest": triples_digest(bm25_triples(idx.bm25)),
+            "dense_rows": snap.docs[:snap.n].cpu(), "warm": run["warm"],
+            "batches": run["batches"], "results": run["results"],
+            "exact": np.split(run["exact"], len(run["batches"])),
+            "stats": run["stats"]}
+
+
+def rows_differ(got, want):
+    """Why a served row differs from another, or None: values within
+    EPS_NUM, and ids equal except at a slot whose value another slot of the
+    wanted row matches within EPS_NUM (a near-tie)."""
+    gv = np.array([v for v, _c, _i in got])
+    wv = np.array([v for v, _c, _i in want])
+    if len(gv) != len(wv):
+        return f"{len(gv)} vs {len(wv)} results"
+    if len(gv) and np.abs(gv - wv).max() > EPS_NUM:
+        return f"values {gv} vs {wv}"
+    for j, (g, w) in enumerate(zip(got, want)):
+        if g[2] != w[2] and (np.abs(wv - wv[j]) <= EPS_NUM).sum() < 2:
+            return f"slot {j}: doc {g[2]} vs {w[2]}"
+    return None
+
+
+@contextlib.contextmanager
+def timed_methods(obj, names: dict, sink: dict, dev: torch.device):
+    """Add the seconds of every call of each method ``name`` of ``obj`` to
+    ``sink[names[name]]`` (the card synchronized after each call)."""
+    for name, key in names.items():
+        real = getattr(obj, name)
+
+        def wrapped(*a, _real=real, _key=key, **k):
+            t = time.perf_counter()
+            out = _real(*a, **k)
+            sync(dev)
+            sink[_key] = sink.get(_key, 0.0) + time.perf_counter() - t
+            return out
+
+        setattr(obj, name, wrapped)
+    try:
+        yield sink
+    finally:
+        for name in names:
+            delattr(obj, name)
+
+
+def scatter_reference(searcher, queries, k: int, sw: float, lw: float):
+    """The scatter mode with no kernel: full [B, n] cosine, the top 2k of
+    each row (dead rows out) scattered into zeros as raw scores, BM25 summed
+    from the CSR term by term, alive-masked min-max fusion, top-k. Returns
+    (values, ids, fused)."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+    from hybridsearch_tpu_torch.text.extractor import extract_tokens
+
+    idx = searcher.indexer
+    snap = idx.dense._snap
+    n = snap.n
+    bias = snap.bias[:n]
+    q = l2_normalize(idx.encoder.encode(list(queries)).float())
+    full = q @ snap.docs[:n].T
+    _v, top = torch.topk(full + bias[None, :], min(2 * k, n), dim=1)
+    sem = torch.zeros_like(full).scatter_(1, top, torch.gather(full, 1, top))
+    del full
+    st = idx.bm25._state
+    po = st.postings
+    lex = torch.zeros_like(sem)
+    indptr = po.indptr.cpu().numpy()
+    for b, text in enumerate(queries):
+        for t in st.vocab.encode(extract_tokens(text)):
+            lo, hi = int(indptr[t]), int(indptr[t + 1])
+            lex[b].index_add_(0, po.doc_ids[lo:hi].long(), po.weights[lo:hi])
+    alive = (bias >= 0)[None, :]
+
+    def norm(x):
+        mn = torch.where(alive, x, float("inf")).amin(1, keepdim=True)
+        mx = torch.where(alive, x, float("-inf")).amax(1, keepdim=True)
+        r = mx - mn
+        return torch.where(r > 1e-12, (x - mn) / r.clamp_min(1e-12), torch.ones_like(x))
+
+    fused = sw * norm(sem) + lw * norm(lex) + bias[None, :]
+    vals, ids = torch.topk(fused, k, dim=1)
+    return vals, ids, fused
+
+
+def serve_lifecycle(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
+                    smi: str, oneshot: dict) -> dict:
+    """small-topic/source/lifecycle: small-topic's corpus at the source run's
+    seed, built by parts (``index_documents`` on half, ``add_documents`` on
+    all but the last 1/256, past BM25's drift bound, so it merges, then on
+    the rest, under it, so it stays a pending delta), served through the
+    impact ladder (``search_batch`` compacts on entry), held equal to the
+    one-shot build (``oneshot_record``), tombstoned, saved and reloaded
+    (``Indexer.save`` / ``Indexer.load``, a file store), served again bit
+    for bit, then served in scatter mode, every row held to its plain
+    reference."""
+    import gc
+    import shutil
+
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    label = "small-topic/source/lifecycle"
+    n = sz["n_docs"]
+    tail = n // 256
+    docs, _queries = make_corpus(sz, "small-topic", seed)
+    shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    os.makedirs(LIFECYCLE_DIR)
+    stats: dict = {"parts": [n // 2, n - tail - n // 2, tail]}
+    try:
+        cfg = EngineConfig()
+        cfg.index.dim = sz["dim"]
+        searcher = Searcher(config=cfg, use_query_memory=False, device=dev,
+                            encoder=hashing_encoder(sz, dev),
+                            db_path=os.path.join(LIFECYCLE_DIR, "docs.db"))
+        idx = searcher.indexer
+        bm25 = idx.bm25
+        t = time.perf_counter()
+        built = idx.index_documents(docs[:n // 2])
+        stats["index_documents_s"] = time.perf_counter() - t
+        stages = {}
+        for part, name in ((docs[n // 2:n - tail], "merge"), (docs[n - tail:], "delta")):
+            sink: dict = {}
+            t = time.perf_counter()
+            with timed_methods(idx, {"embed": "embed_s"}, sink, dev), \
+                    timed_methods(idx.dense, {"add": "dense_add_s"}, sink, dev), \
+                    timed_methods(bm25, {"add_hashes": "bm25_s"}, sink, dev):
+                ids = idx.add_documents(part)
+            sync(dev)
+            sink["total_s"] = time.perf_counter() - t
+            stages[name] = sink
+            pending = bm25._state.delta_seg is not None
+            if ids[0] != idx.dense.n_docs - len(part) or pending != (name == "delta"):
+                raise AssertionError(f"{label}: the {name} add left delta pending "
+                                     f"{pending}")
+        del docs
+        stats["add_s"] = stages
+        bound = max(bm25.DELTA_MIN_DOCS, int(bm25._state.postings.n_docs
+                                             * bm25.DELTA_MAX_FRAC))
+        clock.phase("lifecycle build", (
+            f"{label}: index_documents {n // 2} docs {stats['index_documents_s']:.1f} s "
+            f"({', '.join(f'{k} {v:.1f}' for k, v in built['timings_s'].items())}); "
+            + "; ".join(f"add_documents {len(p)} docs ({name}): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in st.items())
+                for (p, name), st in zip(((range(n - tail - n // 2), "merge"),
+                                          (range(tail), "delta")), stages.values()))
+            + f"; the last {tail} docs wait in the delta (bound {bound} docs at "
+            f"{bm25._state.postings.n_docs}) ({kind}; {smi})"))
+
+        # serve: the first batch compacts the delta and builds the impact tier
+        sink = {}
+        with timed_methods(bm25, {"compact": "compact_s",
+                                  "impact_postings": "impact_tier_s"}, sink, dev):
+            t = time.perf_counter()
+            searcher.search_batch(oneshot["warm"], top_k=TOP_K, log=False)
+            sink["first_batch_s"] = time.perf_counter() - t
+        run = serve_batches(searcher, label, "source", oneshot["warm"],
+                            oneshot["batches"], sz, dev, clock, kind, smi,
+                            main_path=False)
+        stats.update(run["stats"], **sink)
+        src = oneshot["stats"]
+        clock.phase("lifecycle serve", (
+            f"{label}: compaction {stats['compact_s']:.2f} s and the impact tier "
+            f"{stats['impact_tier_s']:.2f} s in the first batch "
+            f"({stats['first_batch_s']:.2f} s); certified "
+            f"{run['stats']['n_certified']}/{run['stats']['n_queries']} (one-shot "
+            f"{src['n_certified']}), qps {run['stats']['qps']:.1f} ({src['qps']:.1f}), "
+            f"p50 {run['stats']['p50_ms']:.2f} ms ({src['p50_ms']:.2f}), p99 "
+            f"{run['stats']['p99_ms']:.2f} ms ({src['p99_ms']:.2f}) ({kind}; {smi})"))
+
+        # equal to the one-shot build
+        digest = triples_digest(bm25_triples(bm25))
+        if digest != oneshot["bm25_digest"]:
+            raise AssertionError(f"{label}: BM25 triples differ from the one-shot build")
+        snap = idx.dense._snap
+        rows = snap.docs[:snap.n].cpu()
+        ref_rows = oneshot["dense_rows"]
+        differ = (rows != ref_rows).any(dim=1)
+        dense_diff = float((rows - ref_rows).abs().max())
+        del rows
+        if dense_diff >= 1e-6:
+            raise AssertionError(f"{label}: dense rows differ by {dense_diff}")
+        both = same = 0
+        exact = np.split(run["exact"], len(oneshot["batches"]))
+        for res, ex, want, wex in zip(run["results"], exact, oneshot["results"],
+                                      oneshot["exact"]):
+            for b in np.flatnonzero(ex & wex):
+                why = rows_differ(res[b], want[b])
+                if why is not None:
+                    raise AssertionError(f"{label}: certified row {b} differs from "
+                                         f"the one-shot build: {why}")
+                both += 1
+                same += res[b] == want[b]
+        stats.update(bm25_triples_equal=True, dense_rows_differing=int(differ.sum()),
+                     dense_max_abs_diff=dense_diff, rows_certified_in_both=both,
+                     rows_bit_equal=int(same))
+        clock.phase("lifecycle vs one-shot", (
+            f"{label}: BM25 (term hash, doc, weight) triples equal bit for bit "
+            f"(sha256 {digest[:16]}); dense rows differing {int(differ.sum())} of "
+            f"{len(differ)}, largest difference {dense_diff:.3g}; {both} rows "
+            f"certified in both runs serve the one-shot ids modulo near-ties "
+            f"({same} bit for bit)"))
+        del run
+
+        # delete: a seeded share, one batch served
+        dead = np.random.default_rng(seed + 3).choice(
+            n, int(np.ceil(n * LIFECYCLE_DELETE_SHARE)), replace=False).tolist()
+        idx.delete_documents(dead)
+        batch = oneshot["batches"][0]
+        deleted = serve_batches(searcher, f"{label}/deleted", "source", batch,
+                                [batch], sz, dev, clock, kind, smi, main_path=False)
+        dead_set = set(dead)
+        served = deleted["results"][0]
+        if {i for row in served for _v, _c, i in row} & dead_set:
+            raise AssertionError(f"{label}: a deleted doc was served")
+        t = time.perf_counter()
+        for q in batch:
+            if {i for i, _s in bm25.search(q, top_k=TOP_K)} & dead_set:
+                raise AssertionError(f"{label}: BM25.search returned a deleted doc")
+        search_s = time.perf_counter() - t
+        clock.phase("lifecycle delete", (
+            f"{label}: {len(dead)} docs tombstoned; no deleted doc served in "
+            f"{len(batch)} rows of search_batch nor by BM25.search ({search_s:.1f} s "
+            f"for {len(batch)} queries)"))
+
+        # save, load into a fresh Indexer, serve the same batch again
+        t = time.perf_counter()
+        idx.save(os.path.join(LIFECYCLE_DIR, "index"))
+        stats["save_s"] = time.perf_counter() - t
+        stats["saved_bytes"] = sum(os.path.getsize(os.path.join(r, f))
+                                   for r, _d, fs in os.walk(LIFECYCLE_DIR) for f in fs)
+        encoder = idx.encoder
+        idx.close()
+        del searcher, idx, bm25, snap
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        loaded = Indexer.load(os.path.join(LIFECYCLE_DIR, "index"), encoder=encoder,
+                              device=dev)
+        sync(dev)
+        stats["load_s"] = time.perf_counter() - t
+        if loaded.bm25._tombstones != dead_set or loaded.dense.deleted_count != len(dead):
+            raise AssertionError(f"{label}: the loaded index lost its tombstones")
+        again = Searcher(indexer=loaded, use_query_memory=False, config=loaded.config)
+        reloaded = serve_batches(again, f"{label}/reloaded", "source", batch, [batch],
+                                 sz, dev, clock, kind, smi, main_path=False)
+        if reloaded["results"][0] != served or not np.array_equal(reloaded["exact"],
+                                                                  deleted["exact"]):
+            raise AssertionError(f"{label}: the reloaded index serves other rows")
+        clock.phase("lifecycle save/load", (
+            f"{label}: Indexer.save {stats['save_s']:.1f} s ({stats['saved_bytes']} "
+            f"bytes with the store), Indexer.load {stats['load_s']:.1f} s; the "
+            f"reloaded index serves the batch bit for bit as before the save "
+            f"({kind}; {smi})"))
+
+        # scatter mode on the reloaded index
+        scatter = Searcher(indexer=loaded, use_query_memory=False, config=loaded.config,
+                           semantic_mode="scatter")
+        scatter.search_batch(oneshot["warm"], top_k=TOP_K, log=False)
+        kernels = {name: kernel_fns(name)[0] for name in ("tile_stats",
+                                                         "super_scores_dedup")}
+        for fn in kernels.values():
+            fn.launches = 0
+        lat, results = [], []
+        for qs in oneshot["batches"]:
+            t = time.perf_counter()
+            results.append(scatter.search_batch(qs, top_k=TOP_K, log=False))
+            lat.append(time.perf_counter() - t)
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        if dev.type == "cuda" and min(launches.values()) == 0:
+            raise AssertionError(f"{label}/scatter: a kernel never launched: {launches}")
+        if dev.type == "cuda":
+            stats["scatter_profile"] = profile_batch(scatter, oneshot["batches"][0])
+            clock.phase("profile", f"{label}/scatter: " + stats["scatter_profile"])
+        fu = scatter.config.fusion
+        checked = 0
+        for qs, res in zip(oneshot["batches"], results):
+            rv, ri, fused = scatter_reference(scatter, qs, TOP_K, fu.semantic_weight,
+                                              fu.lexical_weight)
+            c, _b, _j = check_against_reference(res, np.ones(len(qs), bool), rv, ri,
+                                                fused)
+            checked += c
+            del fused
+        n_q = sum(len(qs) for qs in oneshot["batches"])
+        p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+        stats["scatter"] = {"qps": n_q / sum(lat), "p50_ms": float(p50),
+                            "p99_ms": float(p99), "batch_ms": [x * 1e3 for x in lat],
+                            "launches": launches, "rows_checked": checked}
+        clock.phase("lifecycle scatter", (
+            f"{label}: semantic_mode='scatter', {len(lat)} x {sz['batch']} queries, "
+            f"launches {json.dumps(launches)}; all {checked} rows match the plain "
+            f"scatter reference; qps {n_q / sum(lat):.1f}, batch latency p50 "
+            f"{p50:.2f} ms p99 {p99:.2f} ms (B={sz['batch']}, {kind}; {smi}; "
+            f"unsourced synthetic corpus)"))
+        loaded.close()
+    finally:
+        shutil.rmtree(LIFECYCLE_DIR, ignore_errors=True)
+    return stats
 
 
 # -- the minilm phase: the default encoder on the default layout ----------------

@@ -19,9 +19,9 @@ from torch import nn
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.builder import Indexer
 from hybridsearch_tpu_torch.index.dense_index import DenseIndex
-from hybridsearch_tpu_torch.index.sparse_index import BM25
+from hybridsearch_tpu_torch.index.sparse_index import BM25, _DeltaSeg
 from hybridsearch_tpu_torch.models.encoder import HashingEncoder
-from hybridsearch_tpu_torch.ops.bm25 import BM25Postings
+from hybridsearch_tpu_torch.ops.bm25 import postings_from_csr
 from hybridsearch_tpu_torch.ops.impact import ImpactPostings
 from hybridsearch_tpu_torch.ops.supertile import SuperPostings
 from hybridsearch_tpu_torch.text.extractor import HashVocabulary, Vocabulary
@@ -53,11 +53,19 @@ def dense_index(docs: np.ndarray, bias: np.ndarray, n: int,
 def bm25_index(vocab: Union[np.ndarray, Sequence[str]], indptr: np.ndarray,
                doc_ids: np.ndarray, weights: np.ndarray, n_docs: int,
                k1: float = 1.5, b: float = 0.75, delta: float = 1.0,
-               device: DeviceLike = None) -> BM25:
+               device: DeviceLike = None, tf_cache: Optional[tuple] = None,
+               frozen: Optional[tuple] = None,
+               delta_seg: Optional[tuple] = None) -> BM25:
     """BM25 holding a fitted CSR state. ``vocab`` is the uint64 token hashes
     of a HashVocabulary (ids in order) or the token strings of a
-    Vocabulary; ``indptr`` [V+1], ``doc_ids``/``weights`` [>= nnz] (any
-    padded tail is rebuilt here)."""
+    Vocabulary; ``indptr`` [V+1], ``doc_ids``/``weights`` [>= nnz] and
+    ``n_docs`` are the main postings'.
+
+    Given the JAX state's ``tf_cache`` (t, d, c, doc_lens) and ``frozen``
+    (df, avg_len, len_sum), the index adds in O(delta) as the JAX one does;
+    without them it is a loaded index, whose next add refits. A pending
+    ``delta_seg`` is ((t, d, c, doc_lens), indptr, doc_ids, weights) of the
+    JAX ``_DeltaSeg``; the state then counts its docs too."""
     bm = BM25(k1=k1, b=b, delta=delta, device=device)
     vocab_arr = np.asarray(vocab)
     if vocab_arr.dtype == np.uint64:
@@ -66,23 +74,16 @@ def bm25_index(vocab: Union[np.ndarray, Sequence[str]], indptr: np.ndarray,
         voc = Vocabulary()
         for tok in vocab_arr.tolist():
             voc.add(str(tok))
-    indptr = np.asarray(indptr, dtype=np.int64)
-    V = len(indptr) - 1
-    nnz = int(indptr[-1])
-    lengths = np.diff(indptr)
-    max_post = max(int(lengths.max()) if V else 1, 1)
-    d = np.concatenate([np.asarray(doc_ids[:nnz], np.int32),
-                        np.full(max_post, n_docs, np.int32)])
-    w = np.concatenate([np.asarray(weights[:nnz], np.float32),
-                        np.zeros(max_post, np.float32)])
-    dev = bm.device
-    postings = BM25Postings(
-        indptr=torch.from_numpy(indptr).to(dev),
-        doc_ids=torch.from_numpy(d).to(dev),
-        weights=torch.from_numpy(w).to(dev),
-        n_docs=int(n_docs), max_postings=max_post, vocab_size=V,
-        starts_host=indptr[:-1].copy(), lengths_host=lengths.astype(np.int64))
-    bm.set_state(voc, postings, int(n_docs))
+    postings = postings_from_csr(indptr, doc_ids, weights, n_docs, len(indptr) - 1,
+                                 bm.device)
+    seg, total = None, int(n_docs)
+    if delta_seg is not None:
+        tf, d_indptr, d_ids, d_ws = delta_seg
+        total += len(tf[3])
+        seg = _DeltaSeg(tf=tf, postings=postings_from_csr(
+            d_indptr, d_ids, d_ws, total, len(d_indptr) - 1, bm.device))
+    bm.set_state(voc, postings, total, tf_cache=tf_cache, frozen=frozen,
+                 delta_seg=seg)
     return bm
 
 

@@ -10,10 +10,14 @@ search path uses. At index build time the full BM25 contribution of every
 and stored in term-major, doc-sorted CSR on the device. A query batch is
 encoded on the host into (start, length) posting-run pieces bucketed by
 width, and scored by one gather + one scatter-add per bucket into [B, n].
-``cand_scores_bisect`` scores given candidates by bisection over the full
-runs (the impact hybrid's margin correction, ops/hybrid.py). The hot-term
-tables, the other candidate scorers and mesh sharding of the JAX module
-serve paths the port does not take yet.
+``bm25_scores`` scores padded term-id rows the same way over whole runs
+(the JAX package's first kernel); ``bm25_candidate_scores_runs`` scores
+given candidates by binary search inside each run piece, and
+``cand_scores_bisect`` by bisection over the full runs (the impact hybrid's
+margin correction, ops/hybrid.py). None of these has a Pallas kernel in the
+JAX package: they are plain tensor ops. The hot-term tables
+(``encode_hot_terms``) and mesh sharding of the JAX module serve paths the
+port does not take yet.
 """
 
 from __future__ import annotations
@@ -74,6 +78,27 @@ def build_postings_arrays(
         starts_host=indptr[:-1].astype(np.int64),
         lengths_host=lengths.astype(np.int64),
     )
+
+
+def postings_from_csr(indptr: np.ndarray, doc_ids: np.ndarray,
+                      weights: np.ndarray, n_docs: int, vocab_size: int,
+                      device: torch.device) -> BM25Postings:
+    """BM25Postings over a CSR that is already built (``indptr`` [V+1],
+    ``doc_ids``/``weights`` [>= nnz]); the padded tail is made anew."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    nnz = int(indptr[-1])
+    lengths = np.diff(indptr)
+    max_post = max(int(lengths.max()) if len(lengths) else 1, 1)
+    d = np.concatenate([np.asarray(doc_ids[:nnz], np.int32),
+                        np.full(max_post, n_docs, np.int32)])
+    w = np.concatenate([np.asarray(weights[:nnz], np.float32),
+                        np.zeros(max_post, np.float32)])
+    return BM25Postings(
+        indptr=torch.from_numpy(indptr).to(device),
+        doc_ids=torch.from_numpy(d).to(device),
+        weights=torch.from_numpy(w).to(device), n_docs=int(n_docs),
+        max_postings=max_post, vocab_size=vocab_size,
+        starts_host=indptr[:-1].copy(), lengths_host=lengths)
 
 
 # Posting-run length buckets: a query term is scored with slices as wide as
@@ -180,6 +205,89 @@ def local_bucketed_scores(doc_ids: torch.Tensor, weights: torch.Tensor,
                                   torch.from_numpy(starts).to(dev),
                                   torch.from_numpy(lengths).to(dev), n, width)
     return total
+
+
+def bm25_scores(postings: BM25Postings, query_terms: torch.Tensor) -> torch.Tensor:
+    """Dense [B, n_docs] scores of padded term-id rows ``query_terms``
+    [B, T] (pad = vocab_size, an empty run; ids are clipped into
+    [0, vocab_size]): every term's whole run sliced at the widest run's
+    width and added term by term."""
+    indptr = postings.indptr
+    qt = query_terms.to(indptr.device).long().clamp(0, postings.vocab_size)
+    ext = torch.cat([indptr, indptr[-1:]])  # term vocab_size: an empty run
+    starts = ext[qt]
+    return bm25_scores_runs(postings.doc_ids, postings.weights, starts,
+                            ext[qt + 1] - starts, postings.n_docs,
+                            postings.max_postings)
+
+
+def bm25_scores_bucketed(postings: BM25Postings,
+                         groups: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+                         batch: int) -> torch.Tensor:
+    """Dense [B, n_docs] scores from per-bucket (width, starts, lengths) run
+    pieces (``encode_run_pieces``)."""
+    return local_bucketed_scores(postings.doc_ids, postings.weights, groups,
+                                 postings.n_docs, batch)
+
+
+def bm25_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over dense [B, n] BM25 scores, ties to the lower doc id; tiled
+    selection above 65,536 docs (its empty slots give doc 0)."""
+    from hybridsearch_tpu_torch.ops.dense import stable_topk, tiled_matrix_topk
+
+    if scores.shape[-1] > 65536:
+        vals, idxs = tiled_matrix_topk(scores, k)
+        return vals, idxs.clamp_min(0)
+    return stable_topk(scores, k)
+
+
+def bm25_candidate_scores(postings: BM25Postings, query_terms: torch.Tensor,
+                          candidates: torch.Tensor) -> torch.Tensor:
+    """[B, C] BM25 scores gathered at candidate doc ids from full scoring
+    (so equal to it bit for bit); ids < 0 score 0."""
+    full = bm25_scores(postings, query_terms)
+    cand = candidates.to(full.device).long()
+    got = torch.gather(full, 1, cand.clamp(0, postings.n_docs - 1))
+    return torch.where(cand >= 0, got, 0.0)
+
+
+def _cand_scores_runs(doc_ids: torch.Tensor, weights: torch.Tensor,
+                      starts: torch.Tensor, lengths: torch.Tensor,
+                      candidates: torch.Tensor, n_docs: int,
+                      width: int) -> torch.Tensor:
+    """[B, C] summed weights of each candidate over a query's run pieces
+    [B, T]: a binary search of the candidates in each piece's slice (runs
+    are doc-sorted; the slice's tail is masked to a sentinel past every
+    doc), pieces added in column order. No [B, n] array."""
+    iota = torch.arange(width, device=doc_ids.device)
+    cand = candidates.long()
+    acc = torch.zeros(cand.shape, dtype=torch.float32, device=doc_ids.device)
+    for t in range(starts.shape[1]):
+        pos = starts[:, t].long()[:, None] + iota  # [B, W]
+        valid = iota < lengths[:, t].long()[:, None]
+        ids = torch.where(valid, doc_ids[pos].long(), n_docs + 1)
+        ws = torch.where(valid, weights[pos], 0.0)
+        at = torch.searchsorted(ids, cand).clamp_max(width - 1)
+        hit = torch.gather(ids, 1, at) == cand
+        acc = acc + torch.where(hit, torch.gather(ws, 1, at), 0.0)
+    return acc
+
+
+def bm25_candidate_scores_runs(postings: BM25Postings,
+                               groups: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+                               candidates: torch.Tensor) -> torch.Tensor:
+    """[B, C] candidate scores from run-piece groups (``encode_run_pieces``):
+    equal to full scoring at those docs, without computing it. Candidates
+    < 0 score 0."""
+    dev = postings.doc_ids.device
+    cand = candidates.to(dev).long()
+    safe = torch.where(cand >= 0, cand, postings.n_docs + 2)
+    total = torch.zeros(cand.shape, dtype=torch.float32, device=dev)
+    for width, starts, lengths in groups:
+        total = total + _cand_scores_runs(
+            postings.doc_ids, postings.weights, torch.from_numpy(starts).to(dev),
+            torch.from_numpy(lengths).to(dev), safe, postings.n_docs, width)
+    return torch.where(cand >= 0, total, 0.0)
 
 
 def cand_scores_bisect(

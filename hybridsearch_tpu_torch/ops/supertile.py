@@ -30,13 +30,16 @@ min-max fusion. The rung's two opt-in levers (``EngineConfig.perf``, the
 JAX module's ``HST_SCORES_DEDUP`` and ``HST_PLACE_FUSED``) swap step 3's
 kernels for K4 (``super_scores_dedup``, the (query, probe) pairs sorted
 by supertile) and K5 (``place_fused``, the windows read inside the
-kernel); both give the same bits as K2 and K3. The mesh build
-(``build_super_postings_sharded``) and the persistence helpers of the JAX
-module are not part of the port yet.
+kernel); both give the same bits as K2 and K3. ``save_super_postings`` /
+``load_super_postings`` keep the build-time structures as the JAX
+package's ``.npy`` files. The mesh build (``build_super_postings_sharded``)
+is not part of the port yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -59,6 +62,7 @@ from hybridsearch_tpu_torch.ops.dense import (
     tiled_matrix_topk,
 )
 from hybridsearch_tpu_torch.ops.hybrid import NEG_INF, HybridTopK
+from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
 
 TILE = 128
 
@@ -158,6 +162,43 @@ def build_super_postings(
         df_host=df,
         win_max_host=win_max,
     )
+
+
+_SUPER_DEVICE = {"sup_max": torch.float32, "sup_pos": torch.int32,
+                 "ids_rows": torch.int32, "ws_rows": torch.float32}
+_SUPER_HOST = ("starts_host", "df_host", "win_max_host")
+
+
+def save_super_postings(sp: SuperPostings, path: str) -> None:
+    """Write the build-time supertile structures as one ``.npy`` file an
+    array plus ``meta.json`` (the JAX package's file names), so a serving
+    process skips the host build and maps them back."""
+    os.makedirs(path, exist_ok=True)
+    for name in _SUPER_DEVICE:
+        np.save(os.path.join(path, f"{name}.npy"), getattr(sp, name).cpu().numpy())
+    for name in _SUPER_HOST:
+        np.save(os.path.join(path, f"{name}.npy"), getattr(sp, name))
+    with open(os.path.join(path, "meta.json"), "w") as f:
+        json.dump({"n_docs": sp.n_docs, "n_super": sp.n_super,
+                   "super_tiles": sp.super_tiles, "version": 1}, f)
+
+
+def load_super_postings(path: str, device: DeviceLike = None) -> SuperPostings:
+    """Structures ``save_super_postings`` (of either package) wrote; the
+    device arrays upload from memory maps."""
+    dev = resolve_device(device)
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+
+    def npy(name, mode=None):
+        return np.load(os.path.join(path, f"{name}.npy"), mmap_mode=mode)
+
+    return SuperPostings(
+        **{name: torch.from_numpy(npy(name, "c")).to(dev, dtype)
+           for name, dtype in _SUPER_DEVICE.items()},
+        n_docs=int(meta["n_docs"]), n_super=int(meta["n_super"]),
+        super_tiles=int(meta["super_tiles"]),
+        **{name: np.asarray(npy(name), np.int64) for name in _SUPER_HOST})
 
 
 class SuperQueryEnc(NamedTuple):

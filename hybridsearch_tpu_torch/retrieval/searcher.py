@@ -18,9 +18,18 @@ Two regimes, as in the JAX package:
         c_per_term, p_depth) rungs (``_IMPACT_LADDER``), each re-encoding
         and re-running only the uncertified queries.
 
+Both regimes need ``lexical_mode="bm25"`` and ``semantic_mode="exact"``
+(the defaults). Any other mode, or a BM25 state of another index
+generation, fuses two full [B, n] arms: the semantic arm exact, or
+``"scatter"`` (the reference's FAISS branch: the top 2k of
+``DenseIndex.search`` scattered into zeros); the lexical arm BM25's
+``batch_scores``, or ``"fuzzy"`` (the reference's host ``partial_ratio``
+blend, capped at ``FUZZY_MAX_DOCS``). A pending BM25 delta is compacted
+before the snapshot pair is taken.
+
 The JAX package's clustered tile hybrid (``hybrid_tile_topk``, reached there
-only with ``HST_SUPER_HYBRID=0``), the lexical "fuzzy" and semantic
-"scatter" modes and the mesh branches are not part of the port yet.
+only with ``HST_SUPER_HYBRID=0``) and the mesh branches are not part of the
+port yet.
 """
 
 from __future__ import annotations
@@ -36,14 +45,21 @@ from hybridsearch_tpu_torch.index.builder import Indexer
 from hybridsearch_tpu_torch.ops.bm25 import local_bucketed_scores
 from hybridsearch_tpu_torch.ops.dense import (
     l2_normalize,
+    scatter_topk_to_dense,
     stable_topk,
     tiled_dense_topk,
     tiled_matrix_topk,
 )
 from hybridsearch_tpu_torch.ops.fusion import validate_weights
 from hybridsearch_tpu_torch.retrieval.query_memory import QueryMemory
+from hybridsearch_tpu_torch.text.extractor import extract_tokens
+from hybridsearch_tpu_torch.text.fuzzy import partial_ratio
 from hybridsearch_tpu_torch.utils.device import DeviceLike
-from hybridsearch_tpu_torch.utils.tracing import GLOBAL_COUNTERS, trace_span
+from hybridsearch_tpu_torch.utils.tracing import (
+    GLOBAL_COUNTERS,
+    GLOBAL_TIMER,
+    trace_span,
+)
 
 SearchResult = Tuple[float, str, int]
 
@@ -237,6 +253,8 @@ class Searcher:
         db_path: str = ":memory:",
         encoder=None,
         use_query_memory: bool = True,
+        lexical_mode: str = "bm25",  # "bm25" | "fuzzy"
+        semantic_mode: str = "exact",  # "exact" | "scatter"
         config: Optional[EngineConfig] = None,
         device: DeviceLike = None,
     ) -> None:
@@ -246,6 +264,8 @@ class Searcher:
         self.device = self.indexer.device
         self.query_memory = (QueryMemory(self.indexer.store)
                              if use_query_memory else None)
+        self.lexical_mode = lexical_mode
+        self.semantic_mode = semantic_mode
         self.last_query_id: Optional[int] = None
         self.default_weights = (self.config.fusion.semantic_weight,
                                 self.config.fusion.lexical_weight)
@@ -289,16 +309,19 @@ class Searcher:
         t0 = time.perf_counter()
         sw, lw = self.resolve_weights(semantic_weight, lexical_weight,
                                       use_learned_weights)
+        # ONE snapshot pair for the whole batch; a pending BM25 delta is
+        # folded in first, since the fused programs score one postings set
         snap = self.indexer.dense._snap
         bm25 = self.indexer.bm25
-        bm25_state = bm25._state
+        bm25_state = bm25._compacted_state()
         n = snap.n
         if n == 0:
             return [[] for _ in queries]
         k = min(top_k, n)
         with trace_span("encode"):
             q_vecs = self.indexer.encoder.encode(list(queries)).to(self.device)
-        fitted = bm25_state.postings is not None and bm25_state.n_docs == n
+        fitted = (self.lexical_mode == "bm25" and self.semantic_mode == "exact"
+                  and bm25_state.postings is not None and bm25_state.n_docs == n)
         if fitted and n >= SPARSE_HYBRID_MIN_DOCS:
             with trace_span("hybrid_sparse"):
                 vals, idxs = self._sparse_hybrid(queries, q_vecs, snap, bm25,
@@ -310,12 +333,12 @@ class Searcher:
                     q_vecs, snap.docs[:n], bm25_state.postings, groups, sw, lw,
                     snap.bias[:n], k, n)
         else:
-            # no BM25 state for this index generation: the lexical arm is
-            # zeros (min-max of a constant arm is all-ones)
+            with trace_span("semantic"):
+                sem = self._semantic_scores(q_vecs, top_k, snap)
+            with trace_span("lexical"):
+                lex = self._lexical_scores(queries, n)
             with trace_span("fuse_topk"):
-                sem = l2_normalize(q_vecs.float()) @ snap.docs[:n].T
-                vals, idxs = _fuse_and_topk(sem, torch.zeros_like(sem), sw, lw,
-                                            snap.bias[:n], k)
+                vals, idxs = _fuse_and_topk(sem, lex, sw, lw, snap.bias[:n], k)
         vals_np = np.asarray(vals.cpu().numpy() if torch.is_tensor(vals) else vals)
         idxs_np = np.asarray(idxs.cpu().numpy() if torch.is_tensor(idxs) else idxs)
         latency_ms = (time.perf_counter() - t0) * 1e3
@@ -336,6 +359,89 @@ class Searcher:
                     query, sw, lw, top_score=row[0][0] if row else None,
                     n_results=len(row), latency_ms=latency_ms)
         return results
+
+    def _semantic_scores(self, q_vecs: torch.Tensor, top_k: int,
+                         snap) -> torch.Tensor:
+        """[B, n] semantic arm over one dense snapshot: exact cosine, or in
+        scatter mode the raw scores of the top min(2 top_k, n) docs of
+        ``DenseIndex.search`` scattered into zeros (negative cosines may rank
+        below docs not retrieved, as in the reference)."""
+        n = snap.n
+        if self.semantic_mode == "scatter":
+            vals, idxs = self.indexer.dense.search(q_vecs, min(2 * top_k, n))
+            vals = torch.from_numpy(np.where(np.isfinite(vals), vals, 0.0))
+            idxs = torch.from_numpy(np.minimum(idxs, n - 1))
+            return scatter_topk_to_dense(vals.to(self.device),
+                                         idxs.to(self.device), n)
+        return l2_normalize(q_vecs.float()) @ snap.docs[:n].T
+
+    def _lexical_scores(self, queries: Sequence[str], n: int) -> torch.Tensor:
+        """[B, n] lexical arm, shape-locked to the dense snapshot's n: a
+        BM25 state of another index generation gives zeros (min-max of a
+        constant arm is all ones)."""
+        zeros = torch.zeros((len(queries), n), dtype=torch.float32,
+                            device=self.device)
+        if self.lexical_mode == "fuzzy":
+            out = self._fuzzy_scores_host(queries)
+            return zeros if out.shape[1] != n else torch.from_numpy(out).to(self.device)
+        bm25 = self.indexer.bm25
+        if bm25.n_docs != n:
+            return zeros
+        scores = bm25.batch_scores(queries)
+        return zeros if scores.shape[1] != n else scores
+
+    # The fuzzy arm is an O(B*N) host loop kept for small-corpus parity with
+    # the reference; past this many docs it refuses.
+    FUZZY_MAX_DOCS = 50_000
+
+    def _fuzzy_scores_host(self, queries: Sequence[str]) -> np.ndarray:
+        """The reference's lexical blend: 0.7 * partial_ratio / 100 + 0.3 *
+        the share of the query's tokens the doc holds."""
+        docs = self.indexer.contents
+        if len(docs) > self.FUZZY_MAX_DOCS:
+            raise ValueError(
+                f"lexical_mode='fuzzy' scans every document on the host "
+                f"(O(B*N) edit distances) and is capped at "
+                f"{self.FUZZY_MAX_DOCS} docs; this index has {len(docs)}. "
+                f"Use lexical_mode='bm25' at scale.")
+        out = np.zeros((len(queries), len(docs)), dtype=np.float32)
+        doc_toks = [set(extract_tokens(d)) for d in docs]
+        for qi, query in enumerate(queries):
+            q_low = query.lower()
+            q_toks = set(extract_tokens(query))
+            for di, doc in enumerate(docs):
+                fuzzy = partial_ratio(q_low, doc.lower()) / 100.0
+                overlap = len(q_toks & doc_toks[di]) / len(q_toks) if q_toks else 0.0
+                out[qi, di] = 0.7 * fuzzy + 0.3 * overlap
+        return out
+
+    def log_feedback(self, query: str, doc_id: int, rating: int,
+                     query_id: Optional[int] = None) -> None:
+        if self.query_memory is not None:
+            self.query_memory.log_feedback(query, doc_id, rating,
+                                           query_id=query_id)
+
+    def record_feedback(self, query_id: int, doc_id: int,
+                        relevance_score: int = 0, clicked: bool = False) -> None:
+        """Feedback by query id: the query text is read from the logged row;
+        a click with no rating counts as rating 1 (the reference counts a
+        row positive when ``relevance_score > 0 or clicked``)."""
+        if self.query_memory is None:
+            return
+        row = self.query_memory.store.get_query_by_id(query_id)
+        if row is None:
+            raise KeyError(f"query_id {query_id} not found")
+        rating = int(relevance_score)
+        if rating == 0 and clicked:
+            rating = 1
+        self.query_memory.log_feedback(row["query"], int(doc_id), rating,
+                                       query_id=int(query_id))
+
+    def get_stats(self) -> dict:
+        stats = self.query_memory.get_query_stats() if self.query_memory else {}
+        stats["total_documents"] = len(self.indexer.contents)
+        stats["stages"] = GLOBAL_TIMER.stats()
+        return stats
 
     def _sparse_hybrid(self, queries, q_vecs, snap, bm25, k, sw, lw):
         """At-scale hybrid: the supertile ladder on a clustered index, the

@@ -65,6 +65,19 @@ def test_cpu_rehearsal_runs_every_phase():
                and "encode span" in ln for ln in lines)
     assert any("] cross-encoder: " in ln and "CrossEncoderReranker.rerank" in ln
                for ln in lines)
+    lifecycle = "small-topic/source/lifecycle"
+    for phase in ("lifecycle build", "lifecycle serve", "lifecycle vs one-shot",
+                  "lifecycle delete", "lifecycle save/load", "lifecycle scatter"):
+        assert any(f"] {phase}: {lifecycle}" in ln for ln in lines), phase
+    assert any("] lifecycle build: " in ln and "wait in the delta" in ln for ln in lines)
+    assert any("] lifecycle vs one-shot: " in ln and "triples equal bit for bit" in ln
+               for ln in lines)
+    assert any("] lifecycle save/load: " in ln and "bit for bit" in ln for ln in lines)
+    assert any("] lifecycle scatter: " in ln and "match the plain scatter reference"
+               in ln for ln in lines)
+    for phase in ("search_batch", "reference"):
+        for run in ("", "/deleted", "/reloaded"):
+            assert any(f"] {phase}: {lifecycle}{run}:" in ln for ln in lines), (phase, run)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 
