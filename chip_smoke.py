@@ -63,8 +63,30 @@ forward and ``scaled_dot_product_attention`` (a yardstick only), and the
 cross-encoder (``models/hst-ms-marco-MiniLM-L-6-v2-synth``) scores the
 served top-20 of one batch through ``predict`` and
 ``CrossEncoderReranker.rerank``; the rehearsal writes tiny seeded
-checkpoints in their place. No corpus's topic structure comes from a
-published source, so their qps describe these corpora only.
+checkpoints in their place.
+
+Then "small-topic/source/pipelines" serves the pipelines of
+``create_pipeline`` on that run's index, not re-indexed: each pipeline is
+built with the run's encoder (and a ``CrossEncoderReranker`` over its
+cross-encoder) and handed the run's ``indexer`` and ``searcher``.
+``MultiStagePipeline.search_batch`` (100 -> 20 -> 5) serves 8 batches:
+stage 1 is held to an exact dense top-100 on the card, stage 2 to
+``BM25.candidate_scores``, each row to its stage-2 docs sorted by
+cross-encoder score (logits recomputed within 1e-4), and 16 queries served
+alone to their batched rows (logits within 1e-3).
+``DiversityPipeline.search_batch`` serves 8 batches, its MMR held to the
+plain version on the host, and at least 8 of 16 queries served alone to
+their batched rows; ``HybridBM25Pipeline.search`` serves 32 queries on its
+impact path, every exact row (at least 8) held to a plain divide-by-max
+fusion and the others to a mean jaccard@10 of 0.9;
+Basic, Reranked (both fusion settings), BM25 and RAG (a stand-in LLM)
+serve a few queries each; ChunkedPipeline indexes 16,384 corpus docs
+joined four at a time into 4,096 parents and must restore its chunk map by
+``reload``; the semantic cache must hit every query vector set in it. K1,
+K4, K6 and K7 must launch while the pipelines serve; all seven kernels'
+launches there are counted and printed. No corpus's topic
+structure comes from a published source, so their qps describe these
+corpora only.
 
 Every phase prints one line with its elapsed seconds before the next
 starts. The last two lines are a JSON object of per-kernel numbers and the
@@ -93,12 +115,14 @@ BUDGET_S = 600.0  # the whole card run, build included
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
+REHEARSAL_THREADS = 2  # torch's intra-op threads in the CPU rehearsal
 # (main-path shapes, rehearsal shapes)
 SIZES = {
     "card": dict(n_docs=524_288, dim=384, batch=256, n_batches=8,
-                 n_background=30_000, s_max=16, probes=(2, 4, 8, 16)),
+                 n_background=30_000, s_max=16, probes=(2, 4, 8, 16),
+                 chunk_docs=16_384),
     "cpu": dict(n_docs=9_216, dim=128, batch=32, n_batches=2,
-                n_background=2_000, s_max=1, probes=(2, 4)),
+                n_background=2_000, s_max=1, probes=(2, 4), chunk_docs=1_024),
 }
 # Two synthetic corpora, neither taken from a published source. Each is
 # (docs a topic, words a doc from its topic's vocabulary,
@@ -174,7 +198,11 @@ def sync(dev: torch.device) -> None:
 
 def time_ms(fn, dev: torch.device, reps: int, warmup: int = 1) -> float:
     """Mean milliseconds per call: CUDA events around ``reps`` calls on the
-    card, the host clock after a synchronize elsewhere."""
+    card, the host clock after a synchronize elsewhere. Off the card (the
+    CPU rehearsal, which reports no device time) one call, no warm-up:
+    enough to drive the path."""
+    if dev.type != "cuda":
+        reps, warmup = 1, 0
     for _ in range(warmup):
         fn()
     sync(dev)
@@ -1347,6 +1375,7 @@ def main(argv=None) -> int:
     from hybridsearch_tpu_torch.ops import cuda_build
     from hybridsearch_tpu_torch.ops import dense as dense_mod
     from hybridsearch_tpu_torch.ops import supertile as supertile_mod
+    from hybridsearch_tpu_torch import pipelines as pipelines_mod
     from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
 
     sz = SIZES["cpu" if rehearsal else "card"]
@@ -1356,6 +1385,10 @@ def main(argv=None) -> int:
         # take the kernel routes, with the plain versions behind the wrappers
         dense_mod._on_card = supertile_mod._on_card = lambda t: True
         searcher_mod.SPARSE_HYBRID_MIN_DOCS = 0
+        pipelines_mod.HYBRID_BM25_SPARSE_MIN = 0
+        # tiny shapes gain little from threads, and a full set of them
+        # oversubscribes a host shared with other processes
+        torch.set_num_threads(min(REHEARSAL_THREADS, torch.get_num_threads()))
     else:
         dev = torch.device("cuda")
         kind, count, smi = (torch.cuda.get_device_name(0),
@@ -1472,8 +1505,14 @@ def main(argv=None) -> int:
     order = list(KERNEL_META)
     numbers.sort(key=lambda row: order.index(row["name"]))
 
-    detail["corpora"]["small-topic/source/minilm"] = serve_minilm(
+    detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
         sz, dev, args.seed, clock, kind, smi, rehearsal)
+    pipelines = serve_pipelines(handoff, sz, dev, clock, kind, smi)
+    del handoff
+    detail["corpora"]["small-topic/source/pipelines"] = pipelines
+    for row in numbers:
+        if row["name"] in pipelines["launches"]:
+            row["launches_pipelines"] = pipelines["launches"][row["name"]]
 
     if rehearsal:
         # plain versions on the host: no device numbers to report
@@ -2252,7 +2291,7 @@ def trunk_rows(enc, texts_by_shape: dict, dev: torch.device, smi: str) -> list:
 
 
 def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
-                 smi: str, rehearsal: bool) -> dict:
+                 smi: str, rehearsal: bool) -> tuple:
     """The default configuration end to end: small-topic under
     ``layout="source"`` with no encoder given, so the Indexer's
     ``default_encoder`` serves the promoted in-repo bi-encoder (the run
@@ -2263,7 +2302,8 @@ def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str
     span is set beside the batch wall time. Then the trunk alone at a query
     and an index batch shape, and the cross-encoder on the served top-20 of
     one batch (``predict``, and ``CrossEncoderReranker.rerank`` on one
-    query)."""
+    query). Returns (stats, the searcher, encoder, cross-encoder and query
+    maker the pipelines run serves)."""
     import tempfile
 
     from hybridsearch_tpu_torch.models.minilm import MiniLMCrossEncoder, MiniLMEncoder
@@ -2381,6 +2421,665 @@ def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str
             f"{len(sub)} pairs: largest diff {ce_err:.3g}, mean {ce_mean:.3g} (logits "
             f"{float(f32.min()):.2f} to {float(f32.max()):.2f}); CrossEncoderReranker.rerank of {len(top[0])} docs "
             f"{rerank_ms:.2f} ms ({kind}; {smi})"))
+    handoff = {"searcher": searcher, "encoder": enc, "cross_encoder": ce,
+               "make_queries": make_queries}
+    return stats, handoff
+
+
+# -- the pipelines on the minilm run's index ----------------------------------------
+
+PIPELINES_DIR = "chiprun_out/pipelines"  # the chunked pipeline's store; removed at the end
+# the kernels the served pipelines reach (DenseIndex.search: K1, K4 at tile
+# grain; the impact hybrid: K1, K4, K6, K7)
+PIPELINE_KERNELS = ("tile_stats", "super_scores_dedup", "slice_runs", "rescore")
+CHECK_SINGLES = 16  # queries served one at a time against their batched rows
+HYBRID_BM25_QUERIES = 32
+# Stage 1's dense scores within this of the 100th may swap between the
+# kernels and a plain product (float32 sums in another order).
+STAGE1_TIE = 1e-6
+# One (query, doc) pair's cross-encoder logit, the same bf16 model both
+# times: recomputed over the batch's pairs in the funnel's own chunks it
+# should agree almost bit for bit (CE_RECOMPUTE_TIE); a query served
+# alone runs its 20 pairs in another batch shape (CE_SINGLE_TIE; the
+# largest gap read on the H100 was 4.77e-07). Logits within the limit
+# are a near-tie.
+CE_RECOMPUTE_TIE = 1e-4
+CE_SINGLE_TIE = 1e-3
+MMR_TIE = 1e-6  # MMR values of two candidates within this are a near-tie
+PROJ_EPS = 1e-5  # an LSH projection nearer 0 may flip its sign bit
+CHUNK_JOIN = 4  # corpus docs joined with ". " into one chunked parent
+# HybridBM25 at scale: at least this many of HYBRID_BM25_QUERIES rows must
+# be certified exact (13 of 32 on the H100, 14 of 32 in the CPU
+# rehearsal), so the exact-row check always holds something; the
+# uncertified rows' mean jaccard@TOP_K against the plain fusion must reach
+# UNCERTIFIED_JACCARD_FLOOR (1.0 in both runs).
+HYBRID_BM25_MIN_EXACT = 8
+UNCERTIFIED_JACCARD_FLOOR = 0.9
+
+
+@contextlib.contextmanager
+def _pipeline_launches(sink: dict):
+    """Every kernel's count set to 0 on entry and added to ``sink`` on
+    exit; fails if a first design (_v1) launched in between."""
+    fns = {name: kernel_fns(name)[0] for name in KERNEL_META}
+    for fn in fns.values():
+        fn.launches = 0
+    v1_before = [fn.launches for fn in first_designs()]
+    yield
+    for name, fn in fns.items():
+        sink[name] = sink.get(name, 0) + fn.launches
+    if [fn.launches for fn in first_designs()] != v1_before:
+        raise AssertionError("a first design (_v1) launched in a served pipeline")
+
+
+@contextlib.contextmanager
+def _recording(obj, name: str, sink: list):
+    """``obj.name`` replaced by a wrapper appending (args, kwargs, result)
+    of each call to ``sink``."""
+    had = name in vars(obj)
+    real = getattr(obj, name)
+
+    def record(*a, **k):
+        out = real(*a, **k)
+        sink.append((a, k, out))
+        return out
+
+    setattr(obj, name, record)
+    try:
+        yield
+    finally:
+        if had:
+            setattr(obj, name, real)
+        else:
+            delattr(obj, name)
+
+
+@contextlib.contextmanager
+def _timing(obj, name: str, spent: list):
+    """``obj.name`` replaced by a wrapper adding the seconds of each call to
+    ``spent[0]``."""
+    real = getattr(obj, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spent[0] += time.perf_counter() - t
+
+    setattr(obj, name, timed)
+    try:
+        yield
+    finally:
+        delattr(obj, name)
+
+
+def _adopt(pipe, searcher):
+    """The smoke's own arrangement (not an API): a pipeline built with the
+    minilm run's encoder serves that run's index instead of re-indexing."""
+    pipe.indexer.close()
+    pipe.indexer, pipe.searcher = searcher.indexer, searcher
+    if hasattr(pipe, "answerer"):
+        pipe.answerer.searcher = searcher
+    return pipe
+
+
+def _timed_batches(fn, batches) -> tuple:
+    """(results, per-batch seconds) of ``fn`` over ``batches``."""
+    results, lat = [], []
+    for qs in batches:
+        t = time.perf_counter()
+        results.append(fn(qs))
+        lat.append(time.perf_counter() - t)
+    return results, lat
+
+
+def _latency(lat, n_queries: int) -> dict:
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    return {"qps": n_queries / sum(lat), "p50_ms": float(p50), "p99_ms": float(p99),
+            "batch_ms": [x * 1e3 for x in lat]}
+
+
+def check_stage1(dense_calls, docs, bias, k1: int, dev) -> dict:
+    """Each batch's stage-1 ids against a plain exact dense top-k1 on the
+    card (full product, ``torch.topk``): every served id is a true top-k1
+    doc or lies within STAGE1_TIE of the k1-th score, every true top-k1 doc
+    missing from it too; values within 1e-5."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+
+    n_swaps, err = 0, 0.0
+    for args, _kw, (vals, idxs) in dense_calls:
+        q = l2_normalize(torch.as_tensor(args[0]).float().to(dev))
+        plain = q @ docs.T + bias[None, :]
+        ref_vals, ref_ids = torch.topk(plain, k1, dim=1)
+        got = torch.from_numpy(idxs).to(dev)
+        if (got < 0).any():
+            raise AssertionError("stage 1 served a padding id")
+        true = plain.gather(1, got)
+        kth = ref_vals[:, -1:]
+        in_ref = (got[:, :, None] == ref_ids[:, None, :]).any(-1)
+        in_got = (ref_ids[:, :, None] == got[:, None, :]).any(-1)
+        if ((~in_ref) & (kth - true > STAGE1_TIE)).any() or \
+                ((~in_got) & (ref_vals - kth > STAGE1_TIE)).any():
+            raise AssertionError("stage 1 differs from the exact dense top-k "
+                                 "outside a near-tie")
+        n_swaps += int((~in_ref).sum())
+        err = max(err, float((torch.from_numpy(vals).to(dev) - true).abs().max()))
+    if err > 1e-5:
+        raise AssertionError(f"stage 1 values off the plain product by {err}")
+    return {"rows": sum(len(a[0]) for a, _k, _o in dense_calls), "near_tie_swaps": n_swaps,
+            "max_abs_err": err}
+
+
+def _stage2(call, k2: int) -> tuple:
+    """(candidates [B, k1], their BM25 scores, stage-2 ids [B, k2]) of one
+    recorded ``bm25_candidate_scores_runs`` call, ordered as the funnel
+    orders them."""
+    cand = call[0][2].cpu().numpy()
+    scores = call[2].cpu().numpy()
+    order = np.argsort(-scores, axis=1, kind="stable")[:, :k2]
+    return cand, scores, np.take_along_axis(cand, order, axis=1)
+
+
+def _ce_rows_agree(got, want, tie: float) -> bool:
+    """Two rows of (score, content, id) sorted by cross-encoder score:
+    logits within ``tie``, ids equal except inside such a near-tie."""
+    if len(got) != len(want):
+        return False
+    gv = np.array([v for v, _c, _i in got])
+    wv = np.array([v for v, _c, _i in want])
+    if len(gv) and np.abs(gv - wv).max() > tie:
+        return False
+    return all(g[2] == w[2] or (np.abs(wv - wv[j]) <= tie).sum() > 1
+               for j, (g, w) in enumerate(zip(got, want)))
+
+
+def serve_funnel(pipe, searcher, ce, make_queries, sz: dict, dev, clock: Clock,
+                 label: str, where: str, sink: dict) -> dict:
+    """``MultiStagePipeline.search_batch`` (100 -> 20 -> 5) on 8 batches,
+    then the checks: stage 1 against the exact dense top-100 (every batch),
+    stage 2 against ``BM25.candidate_scores`` of each query (rtol 1e-5; the
+    first batch), each row its stage-2 docs sorted by cross-encoder score
+    (every batch; the first batch's scores recomputed in the funnel's
+    chunks, within CE_RECOMPUTE_TIE), and CHECK_SINGLES queries served by
+    ``search`` against their batched rows (within CE_SINGLE_TIE)."""
+    from hybridsearch_tpu_torch.ops import bm25 as bm25_mod
+
+    ix = searcher.indexer
+    n = ix.dense._snap.n
+    warm = make_queries(sz["batch"])
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+    pipe.search_batch(warm)
+    dense_calls, stage2_calls, tokenize = [], [], [0.0]
+    with _pipeline_launches(sink), _recording(ix.dense, "search", dense_calls), \
+            _recording(bm25_mod, "bm25_candidate_scores_runs", stage2_calls), \
+            _timing(ce.tokenizer, "encode_pair", tokenize):
+        results, lat = _timed_batches(pipe.search_batch, batches)
+    if len(dense_calls) != len(batches) or len(stage2_calls) != len(batches):
+        raise AssertionError("the funnel did not take one dense search and one "
+                             "candidate BM25 call a batch")
+    stats = _latency(lat, sum(len(b) for b in batches))
+    metas = [rows[0].metadata for rows in results]
+    stats["stage_s"] = {k: float(np.mean([m[k] for m in metas]))
+                        for k in ("t_encode_s", "t_dense_s", "t_bm25_s", "t_ce_s")}
+    stats["ce_pairs"] = metas[0].get("ce_pairs")
+    # the cross-encoder tokenizes every (query, doc) pair on the host first
+    stats["ce_tokenize_s"] = tokenize[0] / len(batches)
+    k1, k2 = pipe.stage1_k, pipe.stage2_k
+    snap = ix.dense._snap
+    stats["stage1"] = check_stage1(dense_calls, snap.docs[:n], snap.bias[:n], k1, dev)
+
+    cand, scores, s2 = _stage2(stage2_calls[0], k2)
+    for b, q in enumerate(batches[0]):
+        np.testing.assert_allclose(scores[b], ix.bm25.candidate_scores(q, cand[b]),
+                                   rtol=1e-5, atol=0, err_msg=f"stage 2, query {b}")
+    for rows, call in zip(results, stage2_calls):
+        _c, _s, ids2 = _stage2(call, k2)
+        for b, res in enumerate(rows):
+            got = [v for v, _c2, _i in res.results]
+            if got != sorted(got, reverse=True) or len(got) != min(pipe.final_k, k2) or \
+                    not {i for *_x, i in res.results} <= set(ids2[b].tolist()):
+                raise AssertionError(f"funnel row {b} is not its stage-2 docs sorted "
+                                     "by cross-encoder score")
+    pairs = [(q, ix.contents[int(d)]) for q, row in zip(batches[0], s2) for d in row]
+    ce_bs = int(os.environ.get("HST_CE_BATCH", "128"))  # the funnel's chunks
+    again = ce.predict(pairs, batch_size=ce_bs).cpu().numpy().reshape(len(batches[0]), k2)
+    recompute_gap = 0.0
+    for b, res in enumerate(results[0]):
+        order = np.argsort(-again[b], kind="stable")[:pipe.final_k]
+        want = [(float(again[b, j]), None, int(s2[b, j])) for j in order]
+        if not _ce_rows_agree(res.results, want, CE_RECOMPUTE_TIE):
+            raise AssertionError(f"funnel row {b}: not the top of its recomputed "
+                                 "cross-encoder scores")
+        recompute_gap = max(recompute_gap, max((abs(x[0] - y[0]) for x, y in zip(
+            res.results, want)), default=0.0))
+    stats["ce_recompute_gap"] = recompute_gap
+    same, boundary, ce_gap = 0, 0, 0.0
+    for b, q in enumerate(batches[0][:CHECK_SINGLES]):
+        single = pipe.search(q)
+        mine = set(single.metadata["stage2_ids"])
+        if mine == set(s2[b].tolist()):
+            if not _ce_rows_agree(single.results, results[0][b].results, CE_SINGLE_TIE):
+                raise AssertionError(f"query {b}: search differs from its batched row")
+            ce_gap = max(ce_gap, max((abs(x[0] - y[0]) for x, y in zip(
+                single.results, results[0][b].results)), default=0.0))
+            same += 1
+        else:  # only a near-tie at the stage-1 or stage-2 boundary may move a doc
+            moved = np.array(sorted(mine ^ set(s2[b].tolist())), np.int64)
+            kth2 = np.sort(scores[b])[::-1][k2 - 1]
+            bm = ix.bm25.candidate_scores(q, moved)
+            q1 = dense_calls[0][0][0][b:b + 1].float()
+            cos = (q1 / q1.norm().clamp_min(1e-12)) @ snap.docs[
+                torch.from_numpy(moved).to(dev)].T
+            kth1 = float(dense_calls[0][2][0][b, -1])
+            tied = (np.abs(bm - kth2) <= 1e-5 * max(abs(kth2), 1e-30)) | \
+                (np.abs(cos[0].cpu().numpy() - kth1) <= STAGE1_TIE)
+            if not tied.all():
+                raise AssertionError(f"query {b}: stage 2 of search differs from the "
+                                     "batch's outside a boundary near-tie")
+            boundary += 1
+    stats["singles"] = {"checked": CHECK_SINGLES, "same_stage2": same,
+                        "stage2_boundary_ties": boundary, "max_ce_gap": ce_gap}
+    clock.phase("pipelines funnel", (
+        f"{label}: MultiStagePipeline.search_batch {len(batches)} x {sz['batch']} "
+        f"queries ({k1} -> {k2} -> {pipe.final_k}), qps {stats['qps']:.1f}, p50 "
+        f"{stats['p50_ms']:.2f} ms, p99 {stats['p99_ms']:.2f} ms; stages (s a batch) "
+        + ", ".join(f"{k[2:-2]} {v:.4f}" for k, v in stats["stage_s"].items())
+        + f" (of which the pairs' tokenization {stats['ce_tokenize_s']:.4f})"
+        + f"; stage 1 equals the exact dense top-{k1} on {stats['stage1']['rows']} "
+        f"rows ({stats['stage1']['near_tie_swaps']} near-tie swaps); stage 2 equals "
+        f"BM25.candidate_scores on {len(batches[0])} queries; rows sorted by "
+        f"cross-encoder score (recomputed: largest logit gap {recompute_gap:.3g}); "
+        f"{CHECK_SINGLES} queries by search equal their batched "
+        f"rows ({same} with the same stage 2, {boundary} with a boundary tie; "
+        f"largest logit gap {ce_gap:.3g}) {where}"))
+    return stats
+
+
+def _mmr_near_tie(got, want, rel, emb, lam, valid) -> bool:
+    """True when two MMR orders part at a round whose two picks lie within
+    MMR_TIE in float64 MMR value (over ``want``'s picks so far)."""
+    rel = np.asarray(rel, np.float64)
+    e = np.asarray(emb, np.float64)
+    e = e / np.maximum(np.linalg.norm(e, axis=1, keepdims=True), 1e-12)
+    sim = e @ e.T
+    max_sim = np.zeros(len(rel))
+    for g, w in zip(got, want):
+        if g != w:
+            score = lam * rel - (1 - lam) * max_sim
+            return bool(valid[g]) and abs(score[g] - score[w]) <= MMR_TIE
+        max_sim = np.maximum(max_sim, sim[:, w])
+    return True
+
+
+def serve_diversity(pipe, searcher, make_queries, sz: dict, dev, clock: Clock,
+                    label: str, where: str, sink: dict) -> dict:
+    """``DiversityPipeline.search_batch`` on 8 batches at top_k = TOP_K, then
+    the checks: MMR on the card against its plain version on the host
+    (orders equal outside MMR_TIE near-ties), and CHECK_SINGLES queries
+    served by ``search`` against their batched rows: where the candidates
+    alone are the batch's, the rows equal outside MMR near-ties; where not,
+    candidates certified alone and in the batch equal outside EPS_NUM
+    near-ties (the impact ladder escalates a batch as a whole, so a
+    best-effort row may differ with its batch, and is counted)."""
+    from hybridsearch_tpu_torch import pipelines as pipelines_mod
+    from hybridsearch_tpu_torch.ops.mmr import mmr_select_batch
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    warm = make_queries(sz["batch"])
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+    search_batch = lambda qs: pipe.search_batch(qs, top_k=TOP_K)  # noqa: E731
+    search_batch(warm)
+    mmr_calls, ladders, cands = [], [], []
+    with _pipeline_launches(sink), \
+            _recording(pipelines_mod, "mmr_select_batch", mmr_calls), \
+            _recording(searcher_mod, "impact_ladder", ladders), \
+            _recording(searcher, "search_batch", cands):
+        results, lat = _timed_batches(search_batch, batches)
+    if len(mmr_calls) != len(batches) or len(ladders) != len(batches):
+        raise AssertionError("the diversity batch did not take one impact ladder and "
+                             "one mmr_select_batch a batch")
+    stats = _latency(lat, sum(len(b) for b in batches))
+    swaps = rows = 0
+    for (rel, emb, k, lam), kw, (order, _scores) in mmr_calls:
+        valid = kw["valid"]
+        plain, _ = mmr_select_batch(rel.cpu(), emb.cpu(), k, lam, valid=valid.cpu())
+        got, want = order.cpu().numpy(), plain.numpy()
+        for r in range(len(got)):
+            rows += 1
+            if (got[r] == want[r]).all():
+                continue
+            if not _mmr_near_tie(got[r], want[r], rel[r].cpu().numpy(),
+                                 emb[r].cpu().numpy(), lam, valid[r].cpu().numpy()):
+                raise AssertionError(f"MMR row {r}: the card and the host differ "
+                                     "outside a near-tie")
+            swaps += 1
+    stats["mmr"] = {"rows": rows, "near_tie_swaps": swaps}
+    exact0 = ladders[0][2][0].exact
+    equal = compared = cand_ties = best_effort = 0
+    for b, q in enumerate(batches[0][:CHECK_SINGLES]):
+        alone, alone_cands = [], []
+        with _recording(searcher_mod, "impact_ladder", alone), \
+                _recording(searcher, "search_batch", alone_cands):
+            single = pipe.search(q, top_k=TOP_K)
+        cand_b, cand_s = cands[0][2][b], alone_cands[0][2][0]
+        ids = [i for *_x, i in cand_b]
+        if [i for *_x, i in cand_s] != ids:
+            if not (exact0[b] and alone[0][2][0].exact[0]):
+                best_effort += 1  # a best-effort row may differ with its batch
+                continue
+            why = _row_mismatch(cand_s, np.array([v for v, _c, _i in cand_b]), ids,
+                                {i: v for v, _c, i in cand_s})
+            if why is not None:
+                raise AssertionError(f"diversity query {b}: certified candidates alone "
+                                     f"differ from the batch's: {why}")
+            cand_ties += 1  # near-tied candidates in another order: other MMR inputs
+            continue
+        compared += 1  # the same candidates in the same order: the same MMR inputs
+        got = [i for *_x, i in single.results]
+        want = [i for *_x, i in results[0][b].results]
+        pos = {i: j for j, i in enumerate(ids)}
+        emb = searcher.indexer.dense.get_vectors(ids)
+        if got != want and not _mmr_near_tie(
+                [pos[i] for i in got], [pos[i] for i in want],
+                [v for v, _c, _i in cand_b], emb, pipe.lambda_param,
+                np.ones(len(ids), bool)):
+            raise AssertionError(f"diversity query {b}: search differs from its "
+                                 "batched row outside an MMR near-tie")
+        equal += got == want
+    if compared < CHECK_SINGLES // 2:
+        raise AssertionError(f"diversity: only {compared} of {CHECK_SINGLES} queries by "
+                             "search had the batch's candidates to compare")
+    stats["singles"] = {"checked": CHECK_SINGLES, "same_candidates": compared,
+                        "equal": equal, "certified_candidate_near_ties": cand_ties,
+                        "best_effort_candidates_differ": best_effort}
+    clock.phase("pipelines diversity", (
+        f"{label}: DiversityPipeline.search_batch {len(batches)} x {sz['batch']} "
+        f"queries, top_k {TOP_K} of {TOP_K * pipe.candidate_multiplier} (lambda "
+        f"{pipe.lambda_param}), qps {stats['qps']:.1f}, p50 {stats['p50_ms']:.2f} ms, "
+        f"p99 {stats['p99_ms']:.2f} ms; MMR on the card equals its plain version on "
+        f"the host on {rows} rows ({swaps} near-tie swaps); of {CHECK_SINGLES} "
+        f"queries by search, {compared} had the batch's candidates and {equal} of "
+        f"them its rows ({compared - equal} apart at an MMR near-tie), {cand_ties} "
+        f"certified ones near-tied candidates, {best_effort} best-effort ones other "
+        f"candidates {where}"))
+    return stats
+
+
+def max_fusion_reference(searcher, query: str, k: int, sw: float, lw: float):
+    """HybridBM25's at-scale contract with no kernel: the [1, n] cosine and
+    BM25 arms, each divided by its max over the alive docs, weighted and
+    summed, dead docs at -inf, top-k. Returns (values, ids, fused row) on
+    the host."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+
+    ix = searcher.indexer
+    snap = ix.dense._snap
+    n = snap.n
+    q = l2_normalize(ix.encoder.encode([query]).float())
+    sem = (q @ snap.docs[:n].T)[0]
+    lex = ix.bm25.batch_scores([query])[0]
+    alive = snap.bias[:n] == 0
+
+    def norm(x):
+        mx = x[alive].max()
+        return x / mx if float(mx) > 1e-12 else x
+
+    fused = torch.where(alive, sw * norm(sem) + lw * norm(lex), float("-inf"))
+    vals, ids = torch.topk(fused, k)
+    return vals.cpu().numpy(), ids.cpu().numpy(), fused.cpu().numpy()
+
+
+def serve_hybrid_bm25(pipe, searcher, make_queries, dev, clock: Clock, label: str,
+                      where: str, sink: dict) -> dict:
+    """``HybridBM25Pipeline.search`` on HYBRID_BM25_QUERIES queries one at a
+    time through the impact path (divide-by-max, ``n_alive``); every row
+    marked exact against ``max_fusion_reference`` (ids equal outside EPS_NUM
+    near-ties, values within EPS_NUM), at least HYBRID_BM25_MIN_EXACT of
+    them; the others' mean jaccard@TOP_K at least UNCERTIFIED_JACCARD_FLOOR."""
+    from hybridsearch_tpu_torch import pipelines as pipelines_mod
+
+    n = searcher.indexer.dense._snap.n
+    if n <= pipelines_mod.HYBRID_BM25_SPARSE_MIN:
+        raise AssertionError("the index is below HYBRID_BM25_SPARSE_MIN")
+    queries = make_queries(HYBRID_BM25_QUERIES)
+    pipe.search(queries[0], top_k=TOP_K)
+    with _pipeline_launches(sink):
+        results, lat = _timed_batches(lambda q: pipe.search(q, top_k=TOP_K), queries)
+    exact = [r.metadata["exact"] for r in results]
+    jaccards = []
+    for q, res, ex in zip(queries, results, exact):
+        vals, ids, fused = max_fusion_reference(searcher, q, TOP_K, pipe.semantic_weight,
+                                                pipe.bm25_weight)
+        why = _row_mismatch(res.results, vals, ids.tolist(), fused)
+        if ex and why is not None:
+            raise AssertionError(f"hybrid_bm25 exact row of {q!r}: {why}")
+        if not ex:
+            got = {i for *_x, i in res.results}
+            jaccards.append(len(got & set(ids.tolist())) / max(1, len(got | set(ids.tolist()))))
+    p50 = float(np.percentile(np.array(lat) * 1e3, 50))
+    stats = {"queries": len(queries), "p50_ms": p50, "query_ms": [x * 1e3 for x in lat],
+             "exact_share": float(np.mean(exact)), "n_exact": int(sum(exact)),
+             "uncertified_jaccard_mean": float(np.mean(jaccards)) if jaccards else None}
+    if stats["n_exact"] < HYBRID_BM25_MIN_EXACT:
+        raise AssertionError(f"hybrid_bm25: {stats['n_exact']} of {len(queries)} rows "
+                             f"exact, under {HYBRID_BM25_MIN_EXACT}")
+    if jaccards and stats["uncertified_jaccard_mean"] < UNCERTIFIED_JACCARD_FLOOR:
+        raise AssertionError(f"hybrid_bm25: the uncertified rows' jaccard@{TOP_K} mean "
+                             f"{stats['uncertified_jaccard_mean']} is under "
+                             f"{UNCERTIFIED_JACCARD_FLOOR}")
+    clock.phase("pipelines hybrid_bm25", (
+        f"{label}: HybridBM25Pipeline.search on {len(queries)} queries (impact path, "
+        f"divide-by-max), p50 {p50:.2f} ms a query; {stats['n_exact']} rows exact "
+        f"({stats['exact_share']:.4f}), each equal to the plain [1, n] divide-by-max "
+        f"fusion over alive docs; the others' jaccard@{TOP_K} mean "
+        f"{stats['uncertified_jaccard_mean']} (floor {UNCERTIFIED_JACCARD_FLOOR}) {where}"))
+    return stats
+
+
+def serve_other_pipelines(pipes: dict, searcher, make_queries, clock: Clock,
+                          label: str, where: str) -> dict:
+    """A few queries through BasicPipeline, RerankedPipeline (without and
+    with fusion), BM25Pipeline (rows equal to ``BM25.search``) and
+    RAGPipeline with a stand-in LLM (sources equal to ``Searcher.search``)."""
+    ix = searcher.indexer
+    queries = make_queries(4)
+    out = {}
+    for name, pipe in pipes.items():
+        t = time.perf_counter()
+        rows = [pipe.search(q, top_k=5) for q in queries]
+        out[name] = {"ms_a_query": (time.perf_counter() - t) * 1e3 / len(queries)}
+        for q, res in zip(queries, rows):
+            ids = [i for *_x, i in res.results]
+            vals = [v for v, *_x in res.results]
+            if not res.results or len(set(ids)) != len(ids) or not np.isfinite(vals).all():
+                raise AssertionError(f"{name}: row of {q!r} is empty, repeats a doc or "
+                                     "is not finite")
+            if name == "bm25":
+                want = [(s, ix.contents[i], i) for i, s in ix.bm25.search(q, top_k=5)]
+                if res.results != want:
+                    raise AssertionError(f"bm25: row of {q!r} is not BM25.search's")
+            elif name == "rag":
+                want = [(s, c[:200], i) for s, c, i in searcher.search(q, top_k=5,
+                                                                       log=False)]
+                if res.results != want or res.answer != "stand-in answer":
+                    raise AssertionError(f"rag: sources of {q!r} are not "
+                                         "Searcher.search's rows")
+            elif name.startswith("reranked"):
+                cand = {i for *_x, i in searcher.search(q, top_k=15, log=False)}
+                if res.metadata["candidates"] != 15 or not set(ids) <= cand or \
+                        vals != sorted(vals, reverse=True):
+                    raise AssertionError(f"{name}: row of {q!r} is not its candidates "
+                                         "reranked")
+    clock.phase("pipelines others", f"{label}: " + ", ".join(
+        f"{k} {v['ms_a_query']:.2f} ms a query" for k, v in out.items())
+        + f" ({len(queries)} queries each; bm25 rows equal BM25.search, rag sources "
+        f"equal Searcher.search) {where}")
+    return out
+
+
+def serve_chunked(encoder, contents, make_queries, sz: dict, dev, clock: Clock,
+                  label: str, where: str) -> dict:
+    """ChunkedPipeline on its own index: ``chunk_docs`` corpus docs joined
+    CHUNK_JOIN at a time with ". " into parents the sentence chunker splits;
+    parents deduped in every row; a fresh pipeline on the same store file
+    restores the chunk map by ``reload`` and serves the same rows."""
+    import shutil
+
+    from hybridsearch_tpu_torch.pipelines import create_pipeline
+
+    docs = contents[:sz["chunk_docs"]]
+    parents = [". ".join(docs[i:i + CHUNK_JOIN]) for i in range(0, len(docs), CHUNK_JOIN)]
+    shutil.rmtree(PIPELINES_DIR, ignore_errors=True)
+    os.makedirs(PIPELINES_DIR)
+    db = os.path.join(PIPELINES_DIR, "chunked.db")
+    try:
+        pipe = create_pipeline("chunked", encoder=encoder, device=dev, db_path=db)
+        t = time.perf_counter()
+        built = pipe.index(parents)
+        sync(dev)
+        index_s = time.perf_counter() - t
+        if built["chunks"] <= built["parents"]:
+            raise AssertionError("the sentence chunker did not split the parents")
+        queries = make_queries(CHECK_SINGLES)
+        rows = [pipe.search(q, top_k=5).results for q in queries]
+        for q, row in zip(queries, rows):
+            ids = [i for *_x, i in row]
+            best = pipe.searcher.search(q, top_k=1, log=False)[0][2]
+            if len(set(ids)) != len(ids) or any(c != parents[i] for _v, c, i in row) or \
+                    ids[0] != pipe.chunk_to_parent[best]:
+                raise AssertionError(f"chunked: row of {q!r} does not map its chunks "
+                                     "to distinct parents")
+        fresh = create_pipeline("chunked", encoder=encoder, device=dev, db_path=db)
+        t = time.perf_counter()
+        fresh.reload()
+        sync(dev)
+        reload_s = time.perf_counter() - t
+        if fresh.parents != pipe.parents or fresh.chunk_to_parent != pipe.chunk_to_parent:
+            raise AssertionError("chunked: reload did not restore the chunk map")
+        for q, want in zip(queries, rows):
+            got = fresh.search(q, top_k=5).results
+            why = _row_mismatch(got, np.array([v for v, *_x in want]),
+                                [i for *_x, i in want], {i: v for v, _c, i in got})
+            if why is not None:
+                raise AssertionError(f"chunked: after reload, row of {q!r}: {why}")
+        pipe.indexer.close()
+        fresh.indexer.close()
+    finally:
+        shutil.rmtree(PIPELINES_DIR, ignore_errors=True)
+    stats = {"cut": {"corpus_docs": len(docs), "joined": CHUNK_JOIN, "separator": ". ",
+                     "parents": built["parents"], "chunks": built["chunks"],
+                     "chunker": "sentence (max_chars 500, overlap 1)"},
+             "index_s": index_s, "index_timings_s": built["timings_s"],
+             "reload_s": reload_s}
+    clock.phase("pipelines chunked", (
+        f"{label}: ChunkedPipeline on {len(docs)} corpus docs joined {CHUNK_JOIN} at a "
+        f"time into {built['parents']} parents, {built['chunks']} chunks, indexed in "
+        f"{index_s:.1f} s; {len(queries)} rows map chunks to distinct parents; reload "
+        f"on the same store ({reload_s:.1f} s) restores the chunk map and serves the "
+        f"same rows {where}"))
+    return stats
+
+
+def serve_semantic_cache(encoder, make_queries, sz: dict, dev, clock: Clock,
+                         label: str, where: str) -> dict:
+    """SemanticCache on the card: a batch of the encoder's query vectors set
+    and got back (every one must hit), a second batch's hits, and the card's
+    LSH signatures against the plain ones on the host (equal wherever every
+    |projection| > PROJ_EPS)."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+    from hybridsearch_tpu_torch.ops.lsh import lsh_signatures
+    from hybridsearch_tpu_torch.services.semantic_cache import SemanticCache
+
+    cache = SemanticCache(dim=encoder.dim, device=dev)
+    first = encoder.encode(make_queries(sz["batch"]))
+    second = encoder.encode(make_queries(sz["batch"]))
+    t = time.perf_counter()
+    for i, v in enumerate(first):
+        cache.set(v, i)
+    set_ms = (time.perf_counter() - t) * 1e3 / len(first)
+    t = time.perf_counter()
+    hits = sum(cache.get(v) is not None for v in first)
+    get_ms = (time.perf_counter() - t) * 1e3 / len(first)
+    if hits != len(first):
+        raise AssertionError(f"semantic cache: {hits} of {len(first)} vectors set were "
+                             "got back")
+    hits2 = sum(cache.get(v) is not None for v in second)
+    unit = l2_normalize(first.float())
+    T, K = cache.n_tables, cache.n_bits
+    card = lsh_signatures(cache.planes, unit, T, K).cpu()
+    host = lsh_signatures(cache.planes.cpu(), unit.cpu(), T, K)
+    proj = unit.double().cpu() @ cache.planes.double().cpu().T
+    clear = (proj.abs() > PROJ_EPS).all(dim=1)
+    differ = (card != host).any(dim=1)
+    if (differ & clear).any():
+        raise AssertionError("LSH signatures on the card differ from the host's "
+                             "away from a zero projection")
+    stats = {"set": len(first), "hits": hits, "second_batch_hits": hits2,
+             "set_ms": set_ms, "get_ms": get_ms, "rows_near_zero": int((~clear).sum()),
+             "rows_differing": int(differ.sum())}
+    clock.phase("pipelines semantic cache", (
+        f"{label}: SemanticCache ({T} tables x {K} bits) set {len(first)} query vectors "
+        f"({set_ms:.3f} ms each) and got all back ({get_ms:.3f} ms each); a second "
+        f"batch hit {hits2} of {len(second)}; signatures on the card equal the host's "
+        f"({int((~clear).sum())} rows with a projection within {PROJ_EPS} of 0, "
+        f"{int(differ.sum())} differing) {where}"))
+    return stats
+
+
+def serve_pipelines(handoff: dict, sz: dict, dev: torch.device, clock: Clock,
+                    kind: str, smi: str) -> dict:
+    """"small-topic/source/pipelines": the pipelines of ``create_pipeline``
+    on the minilm run's index, not re-indexed (``_adopt``): the funnel,
+    diversity, HybridBM25 on its impact path, the other four, then
+    ChunkedPipeline on an index of its own and the semantic cache. K1, K4,
+    K6 and K7 must launch while the pipelines serve."""
+    from hybridsearch_tpu_torch.pipelines import create_pipeline
+    from hybridsearch_tpu_torch.retrieval.reranker import CrossEncoderReranker
+
+    label = "small-topic/source/pipelines"
+    where = f"({kind}; {smi})"
+    searcher, enc, ce = handoff["searcher"], handoff["encoder"], handoff["cross_encoder"]
+    make_queries = handoff["make_queries"]
+
+    def build(name, **kw):
+        return _adopt(create_pipeline(name, encoder=enc, device=dev, **kw), searcher)
+
+    reranker = CrossEncoderReranker(model=ce)
+    launches: dict = {}
+    stats = {"launches_by_pipeline": {}}
+    needs = {"multi_stage": ("tile_stats", "super_scores_dedup"),
+             "diversity": PIPELINE_KERNELS, "hybrid_bm25": PIPELINE_KERNELS}
+    for name, run in (
+            ("multi_stage", lambda s: serve_funnel(
+                build("multi_stage", reranker=reranker), searcher, ce, make_queries, sz,
+                dev, clock, label, where, s)),
+            ("diversity", lambda s: serve_diversity(
+                build("diversity"), searcher, make_queries, sz, dev, clock, label, where,
+                s)),
+            ("hybrid_bm25", lambda s: serve_hybrid_bm25(
+                build("hybrid_bm25"), searcher, make_queries, dev, clock, label, where,
+                s))):
+        sink: dict = {}
+        stats[name] = run(sink)
+        stats["launches_by_pipeline"][name] = sink
+        if dev.type == "cuda" and min(sink.get(k, 0) for k in needs[name]) == 0:
+            raise AssertionError(f"{name}: a kernel of its path never launched: {sink}")
+        for k, v in sink.items():
+            launches[k] = launches.get(k, 0) + v
+    stats["others"] = serve_other_pipelines({
+        "basic": build("basic"),
+        "reranked": build("reranked", reranker=reranker),
+        "reranked/fusion": build("reranked", reranker=reranker, use_fusion=True),
+        "bm25": build("bm25"),
+        "rag": build("rag", llm_fn=lambda prompt: ("stand-in answer", None)),
+    }, searcher, make_queries, clock, label, where)
+    stats["chunked"] = serve_chunked(enc, searcher.indexer.contents, make_queries, sz,
+                                     dev, clock, label, where)
+    stats["semantic_cache"] = serve_semantic_cache(enc, make_queries, sz, dev, clock,
+                                                   label, where)
+    stats["launches"] = launches
+    clock.phase(label, f"launches {json.dumps(launches)} {where}")
     return stats
 
 

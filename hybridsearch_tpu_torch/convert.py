@@ -3,9 +3,10 @@
 Every function takes plain numpy arrays (and Python scalars), as read out
 of a ``hybridsearch_tpu`` index, and returns the port's object on the
 chosen device. With them a test builds both packages on identical state:
-the ``HashingEncoder`` table (``jax.random`` bits the port's generator
-cannot repeat), the dense snapshot, the BM25 CSR state, the supertile
-postings, the impact tier, and the clustered permutation of the corpus.
+the ``HashingEncoder`` table and the semantic cache's LSH planes
+(``jax.random`` bits the port's generator cannot repeat), the dense
+snapshot, the BM25 CSR state, the supertile postings, the impact tier, and
+the clustered permutation of the corpus.
 """
 
 from __future__ import annotations
@@ -132,6 +133,14 @@ def impact_postings(doc_ids: np.ndarray, weights: np.ndarray, n_docs: int,
 def attach_impact_postings(bm: BM25, imp: ImpactPostings) -> None:
     """Serve ``imp`` as the impact tier of ``bm``'s current state."""
     bm._impact_cache = (bm._state, imp.p_max, imp)
+
+
+def lsh_planes(planes: np.ndarray, device: DeviceLike = None) -> torch.Tensor:
+    """The JAX ``lsh_planes`` draw ([n_tables * n_bits, dim], threefry bits
+    the port's generator cannot repeat) as a float32 tensor on the device,
+    for ``SemanticCache(planes=...)`` and ``ops/lsh.py``."""
+    return torch.from_numpy(np.array(planes, dtype=np.float32)).to(
+        resolve_device(device))
 
 
 def indexer(contents: Sequence[str], encoder: HashingEncoder, dense: DenseIndex,

@@ -528,23 +528,32 @@ class BM25:
         return [float(full[i]) for i in doc_indices]
 
     def candidate_scores(self, query: str, candidates: np.ndarray) -> np.ndarray:
-        """[C] scores at candidate doc ids (-1 ids score 0), by binary
-        search in the query's runs of the main and delta postings: equal to
-        full scoring, without it."""
-        if self.n_docs == 0:
-            return np.zeros(len(candidates), dtype=np.float32)
+        """[C] scores at candidate doc ids (-1 ids score 0): one row of
+        ``candidate_scores_batch``."""
+        cand = np.asarray(candidates, np.int64)[None, :]
+        return self.candidate_scores_batch([query], cand)[0]
+
+    def candidate_scores_batch(self, queries: Sequence[str],
+                               candidates: np.ndarray) -> np.ndarray:
+        """[B, C] scores of query b at its candidate doc ids candidates[b]
+        (-1 ids score 0), by binary search in the queries' runs of the main
+        and delta postings: equal to full scoring, without it. One call of
+        ``bm25_candidate_scores_runs`` a segment for the whole batch."""
         state = self._state
-        cand = torch.from_numpy(np.asarray(candidates, np.int64)[None, :])
-        out = np.zeros(len(candidates), dtype=np.float32)
-        groups = self.encode_queries_bucketed([query], state)
+        cand_np = np.asarray(candidates, np.int64)
+        out = np.zeros(cand_np.shape, dtype=np.float32)
+        if state.n_docs == 0:
+            return out
+        cand = torch.from_numpy(cand_np)
+        groups = self.encode_queries_bucketed(list(queries), state)
         if groups:
             out = out + bm25_ops.bm25_candidate_scores_runs(
-                state.postings, groups, cand)[0].cpu().numpy()
+                state.postings, groups, cand).cpu().numpy()
         if state.delta_seg is not None:
-            groups_d = self._delta_groups([query], state)
+            groups_d = self._delta_groups(list(queries), state)
             if groups_d:
                 out = out + bm25_ops.bm25_candidate_scores_runs(
-                    state.delta_seg.postings, groups_d, cand)[0].cpu().numpy()
+                    state.delta_seg.postings, groups_d, cand).cpu().numpy()
         return out.astype(np.float32)
 
     def search(self, query: str, top_k: int = 10) -> List[Tuple[int, float]]:

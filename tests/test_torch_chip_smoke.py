@@ -78,6 +78,20 @@ def test_cpu_rehearsal_runs_every_phase():
     for phase in ("search_batch", "reference"):
         for run in ("", "/deleted", "/reloaded"):
             assert any(f"] {phase}: {lifecycle}{run}:" in ln for ln in lines), (phase, run)
+    pipelines = "small-topic/source/pipelines"
+    for phase in ("pipelines funnel", "pipelines diversity", "pipelines hybrid_bm25",
+                  "pipelines others", "pipelines chunked", "pipelines semantic cache"):
+        assert any(f"] {phase}: {pipelines}" in ln for ln in lines), phase
+    assert any("] pipelines funnel: " in ln and "stage 1 equals the exact dense top-100"
+               in ln and "stage 2 equals BM25.candidate_scores" in ln for ln in lines)
+    assert any("] pipelines diversity: " in ln and "MMR on the card equals its plain "
+               "version on the host" in ln for ln in lines)
+    assert any("] pipelines hybrid_bm25: " in ln and "rows exact" in ln for ln in lines)
+    assert any("] pipelines chunked: " in ln and "restores the chunk map" in ln
+               for ln in lines)
+    assert any("] pipelines semantic cache: " in ln and "got all back" in ln
+               for ln in lines)
+    assert any(f"] {pipelines}: launches " in ln for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

@@ -48,6 +48,8 @@ def test_port_sources_import_no_jax():
 def test_entry_points_default_to_the_card():
     """device=None means the card: without one it raises, never falls back."""
     from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.pipelines import create_pipeline
+    from hybridsearch_tpu_torch.services.semantic_cache import SemanticCache
     from hybridsearch_tpu_torch.utils.device import resolve_device
 
     assert resolve_device("cpu").type == "cpu"
@@ -58,6 +60,10 @@ def test_entry_points_default_to_the_card():
             resolve_device()
         with pytest.raises(RuntimeError):
             Indexer()
+        with pytest.raises(RuntimeError):
+            create_pipeline("basic")
+        with pytest.raises(RuntimeError):
+            SemanticCache()
     import hybridsearch_tpu_torch  # noqa: F401
 
     assert torch.backends.cuda.matmul.allow_tf32 is False

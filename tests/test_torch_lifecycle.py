@@ -194,6 +194,31 @@ def test_candidate_scores_cover_delta_docs(drng):
     np.testing.assert_array_equal(out, jb.candidate_scores("zebra okapi", cand))
 
 
+def test_candidate_scores_batch_rows_equal_single_calls(drng):
+    """``candidate_scores_batch`` over [B] queries and [B, C] candidates,
+    with a delta pending: each row equals that query's own
+    ``candidate_scores`` (the JAX one's too) and full scoring at its
+    candidates."""
+    tb, jb = _both(corpus(drng, 130))
+    for bm in (tb, jb):
+        bm.add_tokens(toks(["zebra quagga okapi wild"]))
+    assert tb._state.delta_seg is not None
+    queries = ["zebra okapi", "w1 w2 w3", "quagga w7", "nothing here"]
+    cand = np.stack([drng.permutation(131)[:12] for _ in queries])
+    cand[:, 0] = 130
+    cand[1, 3] = cand[2, 5] = -1
+    got = tb.candidate_scores_batch(queries, cand)
+    assert got.shape == cand.shape and got.dtype == np.float32
+    assert got[0, 0] > 0.0 and got[1, 3] == got[2, 5] == 0.0
+    for b, q in enumerate(queries):
+        np.testing.assert_array_equal(got[b], tb.candidate_scores(q, cand[b]))
+        np.testing.assert_array_equal(got[b], jb.candidate_scores(q, cand[b]))
+        full = tb.score_all(q)
+        np.testing.assert_allclose(got[b], np.where(cand[b] >= 0, full[cand[b]], 0.0),
+                                   rtol=1e-6, atol=0)
+    assert not BM25(device=CPU).candidate_scores_batch(queries, cand).any()
+
+
 @pytest.mark.parametrize("builder", ["super_postings", "impact_postings"])
 def test_at_scale_builders_compact_first(drng, builder):
     """A tier built while a delta is pending would drop the new docs'
