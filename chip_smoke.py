@@ -29,6 +29,18 @@ are timed at every rung beside K2 and the window gather + K3 on the same
 work; K4 is held bit-equal to K2 and its whole route (pair sort, group
 table, kernel) is timed against K2 at every rung.
 
+The same index then serves the clustered index's other routes, not
+re-indexed: "small-topic/tile" under ``HST_SUPER_HYBRID=0`` (the tile
+ladder: K1, K4 at tile grain, K6) and "small-topic/impact" with
+``HST_TILE_HYBRID=0`` as well (the impact ladder: K1, K4, K6, K7), each
+through ``search_batch`` on the same batches, every certified row against
+the exact reference and the first batch served twice bit for bit; one
+batch of ``hybrid_impact_topk(kd_tiles=128)`` (the first rung the searcher
+takes at 1M docs) beside the same rung without the budget; and one batch
+of the one-call ``hybrid_supertile_topk`` at s_probe 2 and 16 (K1-K3),
+equal bit for bit to ``super_prefix`` + one rung. The route kernels'
+launches of each run are counted, all seven of them.
+
 The default configuration's path comes next: the same small-topic corpus
 indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), pass 3 of the dense top-k (K4 at
@@ -44,10 +56,19 @@ paths, K3 at every rung) hold each bit-equal to its first design and time
 the two side by side; the rows of K2, K5, K6 and K7 mark
 the goal of at least half the kernel's bound met or missed and give each
 route's host time (events around back-to-back calls less device time).
-"Regime 1" serves a corpus a quarter of the size, below
+On its index, not re-indexed, "small-topic/source/sparse" serves the
+batches through ``hybrid_sparse_topk`` over ``BM25.encode_queries_sparse``
+(K1, K4): queries whose Zipf word has a run past 65,536 postings take its
+per-tile weight-sum row; the rows' count, bytes and build seconds (inside
+the ``bm25_s`` stage) are printed. "Regime 1" serves a corpus a quarter of the size, below
 ``SPARSE_HYBRID_MIN_DOCS``, through the full [B, n] fused program; one
 batch is served twice and must be equal bit for bit. A corpus with larger topics is served on the
-clustered path. Each of those runs is given the hashing encoder.
+clustered path. "small-topic/ivf" is the one other new build: the
+small-topic corpus with ``ann="ivf"`` on the clustered layout (the IVF
+adopts the dense buffer and the layout's k-means), served in scatter mode:
+every row against a plain scatter reference over the same IVF top 2k, the
+IVF at full probe against ``DenseIndex.search``, recall@10 at nprobe 8
+printed as a reading. Each of those runs is given the hashing encoder.
 
 Last, "small-topic/source/minilm" runs the default configuration as a user
 keeps it: small-topic under ``layout="source"`` with no encoder given, so
@@ -101,6 +122,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import itertools
 import json
 import os
@@ -116,6 +138,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 
 REHEARSAL_THREADS = 2  # torch's intra-op threads in the CPU rehearsal
+REHEARSAL_HOT_DF = 1024  # the hot-term threshold of the rehearsal's tiny corpora
 # (main-path shapes, rehearsal shapes)
 SIZES = {
     "card": dict(n_docs=524_288, dim=384, batch=256, n_batches=8,
@@ -168,6 +191,13 @@ PATHS = {
     # pass 3 of its dense top-k runs K4 at tile grain (tile_scores)
     "source": ("impact_ladder", ("tile_stats", "slice_runs", "rescore",
                                  "super_scores_dedup")),
+    # the clustered index with HST_SUPER_HYBRID=0: the tile ladder (K1, K4 at
+    # tile grain, K6)
+    "clustered/tile": ("tile_ladder", ("tile_stats", "super_scores_dedup",
+                                       "slice_runs")),
+    # and with HST_TILE_HYBRID=0 too: the impact ladder on the clustered index
+    "clustered/impact": ("impact_ladder", ("tile_stats", "slice_runs", "rescore",
+                                           "super_scores_dedup")),
 }
 # (T, p, C) of the impact kernels' checks: the three rungs of the impact
 # ladder at T = 8 term slots (C = k_dense + T * c_per_term), the third rung
@@ -1249,8 +1279,9 @@ class BuildRecorder:
         return cent
 
     def _perm(self, vectors, *a, **kw):
-        self.perm = self.real_perm(vectors, *a, **kw)
-        return self.perm
+        out = self.real_perm(vectors, *a, **kw)  # (perm, centroids, assignment)
+        self.perm = out[0]
+        return out
 
     def restore(self) -> None:
         self.builder.kmeans_fit = self.real_fit
@@ -1376,6 +1407,7 @@ def main(argv=None) -> int:
     from hybridsearch_tpu_torch.ops import dense as dense_mod
     from hybridsearch_tpu_torch.ops import supertile as supertile_mod
     from hybridsearch_tpu_torch import pipelines as pipelines_mod
+    from hybridsearch_tpu_torch.ops import bm25 as bm25_mod
     from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
 
     sz = SIZES["cpu" if rehearsal else "card"]
@@ -1386,6 +1418,8 @@ def main(argv=None) -> int:
         dense_mod._on_card = supertile_mod._on_card = lambda t: True
         searcher_mod.SPARSE_HYBRID_MIN_DOCS = 0
         pipelines_mod.HYBRID_BM25_SPARSE_MIN = 0
+        # a tiny corpus has hot terms only under a lower threshold
+        bm25_mod.HOT_DF_THRESHOLD = REHEARSAL_HOT_DF
         # tiny shapes gain little from threads, and a full set of them
         # oversubscribes a host shared with other processes
         torch.set_num_threads(min(REHEARSAL_THREADS, torch.get_num_threads()))
@@ -1457,12 +1491,42 @@ def main(argv=None) -> int:
     else:
         detail["levers_by_probe"] = {"super_scores_dedup": rows4, "place_fused": rows5}
         clock.phase("levers kernel timing", "small-topic/levers main-path inputs")
-    del run, lev, caps
+    # the same index, not re-indexed, through the other clustered routes
+    routes = {}  # each new run's launches, for the kernel line
+    for label, path, env in (
+            ("small-topic/tile", "clustered/tile", {"HST_SUPER_HYBRID": "0"}),
+            ("small-topic/impact", "clustered/impact",
+             {"HST_SUPER_HYBRID": "0", "HST_TILE_HYBRID": "0"})):
+        gated = serve_gated(run, label, path, env, sz, dev, clock, kind, smi)
+        detail["corpora"][label] = gated["stats"]
+        routes[label] = gated["launches"]
+    kd = serve_kd_tiles(run, sz, dev, clock, kind, smi)
+    detail["corpora"]["small-topic/impact/kd_tiles"] = kd
+    routes["small-topic/impact/kd_tiles"] = kd["launches"]
+    one_call = serve_one_call(run, sz, dev, clock, kind, smi)
+    detail["corpora"]["small-topic/one-call"] = one_call
+    for s_probe, row in one_call.items():
+        routes[f"small-topic/one-call s_probe={s_probe}"] = row["launches"]
+    del run, lev, caps, gated
     clock.phase("P1 check", "small-topic: " + check_p1(rec))
     del rec
 
-    run = serve_corpus("small-topic", "source", sz, dev, args.seed, clock, kind,
-                       smi, main_path=True)
+    hot_s = []  # seconds of the hot-term tables inside the source build's bm25_s
+    real_hot = bm25_mod._hot_tables
+
+    def timed_hot(*a, **kw):
+        t = time.perf_counter()
+        out = real_hot(*a, **kw)
+        sync(dev)
+        hot_s.append(time.perf_counter() - t)
+        return out
+
+    bm25_mod._hot_tables = timed_hot
+    try:
+        run = serve_corpus("small-topic", "source", sz, dev, args.seed, clock, kind,
+                           smi, main_path=True)
+    finally:
+        bm25_mod._hot_tables = real_hot
     detail["corpora"]["small-topic/source"] = run["stats"]
     caps = {name: run["captures"][name] for name in ("slice_runs", "rescore")}
     numbers += kernel_numbers(caps, run["launches"], dev)
@@ -1482,6 +1546,9 @@ def main(argv=None) -> int:
         detail["pass3_by_rung"] = pass3
         clock.phase("impact kernel timing", "small-topic/source main-path inputs, "
                     f"pass 3 at kd = {[r['tiles_per_query'] for r in pass3]}")
+    sparse = serve_sparse(run, sz, dev, clock, kind, smi, sum(hot_s))
+    detail["corpora"]["small-topic/source/sparse"] = sparse
+    routes["small-topic/source/sparse"] = sparse["launches"]
     oneshot = oneshot_record(run)
     del run, caps
 
@@ -1502,8 +1569,14 @@ def main(argv=None) -> int:
     detail["corpora"]["large-topic"] = serve_corpus(
         "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
         main_path=False)["stats"]
+    ivf = serve_ivf(sz, dev, args.seed, clock, kind, smi)
+    detail["corpora"]["small-topic/ivf"] = ivf
+    routes["small-topic/ivf"] = ivf["launches"]
     order = list(KERNEL_META)
     numbers.sort(key=lambda row: order.index(row["name"]))
+    for row in numbers:
+        row["launches_routes"] = {label: counts[row["name"]]
+                                  for label, counts in routes.items()}
 
     detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
         sz, dev, args.seed, clock, kind, smi, rehearsal)
@@ -1575,9 +1648,11 @@ def hashing_encoder(sz: dict, dev: torch.device):
 
 
 def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
-                 clock: Clock, label: str, at_scale: bool = True, prepare=None):
-    """Index one corpus under ``layout`` through ``Indexer.index_documents``
-    and, ``at_scale``, build its ladder's lexical structures. The searcher
+                 clock: Clock, label: str, at_scale: bool = True, prepare=None,
+                 ann: str = "flat"):
+    """Index one corpus under ``layout`` (and ``config.index.ann``) through
+    ``Indexer.index_documents`` and, ``at_scale``, build its ladder's
+    lexical structures. The searcher
     serves the hashing encoder unless ``prepare`` is given: then the
     Indexer resolves its own default encoder, and ``prepare(searcher)``
     runs before indexing and returns a function that adds stages to the
@@ -1590,6 +1665,7 @@ def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
                 f"{sum(len(d) for d in docs)} chars")
     cfg = EngineConfig()
     cfg.index.layout = layout
+    cfg.index.ann = ann
     cfg.index.dim = sz["dim"]
     searcher = Searcher(config=cfg, use_query_memory=False, device=dev,
                         encoder=None if prepare else hashing_encoder(sz, dev))
@@ -1637,13 +1713,35 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     return run
 
 
+@contextlib.contextmanager
+def gc_pauses(sink: list, batch: list):
+    """Append (generation, seconds, batch[0]) for every collection of
+    Python's garbage collector while the block runs: a full (generation 2)
+    collection walks every container object of the process, and host pauses
+    show up in a batch's wall time."""
+    t0 = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            sink.append((info["generation"], time.perf_counter() - t0[0], batch[0]))
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield sink
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
                   dev: torch.device, clock: Clock, kind: str, smi: str,
                   main_path: bool) -> dict:
     """Serve ``warm`` and then the timed ``batches`` through ``search_batch``
     on the route ``path`` (``PATHS``), and hold every certified row against
-    the plain exact reference. The path's kernels' counts are set to 0 just
-    before the timed batches and read just after; on a main path, the
+    the plain exact reference. Every kernel's count is set to 0 just before
+    the timed batches and read just after (the path's kernels must have
+    launched); on a main path, the
     kernel calls of the warm-up and the timed batches (the levers route:
     the warm-up only) are captured. Returns {"stats", "launches", "captures",
     "results", "exact"}."""
@@ -1670,17 +1768,19 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
         clock.phase("warm-up batch", f"{label}: {len(warm)} queries")
 
         ladders.clear()
-        kernels = {name: kernel_fns(name)[0] for name in kernel_names}
+        kernels = {name: kernel_fns(name)[0] for name in KERNEL_META}
         for fn in kernels.values():
             fn.launches = 0
         for cap in captures.values():
             cap.counts.clear()
         v1_before = [fn.launches for fn in first_designs()]
-        lat, results = [], []
-        for qs in batches:
-            t = time.perf_counter()
-            results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
-            lat.append(time.perf_counter() - t)
+        lat, results, pauses, current = [], [], [], [0]
+        with gc_pauses(pauses, current):
+            for i, qs in enumerate(batches):
+                current[0] = i
+                t = time.perf_counter()
+                results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
+                lat.append(time.perf_counter() - t)
         launches = {name: fn.launches for name, fn in kernels.items()}
         if [fn.launches for fn in first_designs()] != v1_before:
             raise AssertionError(f"{label}: a first design (_v1) launched on the "
@@ -1691,7 +1791,7 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
             cap.restore()
     if len(ladders) != len(batches):
         raise AssertionError(f"search_batch did not take the {ladder_name}")
-    if on_card and min(launches.values()) == 0:
+    if on_card and min(launches[name] for name in kernel_names) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     rungs = [r for _e, r in ladders]
     if (on_card and main_path and clustered
@@ -1717,10 +1817,15 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
                 f"plain exact fused reference; {best_effort_ok} of "
                 f"{n_q - checked} uncertified rows match it too, their "
                 f"jaccard@{TOP_K} mean {jac_mean}")
+    full = [(sec, i) for gen, sec, i in pauses if gen == 2]
+    gc_text = (f"{len(full)} full collections, {1e3 * sum(t for t, _i in full):.1f} ms"
+               + (f", the longest {1e3 * max(full)[0]:.1f} ms in batch {max(full)[1]}"
+                  if full else ""))
     print(f"    {label}: certified {exact.mean():.4f} ({int(exact.sum())}/"
           f"{exact.size}), rungs mean {np.mean(rungs):.2f}, qps {qps:.1f}, batch "
           f"latency p50 {p50:.2f} ms p99 {p99:.2f} ms (B={sz['batch']}, {kind}; "
-          f"{smi}; unsourced synthetic corpus)", flush=True)
+          f"{smi}; unsourced synthetic corpus); host GC in the timed batches: "
+          f"{gc_text}", flush=True)
     if not exact.any():
         raise AssertionError("no query was certified")
     stats = {"path": path, "certified": float(exact.mean()),
@@ -1728,7 +1833,8 @@ def serve_batches(searcher, label: str, path: str, warm, batches, sz: dict,
              "best_effort_match": best_effort_ok,
              "uncertified_jaccard_mean": jac_mean, "rungs": rungs, "qps": qps,
              "p50_ms": float(p50), "p99_ms": float(p99),
-             "batch_ms": [x * 1e3 for x in lat], "launches": launches}
+             "batch_ms": [x * 1e3 for x in lat], "launches": launches,
+             "gc_pauses_s": [[g, sec, i] for g, sec, i in pauses]}
     return {"stats": stats, "launches": launches, "captures": captures,
             "results": results, "exact": exact}
 
@@ -1830,6 +1936,370 @@ def check_batches(searcher, batches, results, exact_rows, sw: float, lw: float):
     return checked, best_effort_ok, jaccards
 
 
+# -- the other single-device routes: tile, clustered impact, one-call
+# -- supertile, sparse hybrid, IVF ------------------------------------------------
+
+KD_TILES = 128  # the impact ladder's first-rung dense budget at 1M docs or more
+ONE_CALL_PROBES = (2, 16)  # s_probe of the one-call supertile entry's batches
+
+
+@contextlib.contextmanager
+def counting(sink: dict):
+    """Set every kernel's count to 0, run the block, read the counts into
+    ``sink``."""
+    fns = {name: kernel_fns(name)[0] for name in KERNEL_META}
+    for fn in fns.values():
+        fn.launches = 0
+    yield sink
+    sink.update({name: fn.launches for name, fn in fns.items()})
+
+
+def _require_launched(label: str, launches: dict, names, dev: torch.device) -> None:
+    if dev.type == "cuda" and min(launches[n] for n in names) == 0:
+        raise AssertionError(f"{label}: a kernel of the route never launched: "
+                             f"{launches}")
+
+
+def result_rows(res, contents):
+    """A HybridTopK as ``search_batch``'s rows: (value, content, doc id) of
+    each finite slot with a doc id inside the corpus."""
+    vals, ids = res.values.cpu().numpy(), res.indices.cpu().numpy()
+    return [[(float(v), contents[int(i)], int(i)) for v, i in zip(vr, ir)
+             if 0 <= int(i) < len(contents) and np.isfinite(v)]
+            for vr, ir in zip(vals, ids)]
+
+
+def _same_tensors(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _latency_text(lat, n_q: int, sz: dict, kind: str, smi: str) -> tuple:
+    p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+    qps = n_q / sum(lat)
+    return qps, float(p50), float(p99), (
+        f"qps {qps:.1f}, batch latency p50 {p50:.2f} ms p99 {p99:.2f} ms "
+        f"(B={sz['batch']}, {kind}; {smi}; unsourced synthetic corpus)")
+
+
+def serve_gated(run: dict, label: str, path: str, env: dict, sz: dict,
+                dev: torch.device, clock: Clock, kind: str, smi: str) -> dict:
+    """The index of ``run``, not re-indexed, served through ``search_batch``
+    under the route gates ``env`` (serve_batches: its warm-up and timed
+    batches, every certified row against the exact reference); then the
+    first batch is served again and must be equal bit for bit, and one
+    batch is profiled. Returns serve_batches' dict."""
+    searcher = run["searcher"]
+    with _environ(**env):
+        out = serve_batches(searcher, label, path, run["warm"], run["batches"], sz,
+                            dev, clock, kind, smi, main_path=False)
+        if searcher.search_batch(run["batches"][0], top_k=TOP_K,
+                                 log=False) != out["results"][0]:
+            raise AssertionError(f"{label}: two servings of one batch differ")
+        if dev.type == "cuda":
+            out["stats"]["profile"] = profile_batch(searcher, run["batches"][0])
+            clock.phase("profile", f"{label}: " + out["stats"]["profile"])
+    out["stats"]["repeat_equal"] = True
+    out["stats"]["gates"] = env
+    clock.phase(label, f"{json.dumps(env)}: the first batch served twice is equal "
+                "bit for bit")
+    return out
+
+
+def serve_kd_tiles(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                   smi: str) -> dict:
+    """One batch of the clustered index through ``hybrid_impact_topk`` at the
+    impact ladder's first rung with ``kd_tiles=128`` (the rung the searcher
+    takes on a clustered index of 1M docs or more): kernels counted, served
+    twice bit for bit, certified rows against the exact reference, beside
+    the same rung without the budget."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize, tiled_dense_topk
+    from hybridsearch_tpu_torch.ops.hybrid import hybrid_impact_topk
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    label = "small-topic/impact/kd_tiles"
+    s, qs = run["searcher"], run["batches"][0]
+    idx, fu = s.indexer, s.config.fusion
+    snap = idx.dense._snap
+    kd, cp, pd = searcher_mod._IMPACT_LADDER[0]
+    q = l2_normalize(idx.encoder.encode(qs).float())
+    imp, enc = idx.bm25.encode_queries_impact(qs, p_depth=pd)
+
+    def call(kd_tiles):
+        return hybrid_impact_topk(q, snap.docs, imp, enc, TOP_K, fu.semantic_weight,
+                                  fu.lexical_weight, bias=snap.bias, k_dense=kd,
+                                  c_per_term=cp, p_depth=pd,
+                                  n_alive=snap.n - idx.dense.deleted_count,
+                                  kd_tiles=kd_tiles)
+
+    launches: dict = {}
+    with counting(launches):
+        res = call(KD_TILES)
+    _require_launched(label, launches, PATHS["clustered/impact"][1], dev)
+    if not _same_tensors(call(KD_TILES), res):
+        raise AssertionError(f"{label}: two calls on one batch differ")
+    covered = tiled_dense_topk(q, snap.docs, kd, bias=snap.bias, with_stats=True,
+                               probe_tiles=KD_TILES)[-1]
+    rv, ri, fused = reference_topk(s, qs, TOP_K, fu.semantic_weight, fu.lexical_weight)
+    exact = res.exact.cpu().numpy()
+    checked, best_ok, jac = check_against_reference(result_rows(res, idx.contents),
+                                                    exact, rv, ri, fused)
+    del fused
+    full = call(None)
+    ms = time_ms(lambda: call(KD_TILES), dev, reps=3)
+    full_ms = time_ms(lambda: call(None), dev, reps=3)
+    stats = {"kd_tiles": KD_TILES, "rung": [kd, cp, pd], "launches": launches,
+             "dense_covered": int(covered.sum()), "n_certified": int(exact.sum()),
+             "n_certified_without_budget": int(full.exact.sum()),
+             "rows_checked": checked, "uncertified_match": best_ok,
+             "uncertified_jaccard_mean": float(np.mean(jac)) if jac else None,
+             "ms": ms, "ms_without_budget": full_ms, "repeat_equal": True}
+    clock.phase(label, (
+        f"hybrid_impact_topk(kd_tiles={KD_TILES}) at rung (k_dense, c_per_term, "
+        f"p_depth) = {(kd, cp, pd)} on {len(qs)} queries: launches "
+        f"{json.dumps(launches)}; served twice bit for bit; dense arm covered "
+        f"{stats['dense_covered']}/{len(qs)}; certified {stats['n_certified']} "
+        f"(without the budget {stats['n_certified_without_budget']}), all {checked} "
+        f"match the plain exact fused reference, {best_ok} uncertified match too "
+        f"(jaccard@{TOP_K} mean {stats['uncertified_jaccard_mean']}); {ms:.2f} ms "
+        f"vs {full_ms:.2f} ms without the budget ({kind}; {smi})"))
+    return stats
+
+
+def serve_one_call(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                   smi: str) -> dict:
+    """One batch of the clustered index through the one-call
+    ``hybrid_supertile_topk`` at each s_probe of ONE_CALL_PROBES: K1-K3
+    counted, equal bit for bit to ``super_prefix(s_max=s_probe)`` + one
+    ``hybrid_supertile_topk_rung``, served twice bit for bit, certified
+    rows against the exact reference."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    label = "small-topic/one-call"
+    s, qs = run["searcher"], run["batches"][0]
+    idx, fu = s.indexer, s.config.fusion
+    snap = idx.dense._snap
+    sw, lw = fu.semantic_weight, fu.lexical_weight
+    sp, enc = idx.bm25.encode_queries_super(qs)
+    q = l2_normalize(idx.encoder.encode(qs).float())
+    n_alive = snap.n - idx.dense.deleted_count
+    rv, ri, fused = reference_topk(s, qs, TOP_K, sw, lw)
+    out = {}
+    for s_probe in ONE_CALL_PROBES:
+        def call():
+            return st.hybrid_supertile_topk(q, snap.docs, sp, enc, TOP_K, sw, lw,
+                                            bias=snap.bias, s_probe=s_probe,
+                                            n_alive=n_alive, return_probes=True)
+
+        launches: dict = {}
+        with counting(launches):
+            res, probes = call()
+        _require_launched(f"{label} s_probe={s_probe}", launches,
+                          PATHS["clustered"][1], dev)
+        pfx = st.super_prefix(q, snap.docs, sp, enc, bias=snap.bias, w_s=sw, w_l=lw,
+                              s_max=s_probe)
+        rung = st.hybrid_supertile_topk_rung(q, snap.docs, sp, enc, pfx, TOP_K, sw, lw,
+                                             bias=snap.bias, s_probe=s_probe,
+                                             n_alive=n_alive)
+        if not _same_tensors(res, rung):
+            raise AssertionError(f"{label} s_probe={s_probe}: not equal to prefix + "
+                                 "rung bit for bit")
+        again, again_probes = call()
+        if not (_same_tensors(again, res) and torch.equal(again_probes, probes)):
+            raise AssertionError(f"{label} s_probe={s_probe}: two calls differ")
+        exact = res.exact.cpu().numpy()
+        checked, best_ok, jac = check_against_reference(
+            result_rows(res, idx.contents), exact, rv, ri, fused)
+        ms = time_ms(call, dev, reps=3)
+        out[s_probe] = {"launches": launches, "n_certified": int(exact.sum()),
+                        "rows_checked": checked, "uncertified_match": best_ok,
+                        "uncertified_jaccard_mean": float(np.mean(jac)) if jac else None,
+                        "probes": list(probes.shape), "ms": ms,
+                        "equal_to_prefix_and_rung": True, "repeat_equal": True}
+        clock.phase(label, (
+            f"hybrid_supertile_topk(s_probe={s_probe}) on {len(qs)} queries: launches "
+            f"{json.dumps(launches)}; equal bit for bit to super_prefix + "
+            f"hybrid_supertile_topk_rung and to a second call; certified "
+            f"{int(exact.sum())}, all {checked} match the plain exact fused reference, "
+            f"{best_ok} uncertified match too; {ms:.2f} ms a batch ({kind}; {smi})"))
+    del fused
+    return out
+
+
+def serve_sparse(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                 smi: str, hot_build_s: float) -> dict:
+    """The source index of ``run``, not re-indexed, served through
+    ``hybrid_sparse_topk`` (its default budgets) over
+    ``BM25.encode_queries_sparse``: hot terms through their tile-bound table
+    rows and bisection. The warm-up and the timed batches; K1 and K4 (pass
+    3 of the dense top-k) must launch; the first batch again equal bit for
+    bit; every certified row against the exact reference."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+    from hybridsearch_tpu_torch.ops.hybrid import hybrid_sparse_topk
+
+    label = "small-topic/source/sparse"
+    s = run["searcher"]
+    idx, fu = s.indexer, s.config.fusion
+    snap = idx.dense._snap
+    po = idx.bm25._compacted_state().postings
+    H = int((po.hot_rows_of >= 0).sum())
+    table_bytes = (0 if po.hot_tile_bounds is None
+                   else po.hot_tile_bounds.numel() * po.hot_tile_bounds.element_size())
+    hot_queries = []
+
+    def serve(qs):
+        groups, hot = idx.bm25.encode_queries_sparse(qs)
+        hot_queries.append(0 if hot is None else int((hot[2] > 0).any(axis=1).sum()))
+        q = l2_normalize(idx.encoder.encode(qs).float())
+        return hybrid_sparse_topk(q, snap.docs, po, groups, TOP_K, fu.semantic_weight,
+                                  fu.lexical_weight, bias=snap.bias,
+                                  n_alive=snap.n - idx.dense.deleted_count, hot=hot)
+
+    serve(run["warm"])
+    hot_queries.clear()
+    launches: dict = {}
+    lat, outs = [], []
+    with counting(launches):
+        for qs in run["batches"]:
+            t = time.perf_counter()
+            res = serve(qs)
+            rows = result_rows(res, idx.contents)
+            lat.append(time.perf_counter() - t)
+            outs.append((res, rows))
+    _require_launched(label, launches, ("tile_stats", "super_scores_dedup"), dev)
+    if not _same_tensors(serve(run["batches"][0]), outs[0][0]):
+        raise AssertionError(f"{label}: two servings of one batch differ")
+    n_q = sum(len(qs) for qs in run["batches"])
+    exact = [r.exact.cpu().numpy() for r, _rows in outs]
+    checked, best_ok, jac = check_batches(s, run["batches"], [rw for _r, rw in outs],
+                                          exact, fu.semantic_weight, fu.lexical_weight)
+    cert = np.concatenate(exact)
+    qps, p50, p99, text = _latency_text(lat, n_q, sz, kind, smi)
+    stats = {"hot_terms": H, "hot_table_bytes": table_bytes,
+             "hot_tables_build_s": hot_build_s,
+             "queries_with_hot_terms": int(sum(hot_queries[:len(run["batches"])])),
+             "launches": launches, "certified": float(cert.mean()),
+             "n_certified": int(cert.sum()), "n_queries": int(cert.size),
+             "best_effort_match": best_ok,
+             "uncertified_jaccard_mean": float(np.mean(jac)) if jac else None,
+             "qps": qps, "p50_ms": p50, "p99_ms": p99,
+             "batch_ms": [x * 1e3 for x in lat], "repeat_equal": True}
+    if dev.type == "cuda":
+        stats["profile"] = profile_call(lambda: serve(run["batches"][0]))
+        clock.phase("profile", f"{label}: " + stats["profile"])
+    clock.phase(label, (
+        f"hybrid_sparse_topk over encode_queries_sparse, {len(lat)} x {sz['batch']} "
+        f"queries: {H} hot terms (a [{H + 1}, {po.hot_tile_bounds.shape[1] if H else 0}] "
+        f"table, {table_bytes} bytes, built in {hot_build_s:.2f} s of the bm25_s "
+        f"stage), {stats['queries_with_hot_terms']} of {n_q} queries hold one; "
+        f"launches {json.dumps(launches)}; the first batch served twice is equal bit "
+        f"for bit; certified {cert.mean():.4f} ({int(cert.sum())}/{cert.size}), all "
+        f"{checked} match the plain exact fused reference, {best_ok} of "
+        f"{n_q - checked} uncertified match too, their jaccard@{TOP_K} mean "
+        f"{stats['uncertified_jaccard_mean']}; {text}"))
+    return stats
+
+
+def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
+              smi: str) -> dict:
+    """"small-topic/ivf": the small-topic corpus indexed with
+    ``layout="clustered"`` and ``ann="ivf"`` (sqrt(N) clusters, nprobe 8; the
+    layout's k-means is the quantizer and the IVF adopts the dense buffer)
+    and served in scatter mode (the IVF's top 2k scattered into zeros, BM25
+    ``batch_scores``, [B, n] fusion): the warm-up and the timed batches, the
+    first batch again equal bit for bit, every row against a plain scatter
+    reference built from the same IVF top 2k. The IVF at full probe must
+    equal ``DenseIndex.search``; recall@10 at nprobe 8 against it is a
+    reading. The route runs none of the seven kernels (the JAX package's IVF
+    has no Pallas kernel); their counts are read all the same."""
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    label = "small-topic/ivf"
+    built, make_queries, timings = index_corpus("small-topic", "clustered", sz, dev,
+                                                seed, clock, label, at_scale=False,
+                                                ann="ivf")
+    idx = built.indexer
+    ivf, snap = idx.ivf, idx.dense._snap
+    if ivf is None or ivf._docs_perm is not snap.docs:
+        raise AssertionError(f"{label}: the IVF does not share the dense buffer")
+    n_chunks = int(ivf._chunk_starts.shape[0])
+    clock.phase("ivf index", (
+        f"{label}: {n_chunks} chunks of at most {ivf._cap} rows (a chunk holds its "
+        f"cluster's centroid), nprobe {ivf.nprobe}; the IVF holds the dense "
+        f"snapshot's buffer ({snap.capacity} rows, {idx.dense.reserve_rows} "
+        f"reserved): one corpus copy"))
+    searcher = Searcher(indexer=idx, use_query_memory=False, config=built.config,
+                        semantic_mode="scatter")
+    warm = make_queries(sz["batch"])
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+
+    # full probe = exact search (64 queries: a full probe scores every chunk)
+    q_full = idx.encoder.encode(batches[0][:64])
+    fv, fi = ivf.search(q_full, TOP_K, nprobe=n_chunks)
+    ev, ei = idx.dense.search(q_full, TOP_K)
+    why = [rows_differ(list(zip(fv[b], [None] * TOP_K, fi[b])),
+                       list(zip(ev[b], [None] * TOP_K, ei[b]))) for b in range(len(fv))]
+    if any(w is not None for w in why):
+        raise AssertionError(f"{label}: full-probe IVF differs from exact search: "
+                             f"{next(w for w in why if w)}")
+
+    k2 = min(2 * TOP_K, snap.n)
+    peak = "not measured"
+    if dev.type == "cuda":
+        q_b = idx.encoder.encode(batches[0])
+        sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ivf.search(q_b, k2)
+        peak = int(torch.cuda.max_memory_allocated(dev) - base)
+    searcher.search_batch(warm, top_k=TOP_K, log=False)
+    launches: dict = {}
+    lat, results = [], []
+    with counting(launches):
+        for qs in batches:
+            t = time.perf_counter()
+            results.append(searcher.search_batch(qs, top_k=TOP_K, log=False))
+            lat.append(time.perf_counter() - t)
+    if searcher.search_batch(batches[0], top_k=TOP_K, log=False) != results[0]:
+        raise AssertionError(f"{label}: two servings of one batch differ")
+    fu = searcher.config.fusion
+    checked = 0
+    recalls = []
+    for qs, res in zip(batches, results):
+        qv = idx.encoder.encode(qs)
+        tv, ti = ivf.search(qv, k2)
+        rv, ri, fused = scatter_reference(searcher, qs, TOP_K, fu.semantic_weight,
+                                          fu.lexical_weight, top_ids=ti)
+        c, _b, _j = check_against_reference(res, np.ones(len(qs), bool), rv, ri, fused)
+        checked += c
+        del fused
+        _v, got = ivf.search(qv, TOP_K)
+        _v, want = idx.dense.search(qv, TOP_K)
+        recalls += [len(set(g) & set(w)) / TOP_K for g, w in zip(got, want)]
+    n_q = sum(len(qs) for qs in batches)
+    qps, p50, p99, text = _latency_text(lat, n_q, sz, kind, smi)
+    stats = {"index_timings_s": timings, "chunks": n_chunks, "chunk_cap": ivf._cap,
+             "nprobe": ivf.nprobe, "capacity": snap.capacity,
+             "reserve_rows": idx.dense.reserve_rows, "one_corpus_copy": True,
+             "full_probe_equals_exact": True, "launches": launches,
+             "rows_checked": checked, f"recall@{TOP_K}_nprobe_{ivf.nprobe}":
+             float(np.mean(recalls)), "qps": qps, "p50_ms": p50, "p99_ms": p99,
+             "batch_ms": [x * 1e3 for x in lat], "repeat_equal": True}
+    stats["ivf_search_peak_bytes"] = peak
+    if dev.type == "cuda":
+        stats["profile"] = profile_batch(searcher, batches[0])
+        clock.phase("profile", f"{label}: " + stats["profile"])
+    clock.phase(label, (
+        f"semantic_mode='scatter' through the IVF, {len(lat)} x {sz['batch']} queries, "
+        f"launches {json.dumps(launches)} (no kernel on this route); full probe "
+        f"equals DenseIndex.search on {len(fv)} queries; the first batch served "
+        f"twice is equal bit for bit; all {checked} rows match the plain scatter "
+        f"reference over the same IVF top {k2}; recall@{TOP_K} at nprobe "
+        f"{ivf.nprobe} against exact search {np.mean(recalls):.4f} (a reading); IVF "
+        f"search peak {peak} bytes at B={sz['batch']}, k={k2}; {text}"))
+    return stats
+
+
 # -- the lifecycle run: a grown, tombstoned, saved and reloaded index ----------
 
 LIFECYCLE_DIR = "chiprun_out/lifecycle"  # removed at the end of the run
@@ -1908,10 +2378,12 @@ def timed_methods(obj, names: dict, sink: dict, dev: torch.device):
             delattr(obj, name)
 
 
-def scatter_reference(searcher, queries, k: int, sw: float, lw: float):
+def scatter_reference(searcher, queries, k: int, sw: float, lw: float,
+                      top_ids=None):
     """The scatter mode with no kernel: full [B, n] cosine, the top 2k of
-    each row (dead rows out) scattered into zeros as raw scores, BM25 summed
-    from the CSR term by term, alive-masked min-max fusion, top-k. Returns
+    each row (dead rows out; or the given ``top_ids`` [B, 2k], -1 for none,
+    such as an IVF's) scattered into zeros as raw scores, BM25 summed from
+    the CSR term by term, alive-masked min-max fusion, top-k. Returns
     (values, ids, fused)."""
     from hybridsearch_tpu_torch.ops.dense import l2_normalize
     from hybridsearch_tpu_torch.text.extractor import extract_tokens
@@ -1922,8 +2394,14 @@ def scatter_reference(searcher, queries, k: int, sw: float, lw: float):
     bias = snap.bias[:n]
     q = l2_normalize(idx.encoder.encode(list(queries)).float())
     full = q @ snap.docs[:n].T
-    _v, top = torch.topk(full + bias[None, :], min(2 * k, n), dim=1)
-    sem = torch.zeros_like(full).scatter_(1, top, torch.gather(full, 1, top))
+    if top_ids is None:
+        _v, top = torch.topk(full + bias[None, :], min(2 * k, n), dim=1)
+        keep = torch.ones_like(top, dtype=torch.bool)
+    else:
+        ids = torch.from_numpy(np.asarray(top_ids, np.int64)).to(full.device)
+        keep, top = ids >= 0, ids.clamp(0, n - 1)
+    sem = torch.zeros_like(full).scatter_add_(
+        1, top, torch.where(keep, torch.gather(full, 1, top), 0.0))
     del full
     st = idx.bm25._state
     po = st.postings

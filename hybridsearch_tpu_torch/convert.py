@@ -20,6 +20,7 @@ from torch import nn
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.builder import Indexer
 from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+from hybridsearch_tpu_torch.index.ivf import IVFIndex
 from hybridsearch_tpu_torch.index.sparse_index import BM25, _DeltaSeg
 from hybridsearch_tpu_torch.models.encoder import HashingEncoder
 from hybridsearch_tpu_torch.ops.bm25 import postings_from_csr
@@ -133,6 +134,23 @@ def impact_postings(doc_ids: np.ndarray, weights: np.ndarray, n_docs: int,
 def attach_impact_postings(bm: BM25, imp: ImpactPostings) -> None:
     """Serve ``imp`` as the impact tier of ``bm``'s current state."""
     bm._impact_cache = (bm._state, imp.p_max, imp)
+
+
+def ivf_index(centroids_per_chunk: np.ndarray, docs_perm: np.ndarray,
+              chunk_starts: np.ndarray, chunk_lens: np.ndarray,
+              perm_to_orig: np.ndarray, chunk_cap: int, n_docs: int,
+              nprobe: int = 8, device: DeviceLike = None) -> IVFIndex:
+    """IVFIndex holding a JAX ``IVFIndex``'s single-device arrays: the
+    per-chunk centroids [n_chunks, D], the cluster-ordered rows [rows, D]
+    (with at least ``chunk_cap`` rows past the last chunk), the chunks'
+    starts and lengths, each row's doc id (-1 pad) and the chunk width."""
+    dev = resolve_device(device)
+    return IVFIndex(dim=docs_perm.shape[1], nprobe=nprobe, device=dev).load_arrays(
+        torch.from_numpy(np.array(centroids_per_chunk, np.float32)),
+        torch.from_numpy(np.array(docs_perm)).to(dev),
+        *(torch.from_numpy(np.asarray(a, np.int64))
+          for a in (chunk_starts, chunk_lens, perm_to_orig)),
+        chunk_cap, n_docs)
 
 
 def lsh_planes(planes: np.ndarray, device: DeviceLike = None) -> torch.Tensor:

@@ -18,8 +18,13 @@ bound trips) and only the new docs are tokenized and embedded.
 ``delete_documents`` tombstones all three. ``save`` / ``load`` write and
 read the JAX package's directory (dense shards, ``bm25.npz``,
 ``engine_manifest.json``; the docs stay in the store at ``db_path``), and
-``export_json`` / ``import_json`` its JSON dump. The IVF index of the JAX
-module is still to port.
+``export_json`` / ``import_json`` its JSON dump.
+
+With ``config.index.ann = "ivf"`` (or ``"auto"`` at ``IVF_AUTO_MIN_DOCS``
+docs or more) the build also makes an IVF index (``self.ivf``), which scatter
+mode searches while it covers every doc: on a clustered build the one
+k-means serves layout and quantizer (``IVFIndex.from_layout`` adopts the
+dense snapshot's buffer), otherwise ``IVFIndex.build`` fits its own.
 """
 
 from __future__ import annotations
@@ -27,14 +32,14 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.dense_index import DenseIndex
-from hybridsearch_tpu_torch.index.ivf import kmeans_assign, kmeans_fit
+from hybridsearch_tpu_torch.index.ivf import IVFIndex, kmeans_assign, kmeans_fit
 from hybridsearch_tpu_torch.index.sparse_index import BM25, BM25Plus
 from hybridsearch_tpu_torch.store.docstore import DocStore
 from hybridsearch_tpu_torch.text.extractor import (
@@ -44,6 +49,10 @@ from hybridsearch_tpu_torch.text.extractor import (
     token_hashes_docs,
 )
 from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# ann="auto" builds the IVF quantizer from this many docs (the JAX package's
+# measured exact <-> IVF crossover)
+IVF_AUTO_MIN_DOCS = 4_000_000
 
 
 class Indexer:
@@ -70,6 +79,7 @@ class Indexer:
         self.dense = DenseIndex(dim=self.config.index.dim,
                                 capacity_round=self.config.index.capacity_round,
                                 device=self.device)
+        self.ivf: Optional[IVFIndex] = None  # built when _want_ivf
         self.contents: List[str] = []
         self.doc_ids: List[int] = []
 
@@ -110,9 +120,6 @@ class Indexer:
         """Destructive full reindex. ``metas`` are permuted with the corpus
         under the clustered layout. Returns the count, the dim and the
         seconds of each stage."""
-        if self.config.index.ann == "ivf" or (
-                self.config.index.ann == "auto" and len(documents) >= 4_000_000):
-            raise NotImplementedError("the IVF index is not ported yet")
         tmark = time.perf_counter()
         timings: Dict[str, float] = {}
 
@@ -129,10 +136,15 @@ class Indexer:
         paths = list(paths) if paths is not None else None
         metas = list(metas) if metas is not None else None
         vectors = None
+        cluster_cent = cluster_assign = None
         if self.config.index.layout == "clustered" and len(docs) > 256:
             vectors = self.embed(docs)
             _mark("embed_s")
-            perm = _cluster_permutation(vectors)
+            # one k-means serves the layout and, with IVF on, the quantizer:
+            # the IVF cluster count then pins k
+            want_ivf = self._want_ivf(len(docs))
+            perm, cluster_cent, cluster_assign = _cluster_permutation(
+                vectors, k=self.config.index.ivf_clusters if want_ivf else 0)
             _mark("cluster_s")
             vectors = vectors[torch.from_numpy(perm).to(vectors.device)]
             docs = [docs[i] for i in perm]
@@ -140,6 +152,12 @@ class Indexer:
                 paths = [paths[i] for i in perm]
             if metas is not None:
                 metas = [metas[i] for i in perm]
+            if want_ivf:
+                # the IVF chunk overhang lives inside the dense capacity, so
+                # the IVF's probes never run past the shared buffer
+                self.dense.reserve_rows = (
+                    self.config.index.ivf_chunk_cap
+                    or max(8, (4 * len(docs)) // max(len(cluster_cent), 1)))
         hashes, counts = token_hashes_docs(docs)
         _mark("tokenize_s")
         ids = self.store.replace_documents(docs, paths, counts.tolist())
@@ -153,6 +171,20 @@ class Indexer:
             _mark("embed_s")
         self.dense.build(vectors)
         _mark("dense_build_s")
+        if self._want_ivf(len(vectors)):
+            ix = self.config.index
+            ivf = IVFIndex(dim=ix.dim, n_clusters=ix.ivf_clusters,
+                           nprobe=ix.ivf_nprobe, chunk_cap=ix.ivf_chunk_cap,
+                           device=self.device)
+            if cluster_cent is not None:
+                # the corpus is cluster-ordered and already normalized on the
+                # device: adopt that buffer and the one k-means' centroids
+                ivf.from_layout(self.dense._snap.docs, len(docs), cluster_cent,
+                                cluster_assign)
+            else:
+                ivf.build(vectors)
+            self.ivf = ivf
+        _mark("ivf_s")
         self.bm25.fit_coo_from_hashes(hashes, counts)
         _mark("bm25_s")
         self.contents = list(docs)
@@ -192,6 +224,15 @@ class Indexer:
         else:  # no cache (a loaded state) or the counts diverged: refit
             bm25.fit_tokens([extract_tokens(c) for c in self.contents])
         return ids
+
+    def _want_ivf(self, n: int) -> bool:
+        """The exact <-> IVF policy: "flat" never, "ivf" for any corpus,
+        "auto" from IVF_AUTO_MIN_DOCS docs (the streaming exact top-k wins
+        below it)."""
+        mode = self.config.index.ann
+        if mode == "ivf":
+            return n > 0
+        return mode == "auto" and n >= IVF_AUTO_MIN_DOCS
 
     def delete_documents(self, doc_ids: Sequence[int]) -> int:
         """Tombstone docs in the dense index (bias -> -inf), in BM25 and in
@@ -285,11 +326,15 @@ class Indexer:
 
 
 def _cluster_permutation(vectors: torch.Tensor, seed: int = 0,
-                         k: int = 0) -> np.ndarray:
-    """Permutation ordering docs by spherical k-means cluster (sqrt(N)
-    clusters unless ``k`` pins it), stable within clusters."""
+                         k: int = 0) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
+    """(perm, centroids [k, D], sorted_assign): the permutation ordering docs
+    by spherical k-means cluster (sqrt(N) clusters unless ``k`` pins it),
+    stable within clusters, with the centroids and each permuted row's
+    cluster, so one k-means serves the layout and the IVF quantizer
+    (``IVFIndex.from_layout``)."""
     n = vectors.shape[0]
     k = k or max(2, int(np.sqrt(n)))
     cent = kmeans_fit(vectors, k, seed=seed)
     assign = kmeans_assign(vectors, cent).cpu().numpy()
-    return np.argsort(assign, kind="stable")
+    perm = np.argsort(assign, kind="stable")
+    return perm, cent, assign[perm]

@@ -7,7 +7,9 @@ Mutations (build, add, delete, compact) build a new snapshot and swap it
 atomically, so a reader always sees a consistent (docs, bias, n) triple;
 ``add`` grows the buffers on the device in steps of ``capacity_round``.
 ``save`` / ``load`` write and read the JAX package's layout (a manifest,
-one shard file, the bias). The mesh-sharded layout is still to port.
+one shard file, the bias). ``reserve_rows`` keeps spare zero rows past the
+docs for an IVF index that shares the buffer. The mesh-sharded layout is
+still to port.
 """
 
 from __future__ import annotations
@@ -47,6 +49,10 @@ class DenseIndex:
         self.dim = dim
         self.capacity_round = capacity_round
         self.device = resolve_device(device)
+        # zero rows kept past n in every snapshot: a clustered IVF build sets
+        # it to the IVF chunk width, so IVFIndex.from_layout's probes of the
+        # last chunks stay inside the shared buffer (index/builder.py)
+        self.reserve_rows = 0
         self._lock = threading.Lock()  # writers only; readers are lock-free
         self._snap = self._make_snapshot(
             torch.zeros((0, dim), dtype=torch.float32), None, 0)
@@ -65,7 +71,7 @@ class DenseIndex:
 
     def _round_capacity(self, n: int) -> int:
         r = self.capacity_round
-        return -(-max(n, 1) // r) * r
+        return -(-(max(n, 1) + self.reserve_rows) // r) * r
 
     def _make_snapshot(self, vectors: torch.Tensor, bias: Optional[torch.Tensor],
                        n: int, normalize: bool = False) -> _Snapshot:

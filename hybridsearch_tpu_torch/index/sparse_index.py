@@ -4,8 +4,10 @@ Counterpart of ``hybridsearch_tpu/index/sparse_index.py`` on one device:
 every (term, doc) contribution is eager-scored at fit time into
 device-resident term-major CSR postings (ops/bm25.py); queries are encoded
 on the host into bucketed run pieces (the < 200k-doc fused path and
-``batch_scores``), supertile slots (the supertile ladder, ops/supertile.py)
-or impact-run descriptors (the impact ladder, ops/impact.py).
+``batch_scores``; ``encode_queries_sparse`` leaves the hot terms out and
+hands their tile-bound rows to the sparse hybrid), supertile slots (the
+supertile ladder, ops/supertile.py) or impact-run descriptors (the impact
+and tile ladders, ops/impact.py).
 
 The fitted state is published atomically, so a reader never pairs a vocab
 from one fit with postings from another; the structures derived from a
@@ -14,8 +16,9 @@ in a delta segment scored beside the main postings under the stats frozen
 at the last full publish (the epoch); ``compact`` folds it in with a full
 recompute, and every at-scale builder and ``save`` compact first. Deletes
 are tombstones that ``search`` honours; a fit clears them. ``save`` /
-``load`` read and write the JAX package's ``.npz`` layout. Mesh sharding
-and the hot-term tables of the JAX module are still to port.
+``load`` read and write the JAX package's ``.npz`` layout (a loaded state
+builds its hot-term tables anew). Mesh sharding of the JAX module is still
+to port.
 """
 
 from __future__ import annotations
@@ -389,6 +392,26 @@ class BM25:
             lists = [[t for t in ids if t < po.vocab_size] for ids in lists]
         return bm25_ops.encode_run_pieces(po.starts_host, po.lengths_host, lists,
                                           po.max_postings)
+
+    def encode_queries_sparse(self, queries: Sequence[str],
+                              state: Optional[_BM25State] = None):
+        """(groups, hot) for the sparse hybrid (ops/hybrid.py
+        ``hybrid_sparse_topk``): run pieces with the hot terms left out, and
+        ``encode_hot_terms``' rows into the tile-bound table with the run
+        starts and lengths to bisect; hot is None when no query touches a
+        hot term. Everything comes from one compacted state."""
+        state = self._compacted_state(state)
+        if state.postings is None:
+            return [], None
+        po = state.postings
+        lists = self._term_lists(queries, state)
+        hot = bm25_ops.encode_hot_terms(po, lists)
+        exclude = None
+        if hot is not None:
+            exclude = set(np.flatnonzero(po.hot_rows_of >= 0).tolist())
+        groups = bm25_ops.encode_run_pieces(po.starts_host, po.lengths_host, lists,
+                                            po.max_postings, exclude=exclude)
+        return groups, hot
 
     def _delta_groups(self, queries: Sequence[str], state: _BM25State):
         """Run-piece groups against the delta segment's postings."""

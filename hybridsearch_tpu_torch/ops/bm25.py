@@ -14,10 +14,16 @@ width, and scored by one gather + one scatter-add per bucket into [B, n].
 (the JAX package's first kernel); ``bm25_candidate_scores_runs`` scores
 given candidates by binary search inside each run piece, and
 ``cand_scores_bisect`` by bisection over the full runs (the impact hybrid's
-margin correction, ops/hybrid.py). None of these has a Pallas kernel in the
-JAX package: they are plain tensor ops. The hot-term tables
-(``encode_hot_terms``) and mesh sharding of the JAX module serve paths the
-port does not take yet.
+margin correction and the sparse hybrid's hot terms, ops/hybrid.py). None
+of these has a Pallas kernel in the JAX package: they are plain tensor ops.
+
+Terms whose run is longer than ``HOT_DF_THRESHOLD`` ("hot" terms, the
+stopword-grade tail) also carry a per-128-doc-tile weight-sum row
+(``hot_tile_bounds``, built on the host by ``np.bincount`` as the JAX
+package builds it), so the sparse hybrid never slices their runs at query
+time: their tile bounds are one row gather (``encode_hot_terms``), their
+candidate scores a bisection. The mesh sharding of the JAX module is not
+part of the port yet.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 
 
 class BM25Postings(NamedTuple):
-    """Device-resident eager-scored postings (term-major CSR)."""
+    """Device-resident eager-scored postings (term-major CSR), with the
+    hot-term tile-bound table when some run exceeds HOT_DF_THRESHOLD."""
 
     indptr: torch.Tensor  # [V+1] int64 — start offset of each term's run
     doc_ids: torch.Tensor  # [nnz + P_max] int32 — padded tail = n_docs
@@ -39,6 +46,34 @@ class BM25Postings(NamedTuple):
     vocab_size: int
     starts_host: np.ndarray  # [V] int64 host run starts
     lengths_host: np.ndarray  # [V] int64 host run lengths
+    hot_rows_of: Optional[np.ndarray] = None  # [V] int32 host, -1 = cold
+    hot_tile_bounds: Optional[torch.Tensor] = None  # [H+1, n_tiles] f32 (row H = 0)
+
+
+HOT_DF_THRESHOLD = 65536  # runs longer than this are hot
+MAX_HOT_TERMS = 1024  # bounds the [H+1, n_tiles] table; the rest stay cold
+
+
+def _hot_tables(d: np.ndarray, w: np.ndarray, starts: np.ndarray,
+                lengths: np.ndarray, n_docs: int, vocab_size: int,
+                device: torch.device, tile: int = 128):
+    """(hot_rows_of [V], hot_tile_bounds [H+1, n_tiles] or None): the
+    per-tile weight sums of each hot term's run, the hottest
+    MAX_HOT_TERMS kept in term order; row H is zeros (the pad row)."""
+    hot_rows_of = np.full(vocab_size, -1, dtype=np.int32)
+    hot_tids = np.flatnonzero(lengths > HOT_DF_THRESHOLD)
+    if not len(hot_tids):
+        return hot_rows_of, None
+    if len(hot_tids) > MAX_HOT_TERMS:  # keep the hottest; the rest stay cold
+        hot_tids = np.sort(hot_tids[np.argsort(-lengths[hot_tids])[:MAX_HOT_TERMS]])
+    n_tiles = -(-n_docs // tile)
+    hb = np.zeros((len(hot_tids) + 1, n_tiles), dtype=np.float32)
+    for row, tid in enumerate(hot_tids):
+        st, ln = int(starts[tid]), int(lengths[tid])
+        hb[row] = np.bincount(d[st:st + ln] // tile, weights=w[st:st + ln],
+                              minlength=n_tiles)[:n_tiles]
+    hot_rows_of[hot_tids] = np.arange(len(hot_tids), dtype=np.int32)
+    return hot_rows_of, torch.from_numpy(hb).to(device)
 
 
 def build_postings_arrays(
@@ -68,6 +103,8 @@ def build_postings_arrays(
     max_post = max(int(lengths.max()) if len(t) else 1, 1)
     d_pad = np.concatenate([d, np.full(max_post, n_docs, dtype=np.int32)])
     w_pad = np.concatenate([w, np.zeros(max_post, dtype=np.float32)])
+    hot_rows_of, hot_bounds = _hot_tables(d, w, indptr[:-1], lengths, n_docs,
+                                          vocab_size, device)
     return BM25Postings(
         indptr=torch.from_numpy(indptr).to(device),
         doc_ids=torch.from_numpy(d_pad).to(device),
@@ -77,6 +114,8 @@ def build_postings_arrays(
         vocab_size=vocab_size,
         starts_host=indptr[:-1].astype(np.int64),
         lengths_host=lengths.astype(np.int64),
+        hot_rows_of=hot_rows_of,
+        hot_tile_bounds=hot_bounds,
     )
 
 
@@ -84,21 +123,25 @@ def postings_from_csr(indptr: np.ndarray, doc_ids: np.ndarray,
                       weights: np.ndarray, n_docs: int, vocab_size: int,
                       device: torch.device) -> BM25Postings:
     """BM25Postings over a CSR that is already built (``indptr`` [V+1],
-    ``doc_ids``/``weights`` [>= nnz]); the padded tail is made anew."""
+    ``doc_ids``/``weights`` [>= nnz]); the padded tail and the hot-term
+    tables are made anew."""
     indptr = np.asarray(indptr, dtype=np.int64)
     nnz = int(indptr[-1])
     lengths = np.diff(indptr)
     max_post = max(int(lengths.max()) if len(lengths) else 1, 1)
-    d = np.concatenate([np.asarray(doc_ids[:nnz], np.int32),
-                        np.full(max_post, n_docs, np.int32)])
-    w = np.concatenate([np.asarray(weights[:nnz], np.float32),
-                        np.zeros(max_post, np.float32)])
+    d_csr = np.asarray(doc_ids[:nnz], np.int32)
+    w_csr = np.asarray(weights[:nnz], np.float32)
+    hot_rows_of, hot_bounds = _hot_tables(d_csr, w_csr, indptr[:-1], lengths,
+                                          int(n_docs), vocab_size, device)
+    d = np.concatenate([d_csr, np.full(max_post, n_docs, np.int32)])
+    w = np.concatenate([w_csr, np.zeros(max_post, np.float32)])
     return BM25Postings(
         indptr=torch.from_numpy(indptr).to(device),
         doc_ids=torch.from_numpy(d).to(device),
         weights=torch.from_numpy(w).to(device), n_docs=int(n_docs),
         max_postings=max_post, vocab_size=vocab_size,
-        starts_host=indptr[:-1].copy(), lengths_host=lengths)
+        starts_host=indptr[:-1].copy(), lengths_host=lengths,
+        hot_rows_of=hot_rows_of, hot_tile_bounds=hot_bounds)
 
 
 # Posting-run length buckets: a query term is scored with slices as wide as
@@ -106,7 +149,7 @@ def postings_from_csr(indptr: np.ndarray, doc_ids: np.ndarray,
 # are split into pieces at encode time. Term counts pad to TERM_LADDER and
 # each width caps its pieces per query at T_CAPS (extra pieces form further
 # groups), bounding the [B, T, W] gather staging.
-LENGTH_BUCKETS = (128, 1024, 8192, 65536)
+LENGTH_BUCKETS = (128, 1024, 8192, HOT_DF_THRESHOLD)  # hot = past the top
 TERM_LADDER = (8, 32, 128, 256)
 T_CAPS = {128: 256, 1024: 64, 8192: 16, 65536: 8}
 
@@ -130,13 +173,18 @@ def encode_run_pieces(
     lengths_host: np.ndarray,
     query_term_ids: Sequence[Sequence[int]],
     cap: int,
+    exclude: Optional[set] = None,
 ) -> List[Tuple[int, np.ndarray, np.ndarray]]:
     """Host-side query encoding: term ids -> per-bucket (width,
-    starts [B, T], lengths [B, T]) run pieces (int32 numpy)."""
+    starts [B, T], lengths [B, T]) run pieces (int32 numpy). Terms in
+    ``exclude`` (hot terms, served by their tile-bound rows and bisection)
+    are skipped."""
     B = len(query_term_ids)
     buckets: dict = {}
     for qi, ids in enumerate(query_term_ids):
         for tid in ids:
+            if exclude and tid in exclude:
+                continue
             start = int(starts_host[tid])
             remaining = int(lengths_host[tid])
             off = 0
@@ -288,6 +336,40 @@ def bm25_candidate_scores_runs(postings: BM25Postings,
             postings.doc_ids, postings.weights, torch.from_numpy(starts).to(dev),
             torch.from_numpy(lengths).to(dev), safe, postings.n_docs, width)
     return torch.where(cand >= 0, total, 0.0)
+
+
+_HOT_LADDER = (1, 2, 4, 8)
+
+
+def encode_hot_terms(
+    postings: BM25Postings,
+    query_term_ids: Sequence[Sequence[int]],
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """(hot_rows [B, Hm], hot_starts [B, Hm], hot_lens [B, Hm]) int32 numpy
+    for the hot terms of each query, padded to ``_HOT_LADDER`` (row pad =
+    H, the all-zeros bounds row; start/len pad = 0). None when no query
+    touches a hot term."""
+    if postings.hot_rows_of is None or postings.hot_tile_bounds is None:
+        return None
+    B = len(query_term_ids)
+    per_q: List[List[Tuple[int, int, int]]] = []
+    for ids in query_term_ids:
+        per_q.append([(int(postings.hot_rows_of[tid]),
+                       int(postings.starts_host[tid]),
+                       int(postings.lengths_host[tid]))
+                      for tid in ids if postings.hot_rows_of[tid] >= 0])
+    longest = max((len(rows) for rows in per_q), default=0)
+    if longest == 0:
+        return None
+    Hm = next((h for h in _HOT_LADDER if h >= longest), _HOT_LADDER[-1])
+    H = postings.hot_tile_bounds.shape[0] - 1
+    rows_arr = np.full((B, Hm), H, dtype=np.int32)
+    st_arr = np.zeros((B, Hm), dtype=np.int32)
+    ln_arr = np.zeros((B, Hm), dtype=np.int32)
+    for qi, rows in enumerate(per_q):
+        for j, (row, st, ln) in enumerate(rows[:Hm]):
+            rows_arr[qi, j], st_arr[qi, j], ln_arr[qi, j] = row, st, ln
+    return rows_arr, st_arr, ln_arr
 
 
 def cand_scores_bisect(

@@ -14,7 +14,9 @@ few supertiles of 128 tiles = 16384 docs:
              (ops/dense.py dense_tile_stats, kernel K1 on the card);
           2. joint supertile bound = w_s*nsem(supertile sem max)
              + w_l*nlex(sum_t sup_max[t, s]); the best S supertiles are
-             probed (steps 1-2 are the rung-invariant ``super_prefix``);
+             probed (steps 1-2 are the rung-invariant ``super_prefix``;
+             ``hybrid_supertile_topk`` is the prefix and one rung in one
+             call, the ladder's rungs ``hybrid_supertile_topk_rung``);
           3. EVERY doc of a probed supertile is scored exactly: semantic
              scores by kernel K2 (ops/cuda_supertile.py super_scores),
              lexical scores by placing each query term's CSR window inside
@@ -461,7 +463,46 @@ def hybrid_supertile_topk_rung(
     certificate. ``q`` [B, D] L2-normalized float32; ``docs`` [N, D].
     ``scores_dedup``: on the card's score route, K4 on pairs sorted by
     supertile when B*S % 8 == 0 (else K2); ``place_fused``: K5 instead of
-    staged windows + K3. Either gives the same bits as the default."""
+    staged windows + K3. Either gives the same bits as the default. Equal
+    to ``hybrid_supertile_topk`` at the same s_probe (the prefix's
+    candidates restrict to the rung's top S)."""
+    return _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe,
+                       norm, n_alive, scores_dedup, place_fused)[0]
+
+
+def hybrid_supertile_topk(
+    q: torch.Tensor,
+    docs: torch.Tensor,
+    sp: SuperPostings,
+    enc: SuperQueryEnc,
+    k: int,
+    w_s: float,
+    w_l: float,
+    bias: Optional[torch.Tensor] = None,
+    s_probe: int = 4,
+    norm: str = "minmax",
+    n_alive: Optional[int] = None,
+    return_probes: bool = False,
+    scores_dedup: bool = False,
+    place_fused: bool = False,
+):
+    """The supertile hybrid in one call: ``super_prefix`` at s_max =
+    ``s_probe`` and one rung. Same fused semantics and HybridTopK contract
+    as ``hybrid_impact_topk``; ``exact`` is sound a query. With
+    ``return_probes`` returns (HybridTopK, probed supertile ids [B, S],
+    ascending). ``scores_dedup`` / ``place_fused`` pick the rung's K4 / K5
+    routes as in ``hybrid_supertile_topk_rung``. The JAX function's
+    ``block_n`` has no counterpart here."""
+    prefix = super_prefix(q, docs, sp, enc, bias=bias, w_s=w_s, w_l=w_l,
+                          norm=norm, s_max=s_probe)
+    out, probes = _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias,
+                              s_probe, norm, n_alive, scores_dedup, place_fused)
+    return (out, probes) if return_probes else out
+
+
+def _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm,
+                n_alive, scores_dedup, place_fused):
+    """(HybridTopK, probed supertiles [B, S] ascending) of one rung."""
     B, Dm = q.shape
     N = docs.shape[0]
     dev = q.device
@@ -564,4 +605,4 @@ def hybrid_supertile_topk_rung(
         lex_min_zero = torch.from_numpy(
             np.asarray(enc.full_touched) < n_alive).to(dev)
         exact = exact & lex_min_zero
-    return HybridTopK(values=vals, indices=idxs, exact=exact)
+    return HybridTopK(values=vals, indices=idxs, exact=exact), sup_s

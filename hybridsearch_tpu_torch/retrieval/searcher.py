@@ -12,7 +12,13 @@ Two regimes, as in the JAX package:
   * at scale (``_sparse_hybrid``), with no [B, n] array:
       - on a ``layout="clustered"`` index, the supertile ladder
         (``supertile_ladder``): one rung-invariant prefix, then probe-budget
-        rungs that re-run only the uncertified queries;
+        rungs that re-run only the uncertified queries. With
+        ``HST_SUPER_HYBRID=0``, the tile ladder (``tile_ladder``):
+        ``hybrid_tile_topk`` at the probe budgets of ``_TILE_LADDER``; with
+        ``HST_TILE_HYBRID=0`` as well, the impact ladder, whose first rung
+        bounds pass 3 of the dense top-k to 128 tiles at 1,000,000 docs or
+        more. These two variables choose among algorithms, read as the JAX
+        package reads them (its only way in to these routes);
       - on any other layout (the default ``"source"``), the impact ladder:
         ``hybrid_impact_topk`` (ops/hybrid.py) at escalating (k_dense,
         c_per_term, p_depth) rungs (``_IMPACT_LADDER``), each re-encoding
@@ -21,19 +27,17 @@ Two regimes, as in the JAX package:
 Both regimes need ``lexical_mode="bm25"`` and ``semantic_mode="exact"``
 (the defaults). Any other mode, or a BM25 state of another index
 generation, fuses two full [B, n] arms: the semantic arm exact, or
-``"scatter"`` (the reference's FAISS branch: the top 2k of
-``DenseIndex.search`` scattered into zeros); the lexical arm BM25's
-``batch_scores``, or ``"fuzzy"`` (the reference's host ``partial_ratio``
-blend, capped at ``FUZZY_MAX_DOCS``). A pending BM25 delta is compacted
-before the snapshot pair is taken.
-
-The JAX package's clustered tile hybrid (``hybrid_tile_topk``, reached there
-only with ``HST_SUPER_HYBRID=0``) and the mesh branches are not part of the
-port yet.
+``"scatter"`` (the reference's FAISS branch: the top 2k of the IVF index
+where one covers the snapshot, else of ``DenseIndex.search``, scattered
+into zeros); the lexical arm BM25's ``batch_scores``, or ``"fuzzy"`` (the
+reference's host ``partial_ratio`` blend, capped at ``FUZZY_MAX_DOCS``). A
+pending BM25 delta is compacted before the snapshot pair is taken. The
+mesh branches are not part of the port yet.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -72,6 +76,15 @@ _IMPACT_LADDER = ((512, 64, 256), (1024, 128, 1024), (2048, 256, 4096))
 # supertile probe-budget ladder, in 16384-doc supertiles: 2 rungs cover a
 # straddling topic, deeper rungs chase uncertified queries
 _SUPER_LADDER = (2, 4, 8, 16)
+# tile ladder (HST_SUPER_HYBRID=0): probe budgets in 128-doc tiles, over one
+# encode at the build's prune depth (placement cost is linear in it)
+_TILE_LADDER = (128, 256, 512)
+_TILE_P_DEPTH = 4096
+# a clustered index of this many docs or more that reaches the impact ladder
+# bounds its first rung's dense pass 3 to _KD_TILES tiles (below it the dense
+# tail spreads over generic tiles and coverage cannot close)
+_KD_TILES_MIN_DOCS = 1_000_000
+_KD_TILES = 128
 # smallest padded batch for compacted escalation rungs (_pow2_bucket)
 _MIN_ESCALATION_BUCKET = 32
 
@@ -363,12 +376,18 @@ class Searcher:
     def _semantic_scores(self, q_vecs: torch.Tensor, top_k: int,
                          snap) -> torch.Tensor:
         """[B, n] semantic arm over one dense snapshot: exact cosine, or in
-        scatter mode the raw scores of the top min(2 top_k, n) docs of
-        ``DenseIndex.search`` scattered into zeros (negative cosines may rank
-        below docs not retrieved, as in the reference)."""
+        scatter mode the raw scores of the top min(2 top_k, n) docs of the
+        IVF index (when it covers the snapshot's n docs) or of
+        ``DenseIndex.search``, scattered into zeros (negative cosines may
+        rank below docs not retrieved, as in the reference)."""
         n = snap.n
         if self.semantic_mode == "scatter":
-            vals, idxs = self.indexer.dense.search(q_vecs, min(2 * top_k, n))
+            k2 = min(2 * top_k, n)
+            ivf = self.indexer.ivf
+            if ivf is not None and ivf.n_docs == n:
+                vals, idxs = ivf.search(q_vecs, k2)
+            else:  # no IVF, or one made stale by an add
+                vals, idxs = self.indexer.dense.search(q_vecs, k2)
             vals = torch.from_numpy(np.where(np.isfinite(vals), vals, 0.0))
             idxs = torch.from_numpy(np.minimum(idxs, n - 1))
             return scatter_topk_to_dense(vals.to(self.device),
@@ -444,26 +463,43 @@ class Searcher:
         return stats
 
     def _sparse_hybrid(self, queries, q_vecs, snap, bm25, k, sw, lw):
-        """At-scale hybrid: the supertile ladder on a clustered index, the
-        impact ladder otherwise. An uncertified result is served
-        best-effort (near-exact) with a one-time warning and a counter."""
+        """At-scale hybrid: on a clustered index the supertile ladder, else
+        (``HST_SUPER_HYBRID=0``) the tile ladder, else (``HST_TILE_HYBRID=0``
+        too) the impact ladder; on any other layout the impact ladder. An
+        uncertified result is served best-effort (near-exact) with a
+        one-time warning and a counter."""
         q = l2_normalize(q_vecs.float())
         n_alive = snap.n - self.indexer.dense.deleted_count
-        if self.indexer.config.index.layout == "clustered":
+        clustered = self.indexer.config.index.layout == "clustered"
+        if clustered and os.environ.get("HST_SUPER_HYBRID", "1") != "0":
             sp, enc_s = bm25.encode_queries_super(list(queries))
-            perf = self.config.perf
-            st, _rungs = supertile_ladder(
-                q, snap.docs, sp, enc_s, k, sw, lw, bias=snap.bias,
-                n_alive=n_alive, valid_n=snap.n,
-                uncertified_tol=self.indexer.config.serving.uncertified_tol,
-                scores_dedup=bool(perf.scores_dedup),
-                place_fused=bool(perf.place_fused))
-            if not st.exact.all():
-                _warn_uncertified("supertile hybrid certificate did not close "
-                                  "after probe escalation; serving the "
-                                  "best-effort top-k")
-            return st.values, st.indices
-        st, rungs = impact_ladder(q, queries, snap, bm25, k, sw, lw, n_alive)
+            if sp is not None:
+                perf = self.config.perf
+                st, _rungs = supertile_ladder(
+                    q, snap.docs, sp, enc_s, k, sw, lw, bias=snap.bias,
+                    n_alive=n_alive, valid_n=snap.n,
+                    uncertified_tol=self.indexer.config.serving.uncertified_tol,
+                    scores_dedup=bool(perf.scores_dedup),
+                    place_fused=bool(perf.place_fused))
+                if not st.exact.all():
+                    _warn_uncertified("supertile hybrid certificate did not "
+                                      "close after probe escalation; serving "
+                                      "the best-effort top-k")
+                return st.values, st.indices
+        if clustered and os.environ.get("HST_TILE_HYBRID", "1") != "0":
+            imp, enc = bm25.encode_queries_impact(list(queries),
+                                                  p_depth=_TILE_P_DEPTH)
+            if imp is not None:
+                st, _rungs = tile_ladder(q, snap, imp, enc, k, sw, lw, n_alive)
+                if not st.exact.all():
+                    _warn_uncertified("tile hybrid certificate did not close "
+                                      "after probe escalation; serving the "
+                                      "best-effort top-k")
+                return st.values, st.indices
+        st, rungs = impact_ladder(
+            q, queries, snap, bm25, k, sw, lw, n_alive,
+            kd_tiles=(_KD_TILES if clustered and snap.n >= _KD_TILES_MIN_DOCS
+                      else None))
         if not rungs:  # no impact tier (no postings): dense-only scores
             return tiled_dense_topk(q, snap.docs, min(k, snap.n), bias=snap.bias)
         if not st.exact.all():
@@ -474,13 +510,60 @@ class Searcher:
         return st.values, st.indices
 
 
+def tile_ladder(q: torch.Tensor, snap, imp, enc, k: int, sw: float, lw: float,
+                n_alive: int) -> Tuple[_LadderState, int]:
+    """The tile serving ladder: ``hybrid_tile_topk`` at each probe budget of
+    ``_TILE_LADDER`` over one encode (``imp``, ``enc``); deeper rungs re-run
+    only the uncertified queries (compacted to a pow2 bucket) while some
+    failure can still certify (term-complete, or every truncated term
+    corrected) and the failures shrink, and stop once a rung probed every
+    tile. Returns the merged _LadderState and the number of rungs run."""
+    from hybridsearch_tpu_torch.ops.hybrid import hybrid_tile_topk
+
+    B = q.shape[0]
+    cc = np.asarray(enc.complete)
+    if enc.corrected_complete is not None:
+        cc = cc | enc.corrected_complete
+    st = _LadderState(B)
+    cur_q, cur_enc = q, enc
+    rungs = 0
+    prev_fails = None
+    for kt in _TILE_LADDER:
+        if rungs and (kt - 1) * 128 >= snap.n:
+            break  # the previous rung already probed every tile
+        res = hybrid_tile_topk(cur_q, snap.docs, imp, cur_enc, k, sw, lw,
+                               bias=snap.bias, kt=kt, p_depth=_TILE_P_DEPTH,
+                               n_alive=n_alive)
+        rungs += 1
+        st.merge(res.values, res.indices, res.exact)
+        if st.exact.all():
+            break
+        if not np.logical_and(~st.exact, cc).any():
+            break  # deeper probes cannot certify the failures
+        fails = int((~st.exact).sum())
+        if prev_fails is not None and fails >= prev_fails:
+            break  # no progress: the bounds are not tightening
+        prev_fails = fails
+        fi = st.next_rows()  # compacted escalation
+        if fi is not None:
+            fp = st.padded(fi)
+            cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+            cur_enc = _subset_batch_rows(enc, fp, B)
+        else:
+            cur_q, cur_enc = q, enc
+    return st, rungs
+
+
 def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
-                  sw: float, lw: float, n_alive: int) -> Tuple[_LadderState, int]:
+                  sw: float, lw: float, n_alive: int,
+                  kd_tiles: Optional[int] = None) -> Tuple[_LadderState, int]:
     """The impact serving ladder: ``hybrid_impact_topk`` at each (k_dense,
     c_per_term, p_depth) rung, the queries re-encoded at the rung's depth;
     deeper rungs re-run only the uncertified queries (compacted to a pow2
-    bucket) while some failure can still certify. Returns the merged
-    _LadderState (full-batch coordinates) and the number of rungs run."""
+    bucket) while some failure can still certify. ``kd_tiles`` bounds the
+    first rung's dense pass 3 to that many tiles (its coverage flag gates
+    the certificate). Returns the merged _LadderState (full-batch
+    coordinates) and the number of rungs run."""
     from hybridsearch_tpu_torch.ops.hybrid import hybrid_impact_topk
 
     B = q.shape[0]
@@ -495,7 +578,8 @@ def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
         # enc.full_postings comes from the same snapshot as imp and enc
         res = hybrid_impact_topk(cur_q, snap.docs, imp, enc, k, sw, lw,
                                  bias=snap.bias, k_dense=kd, c_per_term=cp,
-                                 p_depth=pd, n_alive=n_alive)
+                                 p_depth=pd, n_alive=n_alive,
+                                 kd_tiles=kd_tiles if rungs == 0 else None)
         rungs += 1
         st.merge(res.values, res.indices, res.exact)
         if st.exact.all():

@@ -92,6 +92,26 @@ def test_cpu_rehearsal_runs_every_phase():
     assert any("] pipelines semantic cache: " in ln and "got all back" in ln
                for ln in lines)
     assert any(f"] {pipelines}: launches " in ln for ln in lines)
+    # the other single-device routes: tile and impact ladders on the clustered
+    # index, the kd_tiles rung, the one-call supertile entry, the sparse
+    # hybrid and the IVF
+    for run in ("small-topic/tile", "small-topic/impact"):
+        for phase in ("search_batch", "reference"):
+            assert any(f"] {phase}: {run}:" in ln for ln in lines), (phase, run)
+        assert any(f"] {run}: " in ln and "served twice is equal bit for bit" in ln
+                   for ln in lines), run
+    assert any("] small-topic/impact/kd_tiles: hybrid_impact_topk(kd_tiles=128)" in ln
+               and "served twice bit for bit" in ln for ln in lines)
+    for s_probe in (2, 16):
+        assert any(f"] small-topic/one-call: hybrid_supertile_topk(s_probe={s_probe})"
+                   in ln and "equal bit for bit to super_prefix" in ln for ln in lines)
+    assert any("] small-topic/source/sparse: hybrid_sparse_topk" in ln
+               and "hot terms" in ln and "served twice is equal bit for bit" in ln
+               and "match the plain exact fused reference" in ln for ln in lines)
+    assert any("] ivf index: small-topic/ivf" in ln and "one corpus copy" in ln
+               for ln in lines)
+    assert any("] small-topic/ivf: " in ln and "full probe equals DenseIndex.search"
+               in ln and "match the plain scatter reference" in ln for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

@@ -68,3 +68,39 @@ def test_entry_points_default_to_the_card():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+_ROUTES_PROBE = """
+import sys
+from hybridsearch_tpu_torch.index.builder import IVF_AUTO_MIN_DOCS, Indexer
+from hybridsearch_tpu_torch.index.ivf import IVFIndex
+from hybridsearch_tpu_torch.ops.bm25 import encode_hot_terms
+from hybridsearch_tpu_torch.ops.hybrid import hybrid_sparse_topk, hybrid_tile_topk
+from hybridsearch_tpu_torch.ops.supertile import hybrid_supertile_topk
+from hybridsearch_tpu_torch.retrieval.searcher import impact_ladder, tile_ladder
+from hybridsearch_tpu_torch.convert import ivf_index
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hybridsearch_tpu"))
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_the_single_device_routes_import_no_jax():
+    """The tile, sparse and one-call supertile hybrids, the tile ladder, the
+    IVF index and its converter load in a process with no JAX module."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _ROUTES_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_ivf_index_defaults_to_the_card():
+    from hybridsearch_tpu_torch.index.ivf import IVFIndex
+
+    assert IVFIndex(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert IVFIndex().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError):
+            IVFIndex()

@@ -209,9 +209,11 @@ def test_kmeans_and_cluster_permutation_match_jax_with_injected_draws(monkeypatc
     monkeypatch.setattr(tbuilder, "kmeans_fit", lambda vec, kk, seed=0: kmeans_fit(
         vec, kk, seed=seed, init_idx=torch.from_numpy(init),
         reseed_idx=torch.from_numpy(reseed)))
-    perm_j = jbuilder._cluster_permutation(v)[0]
-    perm_t = tbuilder._cluster_permutation(torch.from_numpy(v))
+    perm_j, cent_j, assign_j = jbuilder._cluster_permutation(v)
+    perm_t, cent_t, assign_t = tbuilder._cluster_permutation(torch.from_numpy(v))
     np.testing.assert_array_equal(perm_t, perm_j)
+    np.testing.assert_allclose(cent_t.numpy(), np.asarray(cent_j), atol=1e-5)
+    np.testing.assert_array_equal(assign_t, np.asarray(assign_j))
 
 
 def test_index_documents_matches_jax_build(monkeypatch):
