@@ -343,6 +343,49 @@ def check_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     sync(dev)
 
 
+def check_shard_kernels(sz: dict, dev: torch.device, seed: int) -> None:
+    """K1 and K4 at tile grain on one mesh rank's inputs: K1's stats sweep
+    over a shard's N / MESH_RANKS rows (a few dead) at the served batch,
+    with and without the alive min, and K4 at tile grain
+    (``tile_scores``) over that shard's tiles at each rung of the sharded
+    ladder (``_SUPER_LADDER`` capped at a shard's supertiles, every
+    supertile's tiles in a row, as the sharded program asks), each within
+    1e-5 of its plain version, float32."""
+    from hybridsearch_tpu_torch.ops.cuda_supertile import tile_scores, tile_scores_plain
+    from hybridsearch_tpu_torch.ops.cuda_topk import tile_stats, tile_stats_plain
+    from hybridsearch_tpu_torch.retrieval.searcher import _SUPER_LADDER
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 5)
+    per, D, B = sz["n_docs"] // MESH_RANKS, sz["dim"], sz["batch"]
+    docs = unit_rows(gen, per, D, dev)
+    q = unit_rows(gen, B, D, dev)
+    bias = torch.zeros(per, device=dev)
+    bias[torch.randperm(per, generator=gen, device=dev)[: per // 100]] = float("-inf")
+    errs = [max_err(tile_stats(q, docs, bias, per, with_min),
+                    tile_stats_plain(q, docs, bias, per, with_min))
+            for with_min in (False, True)]
+    n_tiles = per // 128
+    super_tiles = min(128, n_tiles)  # 16,384-doc supertiles, or the whole shard
+    ns = n_tiles // super_tiles
+    for S in sorted({min(s, ns) for s in _SUPER_LADDER}):
+        sup = torch.sort(torch.stack([torch.randperm(ns, generator=gen, device=dev)[:S]
+                                      for _ in range(B)]), dim=1).values
+        tiles = (sup[:, :, None] * super_tiles
+                 + torch.arange(super_tiles, device=dev)).reshape(B, -1).int()
+        errs.append(max_err(tile_scores(q, docs, tiles), tile_scores_plain(q, docs, tiles)))
+        print(f"    shard of {per} rows: tile_scores at {S} of {ns} supertiles "
+              f"({tiles.shape[1]} tiles a query) err {errs[-1]:.3g} (tol 1e-5)",
+              flush=True)
+    print(f"    shard of {per} rows: tile_stats at B={B} err {max(errs[:2]):.3g} "
+          "(tol 1e-5)", flush=True)
+    if max(errs) > 1e-5:
+        raise AssertionError("a kernel disagrees with its plain version on a "
+                             "shard's rows")
+    del docs
+    sync(dev)
+
+
 def check_gated_kernels(sz: dict, dev: torch.device, seed: int) -> None:
     """K4 and K5 at the slice's widths. K4 on the probe table, written
     query-major, bit-equal to K2 and (on the card) to its first design on
@@ -1445,14 +1488,15 @@ def main(argv=None) -> int:
         print(json.dumps({"p1_stages": p1_stages(sz, dev, args.seed, clock)}),
               flush=True)
         return 0
-
     # -- 3. kernels
     check_kernels(sz, dev, args.seed)
     check_gated_kernels(sz, dev, args.seed)
+    check_shard_kernels(sz, dev, args.seed)
     check_impact_kernels(sz, dev, args.seed,
                          IMPACT_SHAPES["cpu" if rehearsal else "card"])
     clock.phase("kernels", "K1-K7 match their plain versions at the slice's "
-                "shapes; K4 equals K2 and K5 equals window gather + K3 bit for bit"
+                "shapes (K1 and K4 at tile grain also on a mesh shard's rows); K4 "
+                "equals K2 and K5 equals window gather + K3 bit for bit"
                 + ("" if rehearsal else "; K1-K7 equal their first designs"))
 
     # -- 4. end to end: the clustered path on the small-topic corpus, then
@@ -1507,9 +1551,20 @@ def main(argv=None) -> int:
     detail["corpora"]["small-topic/one-call"] = one_call
     for s_probe, row in one_call.items():
         routes[f"small-topic/one-call s_probe={s_probe}"] = row["launches"]
-    del run, lev, caps, gated
+    del lev, caps, gated
     clock.phase("P1 check", "small-topic: " + check_p1(rec))
     del rec
+    # the mesh's four ranks build and serve beside the next build; the
+    # small-topic index (run) is their reference until they are collected
+    mesh_world = start_mesh(sz, dev, args.seed, rehearsal)
+
+    def collect_mesh():
+        nonlocal run
+        mesh = finish_mesh(mesh_world, run, sz, dev, clock, kind, smi)
+        detail["corpora"]["small-topic/mesh4"] = mesh
+        for rank, counts in mesh["launches"].items():
+            routes[f"small-topic/mesh4 rank {rank}"] = counts
+        run = None
 
     hot_s = []  # seconds of the hot-term tables inside the source build's bm25_s
     real_hot = bm25_mod._hot_tables
@@ -1524,7 +1579,10 @@ def main(argv=None) -> int:
     bm25_mod._hot_tables = timed_hot
     try:
         run = serve_corpus("small-topic", "source", sz, dev, args.seed, clock, kind,
-                           smi, main_path=True)
+                           smi, main_path=True, before_serve=collect_mesh)
+    except BaseException:
+        mesh_world[0].stop()
+        raise
     finally:
         bm25_mod._hot_tables = real_hot
     detail["corpora"]["small-topic/source"] = run["stats"]
@@ -1564,11 +1622,22 @@ def main(argv=None) -> int:
         sz, dev, args.seed, clock, kind, smi, oneshot)
     del oneshot
 
-    detail["regime_1"] = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
+    regime = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
+    detail["regime_1"] = {k: v for k, v in regime.items() if k != "searcher"}
+    # one batch on a world of one NCCL rank, beside large-topic's build
+    world1 = start_nccl_batch(sz, dev, args.seed + 2, rehearsal)
 
-    detail["corpora"]["large-topic"] = serve_corpus(
-        "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
-        main_path=False)["stats"]
+    def collect_world1():
+        detail["mesh_world1"] = finish_nccl_batch(world1, regime, clock)
+
+    try:
+        detail["corpora"]["large-topic"] = serve_corpus(
+            "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
+            main_path=False, before_serve=collect_world1)["stats"]
+    except BaseException:
+        world1[0].stop()
+        raise
+    del regime
     ivf = serve_ivf(sz, dev, args.seed, clock, kind, smi)
     detail["corpora"]["small-topic/ivf"] = ivf
     routes["small-topic/ivf"] = ivf["launches"]
@@ -1697,13 +1766,17 @@ def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
 
 
 def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
-                 clock: Clock, kind: str, smi: str, main_path: bool) -> dict:
-    """Index one corpus (``index_corpus``) and serve it (``serve_batches``):
-    one warm-up and ``n_batches`` timed batches. Returns serve_batches'
-    dict plus "searcher", "warm" and "batches"."""
+                 clock: Clock, kind: str, smi: str, main_path: bool,
+                 before_serve=None) -> dict:
+    """Index one corpus (``index_corpus``), run ``before_serve()`` if given
+    (collecting a world of ranks that ran beside the build), and serve it
+    (``serve_batches``): one warm-up and ``n_batches`` timed batches.
+    Returns serve_batches' dict plus "searcher", "warm" and "batches"."""
     label = corpus if layout == "clustered" else f"{corpus}/{layout}"
     searcher, make_queries, timings = index_corpus(corpus, layout, sz, dev, seed,
                                                    clock, label)
+    if before_serve is not None:
+        before_serve()
     warm = make_queries(sz["batch"])
     batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
     run = serve_batches(searcher, label, layout, warm, batches, sz, dev, clock,
@@ -1919,7 +1992,8 @@ def serve_regime_one(sz: dict, dev: torch.device, seed: int, clock: Clock,
         f"{kind}; {smi}; unsourced synthetic corpus)"))
     return {"n_docs": small["n_docs"], "qps": qps, "p50_ms": float(p50),
             "p99_ms": float(p99), "batch_ms": [x * 1e3 for x in lat],
-            "rows_checked": checked, "repeat_equal": True, "index_timings_s": timings}
+            "rows_checked": checked, "repeat_equal": True, "index_timings_s": timings,
+            "searcher": searcher}
 
 
 def check_batches(searcher, batches, results, exact_rows, sw: float, lw: float):
@@ -2301,6 +2375,399 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
 
 
 # -- the lifecycle run: a grown, tombstoned, saved and reloaded index ----------
+
+# -- the mesh: four ranks on one card --------------------------------------------
+
+MESH_RANKS = 4
+MESH_DIR = "chiprun_out/mesh"  # the ranks' stores, the save and the world's files
+# K1 (the shards' stats sweeps), K3 (their resident placement) and K4 at tile
+# grain (their resident scores, tile_scores)
+MESH_KERNELS = ("tile_stats", "place_windows", "super_scores_dedup")
+MESH_CHECK_QUERIES = 32  # queries of the first batch through BM25.search
+MESH_IVF_QUERIES = 8  # queries through the sharded IVF at full probe
+MESH_SPANS = ("mesh_all_reduce", "mesh_all_gather")
+
+
+def _rehearse_rank(sz: dict) -> None:
+    """A rehearsal rank takes the card's routes as the rehearsal's parent
+    does: the kernel routes with their plain versions, the at-scale paths
+    at its tiny size."""
+    from hybridsearch_tpu_torch.ops import bm25 as bm25_mod
+    from hybridsearch_tpu_torch.ops import dense as dense_mod
+    from hybridsearch_tpu_torch.ops import supertile as supertile_mod
+    from hybridsearch_tpu_torch.retrieval import searcher as searcher_mod
+
+    dense_mod._on_card = supertile_mod._on_card = lambda t: True
+    searcher_mod.SPARSE_HYBRID_MIN_DOCS = 0
+    bm25_mod.HOT_DF_THRESHOLD = REHEARSAL_HOT_DF
+
+
+def _bare_rows(results):
+    """search_batch rows without their contents: [(value, doc id), ...]."""
+    return [[(v, i) for v, _c, i in row] for row in results]
+
+
+def mesh_rank(rank: int, world: int, job: dict) -> dict:
+    """One rank of "small-topic/mesh4" (prints nothing; its report goes back
+    to the parent): the small-topic corpus indexed on the mesh
+    (``layout="clustered"``, ``ann="ivf"``; this rank keeps its quarter of
+    each index), a warm-up and the timed batches through
+    ``Searcher.search_batch`` with every kernel's count set to 0 just
+    before and read just after (and the rungs each batch's ladder probed),
+    the first batch again, then once more under ``HST_SUPER_HYBRID=0``
+    through the exact collective program, ``DenseIndex.search``,
+    ``BM25.search`` and the sharded IVF at full probe on the first batch's
+    queries, then ``Indexer.save`` and ``Indexer.load`` onto the mesh and
+    the first batch from the loaded index."""
+    import hashlib
+
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.parallel import collectives
+    from hybridsearch_tpu_torch.parallel.mesh import build_mesh
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+    from hybridsearch_tpu_torch.utils.tracing import GLOBAL_COUNTERS, GLOBAL_TIMER
+
+    sz, dev = job["sz"], torch.device(job["device"])
+    if job["rehearsal"]:
+        _rehearse_rank(sz)
+    mesh = build_mesh(device=dev)
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    docs, make_queries = make_corpus(sz, "small-topic", job["seed"])
+    cfg = EngineConfig()
+    cfg.index.layout, cfg.index.ann, cfg.index.dim = "clustered", "ivf", sz["dim"]
+    db = os.path.join(job["dir"], f"store_{rank}.db")
+    encoder = hashing_encoder(sz, dev)
+    searcher = Searcher(config=cfg, use_query_memory=False, encoder=encoder,
+                        mesh=mesh, db_path=db)
+    idx = searcher.indexer
+    out["index_timings_s"] = idx.index_documents(docs)["timings_s"]
+    del docs
+    t = time.perf_counter()
+    ssp = idx.bm25.super_postings_sharded()
+    sync(dev)
+    out["super_postings_s"] = time.perf_counter() - t
+    out["build_s"] = time.perf_counter() - t0
+    out["local_supertiles"] = int(ssp.sup_max.shape[1])
+    out["local_rows"] = int(idx.dense._snap.docs.shape[0])
+    out["contents_sha"] = hashlib.sha256("\n".join(idx.contents).encode()).hexdigest()
+    warm = make_queries(sz["batch"])
+    batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
+    searcher.search_batch(warm, top_k=TOP_K, log=False)
+
+    # each batch's ladder rungs (s_probe) and calls of the exact program
+    rungs, exact_calls = [], []
+    real_super, real_exact = (collectives.sharded_supertile_topk,
+                              collectives.sharded_hybrid_topk)
+
+    def ladder_rung(*a, **kw):
+        rungs[-1].append(kw["s_probe"])
+        return real_super(*a, **kw)
+
+    def exact_program(*a, **kw):
+        exact_calls[-1] += 1
+        return real_exact(*a, **kw)
+
+    GLOBAL_TIMER._samples.clear()
+    GLOBAL_TIMER._counts.clear()
+    launches, lat, results, fallbacks = {}, [], [], []
+    collectives.sharded_supertile_topk = ladder_rung
+    collectives.sharded_hybrid_topk = exact_program
+    try:
+        with counting(launches):
+            for qs in batches:
+                rungs.append([])
+                exact_calls.append(0)
+                before = GLOBAL_COUNTERS.get("hybrid_sharded_uncertified")
+                t = time.perf_counter()
+                results.append(_bare_rows(searcher.search_batch(qs, top_k=TOP_K,
+                                                                log=False)))
+                lat.append(time.perf_counter() - t)
+                fallbacks.append(GLOBAL_COUNTERS.get("hybrid_sharded_uncertified")
+                                 - before)
+        spans = {name: row for name, row in GLOBAL_TIMER.stats().items()
+                 if name in MESH_SPANS + ("hybrid_sharded", "encode")}
+        out.update(launches=launches, batch_ms=[x * 1e3 for x in lat],
+                   results=results, fallbacks=fallbacks, spans=spans,
+                   rungs=rungs, exact_calls=exact_calls,
+                   batches=batches if rank == 0 else None)
+        rungs.append([])
+        exact_calls.append(0)
+        out["repeat_equal"] = _bare_rows(searcher.search_batch(
+            batches[0], top_k=TOP_K, log=False)) == results[0]
+        # the first batch through the exact collective program on every rank
+        rungs.append([])
+        exact_calls.append(0)
+        os.environ["HST_SUPER_HYBRID"] = "0"
+        exact_launches = {}
+        t = time.perf_counter()
+        with counting(exact_launches):
+            out["exact_rows"] = _bare_rows(searcher.search_batch(
+                batches[0], top_k=TOP_K, log=False))
+        out["exact_ms"] = (time.perf_counter() - t) * 1e3
+        out["exact_launches"], out["exact_program_calls"] = exact_launches, exact_calls[-1]
+    finally:
+        os.environ.pop("HST_SUPER_HYBRID", None)
+        collectives.sharded_supertile_topk = real_super
+        collectives.sharded_hybrid_topk = real_exact
+
+    q = encoder.encode(batches[0])
+    out["dense"] = idx.dense.search(q, TOP_K)
+    out["ivf_full"] = idx.ivf.search(q[:MESH_IVF_QUERIES], TOP_K, nprobe=10**9)
+    out["ivf_chunks"] = int(idx.ivf._chunk_starts.shape[0])
+    out["bm25"] = [idx.bm25.search(text, top_k=TOP_K)
+                   for text in batches[0][:MESH_CHECK_QUERIES]]
+    if dev.type == "cuda":
+        out["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+
+    t = time.perf_counter()
+    save_dir = os.path.join(job["dir"], "saved")
+    idx.save(save_dir)
+    out["save_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    loaded = Indexer.load(save_dir, encoder=encoder, db_path=db, mesh=mesh)
+    out["load_s"] = time.perf_counter() - t
+    ls = Searcher(indexer=loaded, use_query_memory=False, config=loaded.config)
+    out["loaded_equal"] = _bare_rows(ls.search_batch(batches[0], top_k=TOP_K,
+                                                     log=False)) == results[0]
+    return out
+
+
+def nccl_rank(rank: int, world: int, job: dict) -> dict:
+    """The one rank of the world-1 batch: regime 1's corpus indexed on a
+    mesh of one rank over the job's backend and one batch served through
+    ``Searcher.search_batch`` (the exact collective program)."""
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.parallel.mesh import build_mesh
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    sz, dev = job["sz"], torch.device(job["device"])
+    if job["rehearsal"]:
+        _rehearse_rank(sz)
+    mesh = build_mesh(device=dev)
+    docs, make_queries = make_corpus(sz, "small-topic", job["seed"])
+    cfg = EngineConfig()
+    cfg.index.dim = sz["dim"]
+    searcher = Searcher(config=cfg, use_query_memory=False,
+                        encoder=hashing_encoder(sz, dev), mesh=mesh)
+    searcher.indexer.index_documents(docs)
+    make_queries(sz["batch"])  # regime 1's warm-up batch
+    qs = make_queries(sz["batch"])
+    t = time.perf_counter()
+    rows = _bare_rows(searcher.search_batch(qs, top_k=TOP_K, log=False))
+    return {"backend": mesh.backend, "queries": qs, "rows": rows,
+            "ms": (time.perf_counter() - t) * 1e3}
+
+
+def _with_contents(rows, contents):
+    return [[(v, contents[i], i) for v, i in row] for row in rows]
+
+
+def _ranks_equal(outs, keys) -> None:
+    import pickle
+
+    for key in keys:
+        for o in outs[1:]:
+            if pickle.dumps(o[key]) != pickle.dumps(outs[0][key]):
+                raise AssertionError(f"mesh4: rank {o['rank']}'s {key} differs from "
+                                     "rank 0's")
+
+
+def start_mesh(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple:
+    """Start "small-topic/mesh4"'s four ranks (``mesh_rank``; gloo, sharing
+    the one card, since NCCL refuses two ranks on a device) and return at
+    once, so the parent indexes its next corpus while the ranks build
+    theirs; ``finish_mesh`` collects them. Returns (world, start time)."""
+    import shutil
+
+    from hybridsearch_tpu_torch.parallel.dryrun import start
+
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    job = {"sz": sz, "seed": seed, "device": dev.type, "rehearsal": rehearsal,
+           "dir": os.path.abspath(MESH_DIR)}
+    return (start(mesh_rank, MESH_RANKS, args=(job,), device=dev.type,
+                  threads=REHEARSAL_THREADS if rehearsal else 2,
+                  workdir=os.path.join(MESH_DIR, "world"), timeout_s=420),
+            time.perf_counter())
+
+
+def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
+                clock: Clock, kind: str, smi: str) -> dict:
+    """"small-topic/mesh4": four ranks serve small-topic's corpus on a
+    mesh, a quarter of it each (``start_mesh``). Every rank's rows, dense,
+    BM25 and IVF results must be equal; every row must equal the plain
+    exact fused reference over the single-device index of ``run`` (same
+    corpus, same clustered permutation, checked by digest): a batch is
+    served whole by the certified ladder or by the exact collective
+    program; the first batch again, and from the index saved and loaded
+    onto the mesh, bit for bit; DenseIndex.search equal to the single
+    device's exact top-k, BM25.search to the single device's, the sharded
+    IVF at full probe to exact search; K1, K3 and K4 launched on every
+    rank."""
+    import shutil
+
+    label = "small-topic/mesh4"
+    world, t = started
+    try:
+        outs = world.join()
+    finally:
+        saved_bytes = sum(os.path.getsize(os.path.join(r, f))
+                          for r, _d, fs in os.walk(MESH_DIR) for f in fs)
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    world_s = time.perf_counter() - t
+    for o in outs:
+        stages = ", ".join(f"{k} {v:.1f}" for k, v in o["index_timings_s"].items())
+        print(f"    rank {o['rank']}: build {o['build_s']:.1f} s ({stages}; "
+              f"super_postings_sharded {o['super_postings_s']:.1f}); {o['local_rows']} "
+              f"rows, {o['local_supertiles']} supertiles; save {o['save_s']:.1f} s, "
+              f"load {o['load_s']:.1f} s; peak {o.get('peak_bytes', 'not measured')} "
+              "bytes", flush=True)
+    clock.phase("index_documents", f"{label}: {MESH_RANKS} ranks, "
+                f"{sz['n_docs']} docs, the world's wall {world_s:.1f} s (started "
+                f"before small-topic/source's build, which ran beside it); the save "
+                f"{saved_bytes} bytes, removed")
+    _ranks_equal(outs, ("results", "fallbacks", "rungs", "exact_calls", "exact_rows",
+                        "dense", "ivf_full", "bm25", "contents_sha", "repeat_equal",
+                        "loaded_equal"))
+    clock.phase(label, "every rank's rows, fallbacks, ladder rungs, exact-program "
+                "rows, DenseIndex.search, IVF and BM25.search results are equal "
+                "(each rank checked against rank 0)")
+    o0 = outs[0]
+    if not all(o["repeat_equal"] for o in outs):
+        raise AssertionError(f"{label}: two servings of one batch differ")
+    if not all(o["loaded_equal"] for o in outs):
+        raise AssertionError(f"{label}: the saved and loaded index serves other rows")
+    for o in outs:
+        _require_launched(f"{label} rank {o['rank']}", o["launches"], MESH_KERNELS, dev)
+        # the exact program serves a batch the ladder leaves, and nothing else
+        if (o["exact_program_calls"] != 1
+                or o["exact_calls"][:len(o["fallbacks"])] != o["fallbacks"]):
+            raise AssertionError(f"{label} rank {o['rank']}: the exact collective "
+                                 f"program ran {o['exact_calls']} times a batch, "
+                                 f"for fallbacks {o['fallbacks']}")
+
+    single = run["searcher"]
+    import hashlib
+
+    sha = hashlib.sha256("\n".join(single.indexer.contents).encode()).hexdigest()
+    if sha != o0["contents_sha"]:
+        raise AssertionError(f"{label}: the mesh's doc order is not the single "
+                             "device's clustered order")
+    contents = single.indexer.contents
+    batches = o0["batches"]
+    fu = single.config.fusion
+    checked, _b, _j = check_batches(
+        single, batches, [_with_contents(r, contents) for r in o0["results"]],
+        [np.ones(len(qs), bool) for qs in batches], fu.semantic_weight,
+        fu.lexical_weight)
+    exact_checked, _b, _j = check_batches(
+        single, batches[:1], [_with_contents(o0["exact_rows"], contents)],
+        [np.ones(len(batches[0]), bool)], fu.semantic_weight, fu.lexical_weight)
+    q = single.indexer.encoder.encode(batches[0])
+    want_v, want_i = single.indexer.dense.search(q, TOP_K)
+    for name, (gv, gi) in (("DenseIndex.search", o0["dense"]),
+                           ("the IVF at full probe", o0["ivf_full"])):
+        why = [rows_differ(list(zip(gv[b], [None] * TOP_K, gi[b])),
+                           list(zip(want_v[b], [None] * TOP_K, want_i[b])))
+               for b in range(len(gv))]
+        if any(w is not None for w in why):
+            raise AssertionError(f"{label}: {name} differs from the single device's "
+                                 f"exact search: {next(w for w in why if w)}")
+    for text, got in zip(batches[0], o0["bm25"]):
+        want = single.indexer.bm25.search(text, top_k=TOP_K)
+        why = rows_differ([(v, None, i) for i, v in got], [(v, None, i) for i, v in want])
+        if why is not None:
+            raise AssertionError(f"{label}: BM25.search of {text!r}: {why}")
+    n_q = sum(len(qs) for qs in batches)
+    lat = [x / 1e3 for x in o0["batch_ms"]]
+    qps, p50, p99, text = _latency_text(lat, n_q, sz, kind, smi)
+    whole = sum(f == 0 for f in o0["fallbacks"])
+    ns_local = o0["local_supertiles"]
+    # the rung (s_probe) at which each certified batch closed
+    closed = {}
+    for f, r in zip(o0["fallbacks"], o0["rungs"]):
+        if f == 0:
+            closed[r[-1]] = closed.get(r[-1], 0) + 1
+    rungs_text = ", ".join(f"{n} at s_probe {s}" + (" (every supertile of a shard)"
+                                                    if s >= ns_local else "")
+                           for s, n in sorted(closed.items())) or "none"
+    spans = {o["rank"]: o["spans"] for o in outs}
+    coll = {r: {n: sp[n]["count"] * sp[n]["mean_ms"] for n in MESH_SPANS if n in sp}
+            for r, sp in spans.items()}
+    clock.phase(label, (
+        f"all {checked} rows match the plain exact fused reference (single-device "
+        f"index, same order); the first batch served twice and from the index "
+        f"saved and loaded onto the mesh is equal bit for bit; DenseIndex.search "
+        f"and the sharded IVF at full probe ({o0['ivf_chunks']} chunks a rank, "
+        f"{len(o0['ivf_full'][0])} queries) equal exact search, BM25.search the "
+        f"single device's on {len(o0['bm25'])} "
+        f"queries; {whole} of {len(batches)} batches certified whole by the "
+        f"sharded ladder ({rungs_text}; {ns_local} supertiles a shard), "
+        f"{len(batches) - whole} served by the exact collective program; rank 0 "
+        f"launches {json.dumps(o0['launches'])}"))
+    clock.phase(label, (
+        f"the first batch under HST_SUPER_HYBRID=0: the exact collective program "
+        f"once on every rank, all {exact_checked} rows match the plain exact fused "
+        f"reference, {o0['exact_ms']:.1f} ms; its launches on rank 0 "
+        f"{json.dumps(o0['exact_launches'])}"))
+    print(f"    {label}: {MESH_RANKS} processes time-sharing one card (not a "
+          f"scaling figure): {text}; collectives ms in the timed batches by rank "
+          f"{json.dumps({r: {n: round(v, 3) for n, v in c.items()} for r, c in coll.items()})}",
+          flush=True)
+    return {"ranks": MESH_RANKS, "backend": "gloo", "rows_checked": checked,
+            "batches_certified_whole": whole, "batches_exact_program": len(batches) - whole,
+            "certified_at_s_probe": closed, "local_supertiles": ns_local,
+            "rungs": o0["rungs"][:len(batches)], "exact_batch_rows_checked": exact_checked,
+            "exact_batch_ms": o0["exact_ms"], "exact_batch_launches": o0["exact_launches"],
+            "qps": qps, "p50_ms": p50, "p99_ms": p99, "batch_ms": o0["batch_ms"],
+            "world_s": world_s, "launches": {o["rank"]: o["launches"] for o in outs},
+            "build_s": {o["rank"]: o["build_s"] for o in outs},
+            "index_timings_s": {o["rank"]: o["index_timings_s"] for o in outs},
+            "peak_bytes": {o["rank"]: o.get("peak_bytes") for o in outs},
+            "save_s": {o["rank"]: o["save_s"] for o in outs},
+            "load_s": {o["rank"]: o["load_s"] for o in outs},
+            "saved_bytes": saved_bytes, "spans": spans, "collectives_ms": coll,
+            "repeat_equal": True, "loaded_equal": True}
+
+
+def start_nccl_batch(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple:
+    """Start the world-1 batch (``nccl_rank`` over NCCL; gloo in the
+    rehearsal, which has no NCCL) and return at once; ``finish_nccl_batch``
+    collects it. Returns (world, start time, backend, its corpus size)."""
+    from hybridsearch_tpu_torch.parallel.dryrun import start
+
+    backend = "gloo" if rehearsal else "nccl"
+    small = dict(sz, n_docs=sz["n_docs"] // 4)
+    job = {"sz": small, "seed": seed, "device": dev.type, "rehearsal": rehearsal}
+    return (start(nccl_rank, 1, args=(job,), backend=backend, device=dev.type,
+                  threads=REHEARSAL_THREADS if rehearsal else 2, timeout_s=300),
+            time.perf_counter(), backend, small["n_docs"])
+
+
+def finish_nccl_batch(started: tuple, regime: dict, clock: Clock) -> dict:
+    """One batch on a mesh of one rank: regime 1's corpus through
+    ``Searcher(mesh=)``, its exact collective program, every row against
+    the plain exact fused reference over regime 1's single-device index
+    (the same corpus)."""
+    world, t, _backend, n_docs = started
+    o = world.join()[0]
+    wall = time.perf_counter() - t
+    single = regime["searcher"]
+    fu = single.config.fusion
+    checked, _b, _j = check_batches(
+        single, [o["queries"]], [_with_contents(o["rows"], single.indexer.contents)],
+        [np.ones(len(o["queries"]), bool)], fu.semantic_weight, fu.lexical_weight)
+    clock.phase("mesh world 1", (
+        f"{o['backend']}: one batch of {len(o['queries'])} queries over "
+        f"{n_docs} docs through Searcher(mesh=) (the exact collective program; "
+        f"the rank's first batch) in {o['ms']:.1f} ms, all {checked} rows match "
+        f"the plain exact fused reference; the world's wall {wall:.1f} s (started "
+        f"before large-topic's build, which ran beside it)"))
+    return {"backend": o["backend"], "rows_checked": checked, "batch_ms": o["ms"],
+            "world_s": wall}
+
 
 LIFECYCLE_DIR = "chiprun_out/lifecycle"  # removed at the end of the run
 LIFECYCLE_DELETE_SHARE = 0.01  # of the docs, tombstoned before the save

@@ -7,6 +7,11 @@ the ``HashingEncoder`` table and the semantic cache's LSH planes
 (``jax.random`` bits the port's generator cannot repeat), the dense
 snapshot, the BM25 CSR state, the supertile postings, the impact tier, and
 the clustered permutation of the corpus.
+
+On a mesh the JAX package stacks every shard's arrays on a leading axis
+([S, ...], read out as numpy); the ``sharded_*`` functions take those
+stacks and a mesh and return this rank's shard in the port's form (the
+dense snapshot is global in both packages and is cut by ``dense_index``).
 """
 
 from __future__ import annotations
@@ -23,9 +28,9 @@ from hybridsearch_tpu_torch.index.dense_index import DenseIndex
 from hybridsearch_tpu_torch.index.ivf import IVFIndex
 from hybridsearch_tpu_torch.index.sparse_index import BM25, _DeltaSeg
 from hybridsearch_tpu_torch.models.encoder import HashingEncoder
-from hybridsearch_tpu_torch.ops.bm25 import postings_from_csr
+from hybridsearch_tpu_torch.ops.bm25 import ShardedBM25Postings, postings_from_csr
 from hybridsearch_tpu_torch.ops.impact import ImpactPostings
-from hybridsearch_tpu_torch.ops.supertile import SuperPostings
+from hybridsearch_tpu_torch.ops.supertile import ShardedSuperPostings, SuperPostings
 from hybridsearch_tpu_torch.text.extractor import HashVocabulary, Vocabulary
 from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -42,13 +47,25 @@ def hashing_encoder(table: np.ndarray, seed: int = 42, bigram_weight: float = 0.
 
 
 def dense_index(docs: np.ndarray, bias: np.ndarray, n: int,
-                capacity_round: int = 4096, device: DeviceLike = None) -> DenseIndex:
+                capacity_round: int = 4096, device: DeviceLike = None,
+                mesh=None) -> DenseIndex:
     """DenseIndex adopting a snapshot: ``docs`` [capacity, D] L2-normalized
-    rows, ``bias`` [capacity] 0 / -inf, ``n`` rows assigned."""
+    rows, ``bias`` [capacity] 0 / -inf, ``n`` rows assigned. On a mesh the
+    arrays are the whole (gathered) snapshot and this rank keeps its
+    ``capacity / shards`` rows."""
     idx = DenseIndex(dim=docs.shape[1], capacity_round=capacity_round,
-                     device=device)
-    idx.load_snapshot(torch.from_numpy(np.array(docs, dtype=np.float32)),
-                      torch.from_numpy(np.array(bias, dtype=np.float32)), int(n))
+                     device=device, mesh=mesh)
+    docs_t = torch.from_numpy(np.array(docs, dtype=np.float32))
+    bias_t = torch.from_numpy(np.array(bias, dtype=np.float32))
+    if mesh is None:
+        idx.load_snapshot(docs_t, bias_t, int(n))
+        return idx
+    from hybridsearch_tpu_torch.index.dense_index import _Snapshot
+
+    lo, rows = idx._rows(docs.shape[0])
+    idx._snap = _Snapshot(docs_t[lo:lo + rows].to(idx.device),
+                          bias_t[lo:lo + rows].to(idx.device), int(n), docs.shape[0])
+    idx.deleted_count = int((bias_t[:int(n)] == float("-inf")).sum())
     return idx
 
 
@@ -69,13 +86,7 @@ def bm25_index(vocab: Union[np.ndarray, Sequence[str]], indptr: np.ndarray,
     ``delta_seg`` is ((t, d, c, doc_lens), indptr, doc_ids, weights) of the
     JAX ``_DeltaSeg``; the state then counts its docs too."""
     bm = BM25(k1=k1, b=b, delta=delta, device=device)
-    vocab_arr = np.asarray(vocab)
-    if vocab_arr.dtype == np.uint64:
-        voc = HashVocabulary.from_hashes(vocab_arr.tolist())
-    else:
-        voc = Vocabulary()
-        for tok in vocab_arr.tolist():
-            voc.add(str(tok))
+    voc = _vocab(vocab)
     postings = postings_from_csr(indptr, doc_ids, weights, n_docs, len(indptr) - 1,
                                  bm.device)
     seg, total = None, int(n_docs)
@@ -87,6 +98,96 @@ def bm25_index(vocab: Union[np.ndarray, Sequence[str]], indptr: np.ndarray,
     bm.set_state(voc, postings, total, tf_cache=tf_cache, frozen=frozen,
                  delta_seg=seg)
     return bm
+
+
+def sharded_bm25_postings(indptr_s: np.ndarray, doc_ids_s: np.ndarray,
+                          weights_s: np.ndarray, n_docs: int, docs_per_shard: int,
+                          mesh) -> ShardedBM25Postings:
+    """This rank's shard of a JAX ``ShardedBM25Postings`` (``indptr``
+    [S, V+1], ``doc_ids`` / ``weights`` [S, nnz_pad])."""
+    r = mesh.data_index
+    ip = np.asarray(indptr_s, np.int64)
+    runs = np.diff(ip, axis=1)  # [S, V]
+    return ShardedBM25Postings(
+        indptr=torch.from_numpy(ip[r].copy()).to(mesh.device),
+        doc_ids=torch.from_numpy(np.array(doc_ids_s[r], np.int32)).to(mesh.device),
+        weights=torch.from_numpy(np.array(weights_s[r], np.float32)).to(mesh.device),
+        n_docs=int(n_docs), docs_per_shard=int(docs_per_shard),
+        max_postings=max(1, int(runs.max()) if runs.size else 1),
+        vocab_size=ip.shape[1] - 1, n_shards=ip.shape[0], shard=r,
+        starts_host=ip[r, :-1].copy(), lengths_host=runs[r].copy(),
+        max_run_host=runs.max(axis=0))
+
+
+def sharded_bm25_index(vocab, indptr_s: np.ndarray, doc_ids_s: np.ndarray,
+                       weights_s: np.ndarray, n_docs: int, docs_per_shard: int,
+                       mesh, k1: float = 1.5, b: float = 0.75,
+                       delta: float = 1.0) -> BM25:
+    """BM25 on ``mesh`` holding this rank's shard of a JAX sharded fit
+    (``vocab`` as in ``bm25_index``). Its sharded supertile structures come
+    from ``attach_sharded_super_postings``."""
+    from hybridsearch_tpu_torch.index.sparse_index import _BM25State
+
+    bm = BM25(k1=k1, b=b, delta=delta, mesh=mesh)
+    bm.docs_per_shard = int(docs_per_shard)
+    sh = sharded_bm25_postings(indptr_s, doc_ids_s, weights_s, n_docs,
+                               docs_per_shard, mesh)
+    bm._state = _BM25State(_vocab(vocab), None, int(n_docs),
+                           np.append(sh.max_run_host, 0), sharded=sh)
+    return bm
+
+
+def sharded_super_postings(sup_max_s: np.ndarray, sup_pos_s: np.ndarray,
+                           ids_rows_s: np.ndarray, ws_rows_s: np.ndarray,
+                           docs_per_shard: int, n_docs: int, super_tiles: int,
+                           df_host: np.ndarray, win_max_host: np.ndarray,
+                           mesh) -> ShardedSuperPostings:
+    """This rank's shard of a JAX ``ShardedSuperPostings``."""
+    r, dev = mesh.data_index, mesh.device
+
+    def t(a, dtype):
+        return torch.from_numpy(np.array(a[r], dtype=dtype)).to(dev)
+
+    return ShardedSuperPostings(
+        sup_max=t(sup_max_s, np.float32), sup_pos=t(sup_pos_s, np.int32),
+        ids_rows=t(ids_rows_s, np.int32), ws_rows=t(ws_rows_s, np.float32),
+        docs_per_shard=int(docs_per_shard), n_docs=int(n_docs),
+        super_tiles=int(super_tiles), n_shards=len(sup_max_s), shard=r,
+        df_host=np.asarray(df_host, np.int64),
+        win_max_host=np.asarray(win_max_host, np.int64))
+
+
+def attach_sharded_super_postings(bm: BM25, ssp: ShardedSuperPostings) -> None:
+    """Serve ``ssp`` as the sharded supertile structures of ``bm``'s
+    current state."""
+    bm._super_shard_cache = (bm._state, ssp)
+
+
+def sharded_ivf_index(centroids_s: np.ndarray, docs_perm_s: np.ndarray,
+                      chunk_starts_s: np.ndarray, chunk_lens_s: np.ndarray,
+                      perm_to_orig_s: np.ndarray, chunk_cap: int, n_docs: int,
+                      mesh, nprobe: int = 8) -> IVFIndex:
+    """IVFIndex on ``mesh`` holding this rank's chunks of a JAX sharded IVF
+    (``[S, chunks_pad, D]`` centroids, ``[S, rows_pad, D]`` rows, ``[S,
+    chunks_pad]`` starts and lengths, ``[S, rows_pad]`` global doc ids)."""
+    r, dev = mesh.data_index, mesh.device
+    return IVFIndex(dim=docs_perm_s.shape[-1], nprobe=nprobe, mesh=mesh).load_arrays(
+        torch.from_numpy(np.array(centroids_s[r], np.float32)),
+        torch.from_numpy(np.array(docs_perm_s[r], np.float32)).to(dev),
+        *(torch.from_numpy(np.asarray(a[r], np.int64))
+          for a in (chunk_starts_s, chunk_lens_s, perm_to_orig_s)),
+        chunk_cap, n_docs)
+
+
+def _vocab(vocab):
+    """A HashVocabulary of uint64 token hashes, or a Vocabulary of tokens."""
+    vocab_arr = np.asarray(vocab)
+    if vocab_arr.dtype == np.uint64:
+        return HashVocabulary.from_hashes(vocab_arr.tolist())
+    voc = Vocabulary()
+    for tok in vocab_arr.tolist():
+        voc.add(str(tok))
+    return voc
 
 
 def super_postings(sup_max: np.ndarray, sup_pos: np.ndarray, ids_rows: np.ndarray,
@@ -166,10 +267,11 @@ def indexer(contents: Sequence[str], encoder: HashingEncoder, dense: DenseIndex,
             perm: Optional[np.ndarray] = None, db_path: str = ":memory:") -> Indexer:
     """Indexer over carried state. ``contents`` are the docs in index
     order, or in source order with ``perm`` the clustered permutation
-    (index row i holds source doc perm[i])."""
+    (index row i holds source doc perm[i]). It runs on ``dense``'s mesh
+    when it has one."""
     docs = list(contents) if perm is None else [contents[i] for i in perm]
     idx = Indexer(db_path=db_path, encoder=encoder, config=config,
-                  device=dense.device)
+                  device=dense.device, mesh=dense.mesh)
     idx.dense, idx.bm25 = dense, bm
     idx.doc_ids = idx.store.replace_documents(docs)
     idx.contents = docs

@@ -25,6 +25,19 @@ docs or more) the build also makes an IVF index (``self.ivf``), which scatter
 mode searches while it covers every doc: on a clustered build the one
 k-means serves layout and quantizer (``IVFIndex.from_layout`` adopts the
 dense snapshot's buffer), otherwise ``IVFIndex.build`` fits its own.
+
+On a mesh (``Indexer(mesh=)``, every rank calling every method with the
+same arguments) each rank embeds and tokenizes the whole corpus, as every
+host of a multi-host JAX program does, and keeps its own shard of each
+index: the dense rows, the BM25 postings (partitioned by the dense index's
+rows a shard, ``_align_bm25_shards``) and the IVF chunks (built on their
+own, no reserved overhang and no ``from_layout``). The clustered layout's
+k-means runs on rank 0 and its assignment is broadcast. Each rank opens its
+own store: give each one its own ``db_path`` (or ``":memory:"``).
+``save`` writes the JAX package's mesh layout (no ``bm25.npz``: a sharded
+BM25 cannot be saved) and ``load(directory, mesh=)`` reads this rank's rows
+back and refits BM25 aligned; ``export_json`` would gather every row onto
+every rank and raises under a mesh.
 """
 
 from __future__ import annotations
@@ -39,7 +52,12 @@ import torch
 
 from hybridsearch_tpu_torch.config import EngineConfig
 from hybridsearch_tpu_torch.index.dense_index import DenseIndex
-from hybridsearch_tpu_torch.index.ivf import IVFIndex, kmeans_assign, kmeans_fit
+from hybridsearch_tpu_torch.index.ivf import (
+    IVFIndex,
+    kmeans_assign,
+    kmeans_fit,
+    mesh_kmeans,
+)
 from hybridsearch_tpu_torch.index.sparse_index import BM25, BM25Plus
 from hybridsearch_tpu_torch.store.docstore import DocStore
 from hybridsearch_tpu_torch.text.extractor import (
@@ -64,9 +82,11 @@ class Indexer:
         encoder=None,
         config: Optional[EngineConfig] = None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.config = config or EngineConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.db_path = db_path
         self.store = DocStore(db_path)
         self._encoder = encoder
@@ -75,10 +95,12 @@ class Indexer:
             self.config.index.dim = encoder.dim
         bm25_cls = BM25Plus if self.config.bm25.variant == "bm25plus" else BM25
         self.bm25 = bm25_cls(k1=self.config.bm25.k1, b=self.config.bm25.b,
-                             delta=self.config.bm25.delta, device=self.device)
+                             delta=self.config.bm25.delta, device=self.device,
+                             mesh=mesh)
         self.dense = DenseIndex(dim=self.config.index.dim,
                                 capacity_round=self.config.index.capacity_round,
-                                device=self.device)
+                                device=self.device, mesh=mesh,
+                                block_n=self.config.index.block_n)
         self.ivf: Optional[IVFIndex] = None  # built when _want_ivf
         self.contents: List[str] = []
         self.doc_ids: List[int] = []
@@ -144,7 +166,8 @@ class Indexer:
             # the IVF cluster count then pins k
             want_ivf = self._want_ivf(len(docs))
             perm, cluster_cent, cluster_assign = _cluster_permutation(
-                vectors, k=self.config.index.ivf_clusters if want_ivf else 0)
+                vectors, k=self.config.index.ivf_clusters if want_ivf else 0,
+                mesh=self.mesh)
             _mark("cluster_s")
             vectors = vectors[torch.from_numpy(perm).to(vectors.device)]
             docs = [docs[i] for i in perm]
@@ -152,7 +175,7 @@ class Indexer:
                 paths = [paths[i] for i in perm]
             if metas is not None:
                 metas = [metas[i] for i in perm]
-            if want_ivf:
+            if want_ivf and self.mesh is None:
                 # the IVF chunk overhang lives inside the dense capacity, so
                 # the IVF's probes never run past the shared buffer
                 self.dense.reserve_rows = (
@@ -175,8 +198,8 @@ class Indexer:
             ix = self.config.index
             ivf = IVFIndex(dim=ix.dim, n_clusters=ix.ivf_clusters,
                            nprobe=ix.ivf_nprobe, chunk_cap=ix.ivf_chunk_cap,
-                           device=self.device)
-            if cluster_cent is not None:
+                           device=self.device, mesh=self.mesh)
+            if cluster_cent is not None and self.mesh is None:
                 # the corpus is cluster-ordered and already normalized on the
                 # device: adopt that buffer and the one k-means' centroids
                 ivf.from_layout(self.dense._snap.docs, len(docs), cluster_cent,
@@ -185,6 +208,7 @@ class Indexer:
                 ivf.build(vectors)
             self.ivf = ivf
         _mark("ivf_s")
+        self._align_bm25_shards()
         self.bm25.fit_coo_from_hashes(hashes, counts)
         _mark("bm25_s")
         self.contents = list(docs)
@@ -214,6 +238,7 @@ class Indexer:
         self.dense.add(self.embed(docs))
         self.contents.extend(docs)
         self.doc_ids.extend(ids)
+        self._align_bm25_shards()
         bm25 = self.bm25
         if (bm25._state.tf_cache is not None
                 and bm25.n_docs == len(self.contents) - len(docs)):
@@ -234,6 +259,14 @@ class Indexer:
             return n > 0
         return mode == "auto" and n >= IVF_AUTO_MIN_DOCS
 
+    def _align_bm25_shards(self) -> None:
+        """On a mesh, partition the BM25 postings by the dense index's rows
+        a shard, so hybrid fusion runs shard-locally."""
+        if self.mesh is not None:
+            from hybridsearch_tpu_torch.parallel.mesh import shard_count
+
+            self.bm25.docs_per_shard = self.dense.capacity // shard_count(self.mesh)
+
     def delete_documents(self, doc_ids: Sequence[int]) -> int:
         """Tombstone docs in the dense index (bias -> -inf), in BM25 and in
         the host store: they stop surfacing from every search path."""
@@ -253,6 +286,7 @@ class Indexer:
         if contents:
             if self.dense.n_docs != len(contents):
                 self.dense.build(self.embed(contents))
+            self._align_bm25_shards()
             self.bm25.fit(contents)
             deleted = self.store.deleted_ids()
             if deleted:
@@ -263,11 +297,17 @@ class Indexer:
     def save(self, directory: str) -> None:
         """Write the dense shards, the BM25 state and the engine manifest
         (with the config) under ``directory``; the docs and their metadata
-        stay in the store at ``db_path``."""
+        stay in the store at ``db_path``. On a mesh (every rank calling it)
+        rank 0 writes the manifest and every rank its own dense rows."""
         os.makedirs(directory, exist_ok=True)
         self.dense.save(os.path.join(directory, "dense"))
         if self.bm25.postings is not None:
             self.bm25.save(os.path.join(directory, "bm25.npz"))
+        if self.mesh is not None and self.mesh.data_index != 0:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.data_group)  # rank 0's manifest
+            return
         manifest = {"engine": "hybridsearch_tpu_torch",
                     "encoder": getattr(self.encoder, "name", "unknown"),
                     "dim": self.config.index.dim, "n_docs": len(self.contents),
@@ -275,24 +315,41 @@ class Indexer:
                     "config": json.loads(self.config.to_json())}
         with open(os.path.join(directory, "engine_manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.data_group)
 
     @classmethod
     def load(cls, directory: str, encoder=None, db_path: Optional[str] = None,
-             device: DeviceLike = None) -> "Indexer":
+             device: DeviceLike = None, mesh=None) -> "Indexer":
         """An Indexer over a directory ``save`` (of either package) wrote,
-        with no re-embedding and no BM25 refit; the store's tombstones are
-        re-applied to BM25 (the dense bias keeps its own)."""
+        with no re-embedding and no BM25 refit where ``bm25.npz`` exists;
+        the store's tombstones are re-applied to BM25 (the dense bias keeps
+        its own). Without ``bm25.npz`` BM25 refits from the store's docs
+        through ``fit``, as the JAX package does. On a mesh each rank reads
+        its own dense rows (from files of any shard count) and BM25, loaded
+        or refitted, is partitioned by them (the JAX package's load leaves
+        it unaligned); a mesh save writes no ``bm25.npz``, and the refit
+        there takes the token-hash path ``index_documents`` takes, so a
+        loaded mesh index serves as the built one (``fit`` gives the same
+        scores in another vocab order)."""
         with open(os.path.join(directory, "engine_manifest.json")) as f:
             manifest = json.load(f)
         config = EngineConfig.from_dict(manifest.get("config", {}))
         idx = cls(db_path=db_path or manifest.get("db_path", ":memory:"),
-                  encoder=encoder, config=config, device=device)
+                  encoder=encoder, config=config, device=device, mesh=mesh)
         idx.dense = DenseIndex.load(os.path.join(directory, "dense"),
-                                    device=idx.device)
+                                    capacity_round=config.index.capacity_round,
+                                    device=idx.device, mesh=mesh,
+                                    block_n=config.index.block_n)
+        idx._align_bm25_shards()
         idx.doc_ids, idx.contents = idx.store.get_contents()
         bm25_path = os.path.join(directory, "bm25.npz")
         if os.path.exists(bm25_path):
             idx.bm25.load(bm25_path)
+        elif idx.contents and mesh is not None:
+            idx.bm25.fit_hashes(idx.contents)
         elif idx.contents:
             idx.bm25.fit(idx.contents)
         deleted = idx.store.deleted_ids()
@@ -302,6 +359,11 @@ class Indexer:
 
     def export_json(self, path: str) -> None:
         """Dump the docs, their ids and their (normalized) vectors as JSON."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "Indexer.export_json on a mesh gathers every dense row onto every "
+                "rank (the JAX package leaves it to XLA's partitioning); not "
+                "ported to the mesh")
         vecs = self.dense.get_vectors(list(range(self.dense.n_docs)))
         with open(path, "w") as f:
             json.dump({"documents": self.contents, "doc_ids": self.doc_ids,
@@ -319,21 +381,27 @@ class Indexer:
             self.dense.build(vecs)
         elif docs:
             self.dense.build(self.embed(docs))
+        self._align_bm25_shards()
         self.bm25.fit(docs)
         self.contents = list(docs)
         self.doc_ids = list(range(len(docs)))
         return len(docs)
 
 
-def _cluster_permutation(vectors: torch.Tensor, seed: int = 0,
-                         k: int = 0) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
+def _cluster_permutation(vectors: torch.Tensor, seed: int = 0, k: int = 0,
+                         mesh=None) -> Tuple[np.ndarray, torch.Tensor, np.ndarray]:
     """(perm, centroids [k, D], sorted_assign): the permutation ordering docs
     by spherical k-means cluster (sqrt(N) clusters unless ``k`` pins it),
     stable within clusters, with the centroids and each permuted row's
     cluster, so one k-means serves the layout and the IVF quantizer
-    (``IVFIndex.from_layout``)."""
+    (``IVFIndex.from_layout``). On a mesh rank 0 fits and its result is
+    broadcast (``mesh_kmeans``)."""
     n = vectors.shape[0]
     k = k or max(2, int(np.sqrt(n)))
+    if mesh is not None:
+        cent, assign = mesh_kmeans(mesh, vectors, k, seed=seed)
+        perm = np.argsort(assign, kind="stable")
+        return perm, cent, assign[perm]
     cent = kmeans_fit(vectors, k, seed=seed)
     assign = kmeans_assign(vectors, cent).cpu().numpy()
     perm = np.argsort(assign, kind="stable")

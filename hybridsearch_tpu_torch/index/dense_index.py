@@ -8,8 +8,19 @@ atomically, so a reader always sees a consistent (docs, bias, n) triple;
 ``add`` grows the buffers on the device in steps of ``capacity_round``.
 ``save`` / ``load`` write and read the JAX package's layout (a manifest,
 one shard file, the bias). ``reserve_rows`` keeps spare zero rows past the
-docs for an IVF index that shares the buffer. The mesh-sharded layout is
-still to port.
+docs for an IVF index that shares the buffer.
+
+On a mesh (``parallel/mesh.py``) the capacity rounds per shard and each
+rank's snapshot holds only its ``capacity / shards`` rows and their bias
+(global rows [shard * per, (shard + 1) * per)); ``n`` and the capacity
+stay global. Search is the collective ``sharded_dense_topk``, ``delete``
+tombstones this rank's rows, and ``save`` writes the JAX layout (one
+``shard_{s:05d}.npy`` of ceil(n / shards) rows a shard), each rank writing
+its own rows into the files; ``load(path, mesh=)`` reads this rank's rows
+out of the files of any shard count. Growing a sharded capacity
+(``add`` past it) and ``compact`` move rows between shards, which the JAX
+package leaves to XLA's partitioning: both raise ``NotImplementedError``
+under a mesh.
 """
 
 from __future__ import annotations
@@ -17,13 +28,16 @@ from __future__ import annotations
 import json
 import os
 import threading
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import numpy as np
 import torch
 
 from hybridsearch_tpu_torch.ops.dense import l2_normalize, tiled_dense_topk
 from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
+
+if TYPE_CHECKING:
+    from hybridsearch_tpu_torch.parallel.mesh import Mesh
 
 NEG_INF_F32 = float("-inf")
 
@@ -35,8 +49,10 @@ class _Snapshot:
 
     def __init__(self, docs: torch.Tensor, bias: torch.Tensor, n: int,
                  capacity: int):
-        self.docs = docs  # [capacity, D] float32, L2-normalized rows
-        self.bias = bias  # [capacity] float32, 0 alive / -inf deleted
+        # [capacity, D] float32 L2-normalized rows and [capacity] bias (0
+        # alive / -inf deleted); on a mesh this rank's [capacity / shards]
+        self.docs = docs
+        self.bias = bias
         self.n = n  # rows assigned
         self.capacity = capacity
 
@@ -45,10 +61,13 @@ class DenseIndex:
     """Exact inner-product index over L2-normalized embeddings."""
 
     def __init__(self, dim: int = 384, capacity_round: int = 4096,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, mesh: Optional["Mesh"] = None,
+                 block_n: int = 4096) -> None:
         self.dim = dim
         self.capacity_round = capacity_round
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.block_n = block_n  # doc block of the mesh's streaming top-k
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # zero rows kept past n in every snapshot: a clustered IVF build sets
         # it to the IVF chunk width, so IVFIndex.from_layout's probes of the
         # last chunks stay inside the shared buffer (index/builder.py)
@@ -69,22 +88,59 @@ class DenseIndex:
     def __len__(self) -> int:
         return self._snap.n - self.deleted_count
 
-    def _round_capacity(self, n: int) -> int:
-        r = self.capacity_round
-        return -(-(max(n, 1) + self.reserve_rows) // r) * r
+    def _n_shards(self) -> int:
+        from hybridsearch_tpu_torch.parallel.mesh import shard_count
 
-    def _make_snapshot(self, vectors: torch.Tensor, bias: Optional[torch.Tensor],
-                       n: int, normalize: bool = False) -> _Snapshot:
-        """Snapshot of the first n rows; capacity-padding rows are zero with
-        -inf bias, so they never displace real docs from a top-k."""
+        return shard_count(self.mesh) if self.mesh is not None else 1
+
+    def _round_capacity(self, n: int) -> int:
+        """Capacity for n rows: each shard's rows rounded up to
+        ``capacity_round``."""
+        r, shards = self.capacity_round, self._n_shards()
+        per = -(-(max(n, 1) + self.reserve_rows) // shards)
+        return -(-per // r) * r * shards
+
+    def _rows(self, cap: int) -> Tuple[int, int]:
+        """(first global row, rows) of this rank's part of a capacity."""
+        if self.mesh is None:
+            return 0, cap
+        per = cap // self._n_shards()
+        return self.mesh.data_index * per, per
+
+    def _make_snapshot(self, vectors, bias, n: int,
+                       normalize: bool = False) -> _Snapshot:
+        """Snapshot of the first n rows of ``vectors`` (a tensor, or numpy
+        such as a memory map; on a mesh only this rank's rows are read);
+        capacity-padding rows are zero with -inf bias, so they never
+        displace real docs from a top-k."""
         cap = self._round_capacity(n)
-        docs = torch.zeros((cap, self.dim), dtype=torch.float32, device=self.device)
-        docs[:n] = vectors[:n].to(self.device, torch.float32)
+        lo, rows = self._rows(cap)
+        m = max(0, min(n - lo, rows))  # assigned rows of this part
+        docs = torch.zeros((rows, self.dim), dtype=torch.float32, device=self.device)
+        b = torch.full((rows,), NEG_INF_F32, dtype=torch.float32, device=self.device)
+        if m:
+            part = vectors[lo:lo + m]
+            part = part if torch.is_tensor(part) else torch.from_numpy(
+                np.array(part, dtype=np.float32))  # a copy: maps are read-only
+            docs[:m] = part.to(self.device, torch.float32)
+            if bias is None:
+                b[:m] = 0.0
+            else:
+                bp = bias[lo:lo + m]
+                bp = bp if torch.is_tensor(bp) else torch.from_numpy(
+                    np.array(bp, dtype=np.float32))
+                b[:m] = bp.to(self.device, torch.float32)
         if normalize:
             docs = l2_normalize(docs)  # zero rows stay zero under the eps guard
-        b = torch.full((cap,), NEG_INF_F32, dtype=torch.float32, device=self.device)
-        b[:n] = 0.0 if bias is None else bias[:n].to(self.device, torch.float32)
         return _Snapshot(docs, b, n, cap)
+
+    def _dead_total(self, local_dead: int) -> int:
+        """Tombstoned rows over every shard (one collective on a mesh)."""
+        if self.mesh is None:
+            return local_dead
+        from hybridsearch_tpu_torch.parallel.collectives import all_reduce_sum
+
+        return all_reduce_sum(local_dead, self.mesh)
 
     def build(self, vectors) -> "DenseIndex":
         """(Re)build from [N, D] raw embeddings (tensor or numpy);
@@ -102,6 +158,8 @@ class DenseIndex:
     def load_snapshot(self, docs: torch.Tensor, bias: torch.Tensor, n: int) -> None:
         """Adopt an already-normalized snapshot (convert.py carries the JAX
         package's state through this)."""
+        if self.mesh is not None:
+            raise ValueError("load_snapshot adopts a single-device snapshot")
         cap = docs.shape[0]
         if docs.shape[1] != self.dim or bias.shape != (cap,) or n > cap:
             raise ValueError("snapshot shapes do not match")
@@ -114,7 +172,9 @@ class DenseIndex:
     def add(self, vectors) -> np.ndarray:
         """Append [M, D] raw embeddings (normalized here, on the device);
         returns their row ids. Rows past the old count get bias 0; a full
-        buffer grows on the device to the next ``capacity_round``."""
+        buffer grows on the device to the next ``capacity_round``. On a
+        mesh (every rank adding the same vectors) each rank writes the new
+        rows it owns; growth past the capacity raises."""
         v = (vectors if torch.is_tensor(vectors)
              else torch.from_numpy(np.asarray(vectors, dtype=np.float32)))
         if v.numel() == 0:
@@ -125,6 +185,8 @@ class DenseIndex:
         with self._lock:
             snap = self._snap
             n_new = snap.n + v.shape[0]
+            if self.mesh is not None:
+                return self._add_sharded(snap, v, n_new)
             cap = max(snap.capacity, self._round_capacity(n_new))
             # copy-on-write: readers of the old snapshot keep its buffers
             docs = snap.docs.new_zeros((cap, self.dim))
@@ -136,22 +198,47 @@ class DenseIndex:
             self._snap = _Snapshot(docs, bias, n_new, cap)
             return np.arange(snap.n, n_new, dtype=np.int64)
 
+    def _add_sharded(self, snap: _Snapshot, v: torch.Tensor, n_new: int) -> np.ndarray:
+        if n_new > snap.capacity:
+            raise NotImplementedError(
+                "DenseIndex.add past a sharded capacity: growing the capacity "
+                "moves rows between shards (the JAX package leaves it to XLA's "
+                "partitioning); not ported to the mesh yet")
+        lo, rows = self._rows(snap.capacity)
+        a, e = max(snap.n, lo), min(n_new, lo + rows)  # new rows of this rank
+        docs, bias = snap.docs, snap.bias
+        if a < e:
+            docs, bias = docs.clone(), bias.clone()  # copy-on-write
+            docs[a - lo:e - lo] = v[a - snap.n:e - snap.n]
+            bias[a - lo:e - lo] = 0.0
+        self._snap = _Snapshot(docs, bias, n_new, snap.capacity)
+        return np.arange(snap.n, n_new, dtype=np.int64)
+
     def delete(self, row_ids) -> None:
         """Tombstone rows (score bias -> -inf). A row named twice, or already
-        tombstoned, is counted once."""
-        ids = torch.as_tensor(np.unique(np.asarray(row_ids, dtype=np.int64)),
-                              device=self.device)
+        tombstoned, is counted once. On a mesh every rank is given the same
+        ids, tombstones the rows it owns, and the count is summed over the
+        shards."""
+        ids = np.unique(np.asarray(row_ids, dtype=np.int64))
         with self._lock:
             snap = self._snap
+            lo, rows = self._rows(snap.capacity)
+            ids = ids[(ids >= lo) & (ids < lo + rows)] - lo
+            ids = torch.as_tensor(ids, device=self.device)
             bias = snap.bias.clone()
             newly = int((bias[ids] == 0).sum())
             bias[ids] = NEG_INF_F32
             self._snap = _Snapshot(snap.docs, bias, snap.n, snap.capacity)
-            self.deleted_count += newly
+            self.deleted_count += self._dead_total(newly)
 
     def compact(self) -> np.ndarray:
         """Drop tombstoned rows; returns the old row -> new row mapping (-1
         for a deleted row)."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "DenseIndex.compact on a mesh: dropping rows moves rows between "
+                "shards (the JAX package leaves it to XLA's partitioning); not "
+                "ported to the mesh yet")
         with self._lock:
             snap = self._snap
             alive = snap.bias[:snap.n] == 0
@@ -164,51 +251,103 @@ class DenseIndex:
             return mapping
 
     def get_vectors(self, row_ids) -> np.ndarray:
-        """[len(row_ids), D] normalized rows (ids clipped into the buffer)."""
+        """[len(row_ids), D] normalized rows (ids clipped into the buffer).
+        On a mesh each rank gives the rows it owns and one gather of the
+        [len(row_ids), D] rows of every rank fills the rest."""
         snap = self._snap
         ids = torch.as_tensor(np.asarray(row_ids, dtype=np.int64),
                               device=self.device).clamp(0, snap.capacity - 1)
-        return snap.docs[ids].cpu().numpy()
+        if self.mesh is None:
+            return snap.docs[ids].cpu().numpy()
+        from hybridsearch_tpu_torch.parallel.collectives import all_gather_cat
+
+        lo, rows = self._rows(snap.capacity)
+        owner = ids // rows
+        mine = snap.docs[(ids - lo).clamp(0, rows - 1)]
+        every = all_gather_cat(mine[None], self.mesh, dim=0)  # [S, M, D]
+        return every[owner, torch.arange(len(ids), device=self.device)].cpu().numpy()
 
     def save(self, path: str) -> None:
-        """Write ``path/manifest.json``, ``path/shard_00000.npy`` (the n
-        assigned rows) and ``path/bias.npy``: the JAX package's layout."""
-        os.makedirs(path, exist_ok=True)
+        """Write ``path/manifest.json``, ``path/shard_{s:05d}.npy`` (the n
+        assigned rows, ceil(n / shards) a file) and ``path/bias.npy``: the
+        JAX package's layout. On a mesh rank 0 creates the files, every
+        rank writes its own rows into them, and a barrier on each side
+        orders the writes (``path`` must be on a file system every rank
+        sees)."""
         snap = self._snap
-        manifest = {"kind": "dense", "dim": self.dim, "n_docs": snap.n,
-                    "n_shards": 1, "rows_per_shard": snap.n,
+        if self.mesh is None:
+            os.makedirs(path, exist_ok=True)
+            np.save(os.path.join(path, "shard_00000.npy"),
+                    snap.docs[:snap.n].cpu().numpy())
+            np.save(os.path.join(path, "bias.npy"), snap.bias[:snap.n].cpu().numpy())
+            self._write_manifest(path, 1, snap.n)
+            return
+        import torch.distributed as dist
+
+        shards = self._n_shards()
+        per_file = -(-snap.n // shards) if snap.n else 0
+        group = self.mesh.data_group
+        if self.mesh.data_index == 0:
+            os.makedirs(path, exist_ok=True)
+            for f in range(shards):
+                rows = max(0, min(per_file, snap.n - f * per_file))
+                np.lib.format.open_memmap(os.path.join(path, f"shard_{f:05d}.npy"),
+                                          mode="w+", dtype=np.float32,
+                                          shape=(rows, self.dim)).flush()
+            np.lib.format.open_memmap(os.path.join(path, "bias.npy"), mode="w+",
+                                      dtype=np.float32, shape=(snap.n,)).flush()
+            self._write_manifest(path, shards, per_file)
+        dist.barrier(group=group)
+        lo, rows = self._rows(snap.capacity)
+        hi = min(lo + rows, snap.n)
+        if lo < hi:
+            docs = snap.docs[:hi - lo].cpu().numpy()
+            bias_file = np.load(os.path.join(path, "bias.npy"), mmap_mode="r+")
+            bias_file[lo:hi] = snap.bias[:hi - lo].cpu().numpy()
+            bias_file.flush()
+            for f in range(lo // per_file, -(-hi // per_file)):
+                a, e = max(lo, f * per_file), min(hi, (f + 1) * per_file)
+                out = np.load(os.path.join(path, f"shard_{f:05d}.npy"), mmap_mode="r+")
+                out[a - f * per_file:e - f * per_file] = docs[a - lo:e - lo]
+                out.flush()
+            del bias_file, out
+        dist.barrier(group=group)
+
+    def _write_manifest(self, path: str, shards: int, rows_per_shard: int) -> None:
+        manifest = {"kind": "dense", "dim": self.dim, "n_docs": self._snap.n,
+                    "n_shards": shards, "rows_per_shard": rows_per_shard,
                     "dtype": "float32", "normalized": True}
-        np.save(os.path.join(path, "shard_00000.npy"),
-                snap.docs[:snap.n].cpu().numpy())
-        np.save(os.path.join(path, "bias.npy"), snap.bias[:snap.n].cpu().numpy())
         with open(os.path.join(path, "manifest.json"), "w") as f:
             json.dump(manifest, f, indent=2)
 
     @classmethod
     def load(cls, path: str, capacity_round: int = 4096,
-             device: DeviceLike = None) -> "DenseIndex":
-        """An index from a directory ``save`` (of either package) wrote; the
-        shards upload from memory maps."""
+             device: DeviceLike = None, mesh: Optional["Mesh"] = None,
+             block_n: int = 4096) -> "DenseIndex":
+        """An index from a directory ``save`` (of either package, with any
+        number of shard files) wrote; the rows upload from memory maps, on
+        a mesh only this rank's."""
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
-        idx = cls(dim=manifest["dim"], capacity_round=capacity_round, device=device)
-        shards = [np.load(os.path.join(path, f"shard_{s:05d}.npy"), mmap_mode="c")
-                  for s in range(manifest["n_shards"])]
-        docs = ([torch.from_numpy(s) for s in shards]
-                or [torch.zeros((0, idx.dim), dtype=torch.float32)])
-        docs = docs[0] if len(docs) == 1 else torch.cat(docs)
+        idx = cls(dim=manifest["dim"], capacity_round=capacity_round,
+                  device=device, mesh=mesh, block_n=block_n)
+        rows = _ShardFiles([np.load(os.path.join(path, f"shard_{s:05d}.npy"),
+                                    mmap_mode="r")
+                            for s in range(manifest["n_shards"])], idx.dim)
         bias_path = os.path.join(path, "bias.npy")
-        bias = (torch.from_numpy(np.load(bias_path)) if os.path.exists(bias_path)
-                else None)
+        bias = np.load(bias_path, mmap_mode="r") if os.path.exists(bias_path) else None
+        n = manifest["n_docs"]
         with idx._lock:
-            idx._snap = idx._make_snapshot(docs, bias, manifest["n_docs"])
-            idx.deleted_count = (int((bias == NEG_INF_F32).sum())
+            idx._snap = idx._make_snapshot(rows, bias, n)
+            idx.deleted_count = (int((np.asarray(bias[:n]) == NEG_INF_F32).sum())
                                  if bias is not None else 0)
         return idx
 
     def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k. queries: [B, D] raw embeddings (normalized here).
-        Returns numpy (values [B, k'], indices [B, k']), k' = min(k, n)."""
+        Returns numpy (values [B, k'], indices [B, k']), k' = min(k, n). On a
+        mesh every rank passes the same queries and gets the same answer
+        (``sharded_dense_topk``)."""
         snap = self._snap
         q = (queries if torch.is_tensor(queries) else
              torch.from_numpy(np.array(queries, dtype=np.float32))).to(self.device)
@@ -216,9 +355,42 @@ class DenseIndex:
             B = q.shape[0]
             return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int64)
         k_eff = min(k, snap.n)
+        if self.mesh is not None:
+            from hybridsearch_tpu_torch.parallel.collectives import sharded_dense_topk
+
+            vals, idxs = sharded_dense_topk(self.mesh, l2_normalize(q.float()),
+                                            snap.docs, k_eff, block_n=self.block_n,
+                                            valid_n=snap.n, bias_local=snap.bias)
+            return vals.cpu().numpy(), idxs.cpu().numpy()
         vals, idxs = tiled_dense_topk(l2_normalize(q), snap.docs, k_eff,
                                       bias=snap.bias)
         valid = (idxs >= 0) & (idxs < snap.n)
         vals = torch.where(valid, vals, NEG_INF_F32)
         idxs = torch.where(valid, idxs, -1)
         return vals.cpu().numpy(), idxs.cpu().numpy()
+
+
+class _ShardFiles:
+    """Rows of the shard files of a saved index as one [n, D] array that
+    only slices: ``[a:b]`` reads the rows from the memory maps it spans."""
+
+    def __init__(self, files, dim: int) -> None:
+        self.files = files
+        self.dim = dim
+        self.ends = np.cumsum([len(f) for f in files])
+
+    def __len__(self) -> int:
+        return int(self.ends[-1]) if len(self.files) else 0
+
+    def __getitem__(self, sl: slice) -> np.ndarray:
+        a, e = sl.start or 0, min(sl.stop, len(self))
+        parts = []
+        begin = 0
+        for f, end in zip(self.files, self.ends):
+            lo, hi = max(a, begin), min(e, int(end))
+            if lo < hi:
+                parts.append(np.asarray(f[lo - begin:hi - begin], dtype=np.float32))
+            begin = int(end)
+        if not parts:
+            return np.zeros((0, self.dim), np.float32)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)

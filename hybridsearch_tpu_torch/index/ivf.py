@@ -13,9 +13,14 @@ Counterpart of ``hybridsearch_tpu/index/ivf.py`` on one device:
     score their rows, exact top-k within the probed set (``_ivf_search``).
 
 ``IVFIndex.from_layout`` adopts the dense snapshot of a clustered build (one
-corpus copy on the device, one k-means for layout and quantizer). The mesh
-build (``_build_sharded``, ``_sharded_ivf_search``) is not part of the port
-yet.
+corpus copy on the device, one k-means for layout and quantizer).
+
+On a mesh (``IVFIndex(mesh=)``) the chunks go round-robin over the shards
+(``_build_sharded``): each rank keeps its own chunks' rows, centroids and
+doc ids; a search probes each rank's best ceil(nprobe / shards) chunks and
+merges the per-rank top-k through the data axis. Rank 0's centroids and
+assignment are broadcast, so every rank cuts the same chunks.
+``from_layout`` stays single-device, as in the JAX package.
 
 Random draws come from a ``torch.Generator`` seeded with ``seed``; they
 cannot repeat ``jax.random``'s bits, so ``init_idx`` (the initial centroid
@@ -129,7 +134,10 @@ def _ivf_search(
     q = l2_normalize(queries.float())
     B, D = q.shape
     dev = q.device
-    _, probe = stable_topk(q @ centroids_per_chunk.float().T, nprobe)  # [B, P]
+    c_scores = q @ centroids_per_chunk.float().T
+    # a shard's pad chunks (length 0) are never probed
+    c_scores = torch.where(chunk_lens[None, :] > 0, c_scores, float("-inf"))
+    _, probe = stable_topk(c_scores, nprobe)  # [B, P]
     iota = torch.arange(chunk_cap, device=dev)
     rows = chunk_starts[probe][:, :, None] + iota  # [B, P, cap]
     valid = iota < chunk_lens[probe][:, :, None]
@@ -144,6 +152,26 @@ def _ivf_search(
     vals, sel = stable_topk(scores, k)
     ids = perm_to_orig[torch.gather(rows.reshape(B, -1), 1, sel)]
     return vals, torch.where(torch.isfinite(vals), ids, -1)
+
+
+def mesh_kmeans(mesh, vectors: torch.Tensor, n_clusters: int, seed: int = 0,
+                iters: int = 10) -> Tuple[torch.Tensor, np.ndarray]:
+    """(centroids [C, D], assignment [n]) of ``vectors`` (the whole matrix,
+    the same on every rank), fitted on rank 0 and broadcast over the data
+    axis, so every rank cuts the same clusters whatever its float order."""
+    from hybridsearch_tpu_torch.parallel.mesh import broadcast_host
+
+    n, dim = int(vectors.shape[0]), int(vectors.shape[1])
+    if mesh.data_index == 0:
+        cent = kmeans_fit(vectors, n_clusters, seed=seed, iters=iters)
+        assign = kmeans_assign(vectors, cent).cpu().numpy()
+        cent_np = cent.cpu().numpy()
+    else:
+        cent_np = np.zeros((n_clusters, dim), np.float32)
+        assign = np.zeros(n, np.int64)
+    cent_np = broadcast_host(mesh, cent_np)
+    assign = broadcast_host(mesh, assign.astype(np.int64))
+    return torch.from_numpy(cent_np).to(vectors.device), assign
 
 
 def _chunkify(sorted_assign: np.ndarray, cap: int):
@@ -165,9 +193,10 @@ def _chunkify(sorted_assign: np.ndarray, cap: int):
 
 
 class IVFIndex:
-    """Approximate inner-product index over L2-normalized embeddings, on one
-    device, in float32 (the port's dense index is float32; the JAX class's
-    ``storage_dtype`` and ``mesh`` have no counterpart yet)."""
+    """Approximate inner-product index over L2-normalized embeddings, in
+    float32 (the port's dense index is float32; the JAX class's
+    ``storage_dtype`` has no counterpart). ``mesh`` shards the chunks over
+    the data axis."""
 
     def __init__(
         self,
@@ -177,13 +206,15 @@ class IVFIndex:
         chunk_cap: int = 0,  # 0 = 4 * N / n_clusters
         seed: int = 0,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.dim = dim
         self.n_clusters = n_clusters
         self.nprobe = nprobe
         self.chunk_cap = chunk_cap
         self.seed = seed
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.n_docs = 0
         self._built = False
 
@@ -229,6 +260,9 @@ class IVFIndex:
         n, dim = int(v.shape[0]), int(v.shape[1])
         C = min(self.n_clusters or max(1, int(np.sqrt(n))), n)
         cap = self.chunk_cap or max(8, (4 * n) // C)
+        if self.mesh is not None:
+            centroids, assign = mesh_kmeans(self.mesh, v, C, self.seed, kmeans_iters)
+            return self._build_sharded(v, centroids, assign, cap)
         centroids = kmeans_fit(v, C, seed=self.seed, iters=kmeans_iters)
         assign = kmeans_assign(v, centroids).cpu().numpy()
         order = np.argsort(assign, kind="stable")
@@ -247,7 +281,10 @@ class IVFIndex:
         spare) with the layout k-means' centroids [C, D] and the cluster of
         each row, instead of a second k-means and a second corpus copy: row
         ids are doc ids. The buffer must hold ``chunk_cap`` rows past
-        ``n_docs`` (``DenseIndex.reserve_rows``)."""
+        ``n_docs`` (``DenseIndex.reserve_rows``). Single-device only: the
+        sharded build places the rows itself."""
+        if self.mesh is not None:
+            raise ValueError("from_layout is single-device; use build()")
         n = int(n_docs)
         sorted_assign = np.asarray(sorted_assign)
         centroids = (centroids if torch.is_tensor(centroids)
@@ -271,9 +308,52 @@ class IVFIndex:
             raise RuntimeError("IVFIndex.search before build()")
         q = (queries if torch.is_tensor(queries)
              else torch.from_numpy(np.asarray(queries, dtype=np.float32)))
-        npr = min(nprobe or self.nprobe, int(self._centroids.shape[0]))
+        npr = nprobe or self.nprobe
+        if self.mesh is not None:
+            from hybridsearch_tpu_torch.parallel.collectives import merge_topk
+            from hybridsearch_tpu_torch.parallel.mesh import shard_count
+
+            # a rank's probe depth keeps the probed chunks ~ nprobe in all
+            npr = max(1, -(-npr // shard_count(self.mesh)))
+        npr = min(npr, int(self._centroids.shape[0]))
+        k_eff = min(k, self.n_docs)
         vals, idxs = _ivf_search(q.to(self._docs_perm.device), self._centroids,
                                  self._docs_perm, self._chunk_starts,
                                  self._chunk_lens, self._perm_to_orig,
-                                 min(k, self.n_docs), npr, self._cap)
+                                 k_eff, npr, self._cap)
+        if self.mesh is not None:
+            vals, idxs = merge_topk(vals, idxs, k_eff, self.mesh)
         return vals.cpu().numpy(), idxs.cpu().numpy()
+
+    def _build_sharded(self, v: torch.Tensor, centroids: torch.Tensor,
+                       assign: np.ndarray, cap: int) -> "IVFIndex":
+        """The chunks round-robin over the shards (balancing rows for
+        equal-size chunks); this rank keeps its own, each padded to the
+        largest shard's chunk and row counts (rows + the chunk overhang),
+        its rows' global doc ids (-1 pad)."""
+        from hybridsearch_tpu_torch.parallel.mesh import shard_count
+
+        S, shard = shard_count(self.mesh), self.mesh.data_index
+        n, dim = int(v.shape[0]), int(v.shape[1])
+        order = np.argsort(assign, kind="stable")
+        starts, lens, cids = _chunkify(assign[order], cap)
+        owner = np.arange(len(starts)) % S
+        chunks_pad = max(1, -(-len(starts) // S))
+        rows_pad = max(int(lens[owner == s].sum()) for s in range(S)) + cap
+        mine = np.flatnonzero(owner == shard)
+        my_lens = lens[mine]
+        my_starts = np.concatenate([[0], np.cumsum(my_lens)[:-1]]).astype(np.int64)
+        rows = (np.concatenate([order[starts[c]:starts[c] + lens[c]] for c in mine])
+                if len(mine) else np.zeros(0, np.int64))
+        dev = self.device
+        docs = torch.zeros((rows_pad, dim), dtype=torch.float32, device=dev)
+        docs[:len(rows)] = l2_normalize(v[torch.from_numpy(rows).to(dev)].float())
+        orig = np.full(rows_pad, -1, dtype=np.int64)
+        orig[:len(rows)] = rows
+        st = np.zeros(chunks_pad, np.int64)
+        ln = np.zeros(chunks_pad, np.int64)
+        st[:len(mine)], ln[:len(mine)] = my_starts, my_lens
+        cent = torch.zeros((chunks_pad, dim), dtype=torch.float32, device=dev)
+        cent[:len(mine)] = centroids.to(dev)[torch.from_numpy(cids[mine]).to(dev)]
+        return self.load_arrays(cent, docs, torch.from_numpy(st), torch.from_numpy(ln),
+                                torch.from_numpy(orig), cap, n)

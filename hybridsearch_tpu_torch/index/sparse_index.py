@@ -17,8 +17,22 @@ at the last full publish (the epoch); ``compact`` folds it in with a full
 recompute, and every at-scale builder and ``save`` compact first. Deletes
 are tombstones that ``search`` honours; a fit clears them. ``save`` /
 ``load`` read and write the JAX package's ``.npz`` layout (a loaded state
-builds its hot-term tables anew). Mesh sharding of the JAX module is still
-to port.
+builds its hot-term tables anew).
+
+On a mesh (``BM25(mesh=)``) a fit publishes no single-device postings: each
+rank builds its own shard of doc-partitioned postings
+(``ShardedBM25Postings``, local doc ids) from the COO every rank computes
+alike, the partition aligned with the dense index's rows a shard
+(``docs_per_shard``, set by the Indexer). Adds refit, as the JAX package's
+mesh path does. ``search`` merges per-shard top-k through the data axis,
+``shard_scores`` gives a rank its own columns (``batch_scores`` gathers
+them all), and the supertile
+structures of the collective program are built per shard
+(``super_postings_sharded``). A state ``load`` reads onto a mesh takes the
+aligned sharded postings too, so a loaded mesh index serves through the
+same collective program as a built one (the JAX package's loaded state
+stays single-device there). A sharded state cannot be saved, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -66,6 +80,10 @@ class _BM25State(NamedTuple):
     # is weighted under these
     frozen: Optional[tuple] = None
     delta_seg: Optional[_DeltaSeg] = None
+    # on a mesh: this rank's shard, and the whole weighted COO (t, d, w),
+    # (term asc, doc asc)-sorted, that the sharded supertile build reads
+    sharded: Optional[bm25_ops.ShardedBM25Postings] = None
+    sharded_coo: Optional[tuple] = None
 
 
 class BM25:
@@ -81,13 +99,18 @@ class BM25:
     AVG_LEN_DRIFT = 0.01
 
     def __init__(self, k1: float = 1.5, b: float = 0.75, delta: float = 1.0,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, mesh=None) -> None:
         self.k1 = k1
         self.b = b
         self.delta = delta
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        # on a mesh: docs a shard, aligned by the Indexer with the dense
+        # index's rows a shard so hybrid fusion runs shard-locally
+        self.docs_per_shard: Optional[int] = None
         self._state = _BM25State(Vocabulary(), None, 0)
         self._super_cache = None  # (state, SuperPostings)
+        self._super_shard_cache = None  # (state, ShardedSuperPostings)
         self._impact_cache = None  # (state, p_max, ImpactPostings)
         # deleted doc ids, masked out of search() until the next fit
         self._tombstones: set = set()
@@ -101,8 +124,15 @@ class BM25:
         return self._state.postings
 
     @property
+    def sharded(self) -> Optional[bm25_ops.ShardedBM25Postings]:
+        return self._state.sharded
+
+    @property
     def n_docs(self) -> int:
         return self._state.n_docs
+
+    def _fitted(self, state: _BM25State) -> bool:
+        return state.postings is not None or state.sharded is not None
 
     # -- fit -------------------------------------------------------------
 
@@ -189,6 +219,14 @@ class BM25:
         weights = bm25_ops.compute_eager_weights(
             t_arr, d_arr, c_arr, doc_lens, n_docs, V, k1=self.k1, b=self.b,
             variant=self.variant, delta=self.delta, df=df, avg_len=avg_len)
+        if self.mesh is not None and n_docs:
+            sh = self._shard_postings(t_arr, d_arr, weights, n_docs, V)
+            self._state = _BM25State(  # atomic publish
+                vocab, None, n_docs, np.append(sh.max_run_host, 0),
+                tf_cache=(t_arr, d_arr, c_arr, doc_lens),
+                frozen=(df, avg_len, len_sum), sharded=sh,
+                sharded_coo=(t_arr, d_arr, weights))
+            return
         postings = bm25_ops.build_postings_arrays(
             t_arr, d_arr.astype(np.int32), weights, n_docs, V, self.device,
             presorted=True)
@@ -196,6 +234,22 @@ class BM25:
             vocab, postings, n_docs, np.bincount(t_arr, minlength=V + 1),
             tf_cache=(t_arr, d_arr, c_arr, doc_lens),
             frozen=(df, avg_len, len_sum))
+
+    def _shard_postings(self, t, d, w, n_docs: int, V: int):
+        """This rank's shard of the postings of the whole COO, which every
+        rank computes for itself: its digest is checked across the ranks
+        first (the runs it holds decide every rank's bucket shapes)."""
+        from hybridsearch_tpu_torch.parallel.mesh import check_agreement, shard_count
+
+        mix = (np.asarray(t, np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+               ^ np.asarray(d, np.uint64))
+        check_agreement(self.mesh, (int(mix.sum(dtype=np.uint64)) ^ len(t) ^ V
+                                    ^ (n_docs << 20)) & ((1 << 62) - 1),
+                        "the BM25 COO")
+        return bm25_ops.build_sharded_postings(
+            t, d, w, n_docs, V, n_shards=shard_count(self.mesh),
+            shard=self.mesh.data_index, device=self.device,
+            docs_per_shard=self.docs_per_shard)
 
     def set_state(self, vocab, postings: bm25_ops.BM25Postings, n_docs: int,
                   tf_cache: Optional[tuple] = None, frozen: Optional[tuple] = None,
@@ -336,7 +390,7 @@ class BM25:
         ``.npz`` (``vocab_hashes`` for a hash vocabulary, else ``vocab``)."""
         state = self._compacted_state()
         if state.postings is None:
-            raise ValueError("an unfitted BM25 cannot be saved")
+            raise ValueError("a sharded or unfitted BM25 cannot be saved")
         os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
         po = state.postings
         if isinstance(state.vocab, HashVocabulary):
@@ -356,7 +410,8 @@ class BM25:
 
     def load(self, path: str) -> "BM25":
         """Adopt a state saved by either package. A loaded state has no tf
-        cache: the next add refits."""
+        cache: the next add refits. On a mesh each rank takes its shard of
+        the aligned doc-partitioned postings."""
         with np.load(path) as probe:
             # the JAX package writes a string vocab as an object array
             strings = "vocab" in probe.files
@@ -367,10 +422,20 @@ class BM25:
                 vocab = Vocabulary()
                 for tok in data["vocab"].tolist():
                     vocab.add(str(tok))
+            self.k1, self.b, self.delta = [float(x) for x in data["params"]]
+            if self.mesh is not None:
+                indptr = np.asarray(data["indptr"], np.int64)
+                nnz, V, n = int(indptr[-1]), len(vocab), int(data["n_docs"])
+                t = np.repeat(np.arange(V, dtype=np.int64), np.diff(indptr))
+                d = np.asarray(data["doc_ids"][:nnz], np.int64)
+                w = np.asarray(data["weights"][:nnz], np.float32)
+                sh = self._shard_postings(t, d, w, n, V)
+                self._state = _BM25State(vocab, None, n, np.append(sh.max_run_host, 0),
+                                         sharded=sh, sharded_coo=(t, d, w))
+                return self
             postings = bm25_ops.postings_from_csr(
                 data["indptr"], data["doc_ids"], data["weights"], int(data["n_docs"]),
                 len(vocab), self.device)
-            self.k1, self.b, self.delta = [float(x) for x in data["params"]]
         self.set_state(vocab, postings, postings.n_docs)
         return self
 
@@ -382,8 +447,12 @@ class BM25:
     def encode_queries_bucketed(self, queries: Sequence[str],
                                 state: Optional[_BM25State] = None):
         """Per-bucket (width, starts, lengths) run pieces against the main
-        postings (terms born in a pending delta have no run there)."""
+        postings (terms born in a pending delta have no run there); on a
+        mesh, this rank's pieces (``encode_run_pieces_sharded``)."""
         state = state or self._state
+        if state.sharded is not None:
+            return bm25_ops.encode_run_pieces_sharded(
+                state.sharded, self._term_lists(queries, state))
         if state.postings is None:
             return []
         po = state.postings
@@ -454,6 +523,28 @@ class BM25:
         self._super_cache = (state, sp)  # atomic publish
         return sp
 
+    def super_postings_sharded(self, state: Optional[_BM25State] = None,
+                               super_tiles: int = 128):
+        """This rank's supertile structures for the collective supertile
+        program (``ShardedSuperPostings``), or None without a sharded
+        state; built once per state and cached."""
+        state = self._compacted_state(state)
+        cached = self._super_shard_cache
+        if cached is not None and cached[0] is state:
+            return cached[1]
+        sh = state.sharded
+        if sh is None or state.sharded_coo is None or self.mesh is None:
+            return None
+        from hybridsearch_tpu_torch.ops.supertile import build_super_postings_sharded
+
+        t, d, w = state.sharded_coo
+        ssp = build_super_postings_sharded(
+            t, d, w, state.n_docs, len(state.vocab),
+            docs_per_shard=sh.docs_per_shard, n_shards=sh.n_shards,
+            shard=sh.shard, device=self.device, super_tiles=super_tiles)
+        self._super_shard_cache = (state, ssp)  # atomic publish
+        return ssp
+
     @staticmethod
     def _coo_term_ids(state: _BM25State) -> np.ndarray:
         """[nnz] term id of every CSR entry of the state's main postings."""
@@ -516,11 +607,18 @@ class BM25:
     def batch_scores(self, queries: Sequence[str]) -> torch.Tensor:
         """[B, n_docs] float32 scores on the BM25's device. With a pending
         delta, main and delta postings are scored apart and summed (a doc
-        lives in one of them)."""
+        lives in one of them). On a mesh each rank scores its own columns
+        (``shard_scores``) and every rank's columns are gathered: O(B n) on
+        every rank, for callers that want the whole row."""
         state = self._state
         B = len(queries)
-        if state.n_docs == 0 or state.postings is None:
+        if state.n_docs == 0 or not self._fitted(state):
             return torch.zeros((B, 0), dtype=torch.float32, device=self.device)
+        if state.sharded is not None:
+            from hybridsearch_tpu_torch.parallel.collectives import all_gather_cat
+
+            local = self.shard_scores(queries, state.sharded.docs_per_shard)
+            return all_gather_cat(local, self.mesh)[:, :state.n_docs]
         groups = self.encode_queries_bucketed(list(queries), state)
         out = torch.zeros((B, state.n_docs), dtype=torch.float32,
                           device=self.device)
@@ -535,9 +633,35 @@ class BM25:
                                                      B)[:, :state.n_docs]
         return out
 
+    def shard_scores(self, queries: Sequence[str], docs_per_shard: int) -> torch.Tensor:
+        """On a mesh, this rank's [B, docs_per_shard] columns of
+        ``batch_scores`` (global columns [shard * per, (shard + 1) * per)),
+        scored on this rank alone: its shard's postings, or, when they are
+        partitioned at another width, its shard at this width built anew
+        from the COO every rank holds."""
+        state = self._state
+        out = torch.zeros((len(queries), docs_per_shard), dtype=torch.float32,
+                          device=self.device)
+        sh = state.sharded
+        if sh is None or state.n_docs == 0:
+            return out
+        if sh.docs_per_shard != docs_per_shard:
+            from hybridsearch_tpu_torch.parallel.mesh import shard_count
+
+            t, d, w = state.sharded_coo
+            sh = bm25_ops.build_sharded_postings(
+                t, d, w, state.n_docs, len(state.vocab),
+                n_shards=shard_count(self.mesh), shard=self.mesh.data_index,
+                device=self.device, docs_per_shard=docs_per_shard)
+        groups = bm25_ops.encode_run_pieces_sharded(
+            sh, self._term_lists(list(queries), state))
+        if not groups:
+            return out
+        return bm25_ops.sharded_bm25_scores(sh, groups, len(queries))
+
     def score_all(self, query: str) -> np.ndarray:
         """Dense [n_docs] score vector of one query (numpy)."""
-        if self.n_docs == 0 or self.postings is None:
+        if self.n_docs == 0 or not self._fitted(self._state):
             return np.zeros((0,), dtype=np.float32)
         return self.batch_scores([query])[0].cpu().numpy()
 
@@ -567,6 +691,10 @@ class BM25:
         out = np.zeros(cand_np.shape, dtype=np.float32)
         if state.n_docs == 0:
             return out
+        if state.sharded is not None:  # gathered from full scoring
+            full = self.batch_scores(list(queries)).cpu().numpy()
+            got = np.take_along_axis(full, np.clip(cand_np, 0, state.n_docs - 1), 1)
+            return np.where(cand_np >= 0, got, 0.0).astype(np.float32)
         cand = torch.from_numpy(cand_np)
         groups = self.encode_queries_bucketed(list(queries), state)
         if groups:
@@ -586,6 +714,16 @@ class BM25:
             return []
         tombs = self._tombstones
         k = min(top_k + len(tombs), self.n_docs)
+        state = self._state
+        if state.sharded is not None:
+            groups = self.encode_queries_bucketed([query], state)
+            if not groups:
+                return []
+            vals, idxs = bm25_ops.sharded_bm25_topk(self.mesh, state.sharded,
+                                                    groups, k, 1)
+            vals, idxs = vals[0].cpu().numpy(), idxs[0].cpu().numpy()
+            return [(int(i), float(v)) for v, i in zip(vals, idxs)
+                    if i >= 0 and v > 0.0 and int(i) not in tombs][:top_k]
         scores = self.score_all(query)
         if scores.size == 0:
             return []

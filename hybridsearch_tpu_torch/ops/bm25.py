@@ -22,8 +22,10 @@ stopword-grade tail) also carry a per-128-doc-tile weight-sum row
 (``hot_tile_bounds``, built on the host by ``np.bincount`` as the JAX
 package builds it), so the sparse hybrid never slices their runs at query
 time: their tile bounds are one row gather (``encode_hot_terms``), their
-candidate scores a bisection. The mesh sharding of the JAX module is not
-part of the port yet.
+candidate scores a bisection. On a mesh each rank holds one shard of
+doc-partitioned postings (``ShardedBM25Postings``) with local doc ids,
+scored over its own columns (``sharded_bm25_scores``) and merged through
+the data axis (``sharded_bm25_topk``).
 """
 
 from __future__ import annotations
@@ -406,6 +408,164 @@ def cand_scores_bisect(
     for h in range(H):
         acc = acc + w[:, h]
     return acc
+
+
+class ShardedBM25Postings(NamedTuple):
+    """One rank's shard of doc-partitioned eager postings on a mesh.
+
+    Shard s owns docs [s * docs_per_shard, (s + 1) * docs_per_shard); its
+    CSR holds local doc ids (global - shard offset), padded as the JAX
+    package pads every shard: to the largest shard's nnz plus the longest
+    local run. The JAX class stacks every shard on a leading axis; here
+    each rank keeps its own shard on its device, and the host values every
+    rank must agree on (``max_postings``, ``max_run_host``) come from the
+    replicated COO."""
+
+    indptr: torch.Tensor  # [V+1] int64 this shard's run offsets
+    doc_ids: torch.Tensor  # [nnz_pad] int32 local ids; pad = docs_per_shard
+    weights: torch.Tensor  # [nnz_pad] float32; pad = 0
+    n_docs: int
+    docs_per_shard: int
+    max_postings: int  # longest local run over every shard
+    vocab_size: int
+    n_shards: int
+    shard: int
+    starts_host: np.ndarray  # [V] int64 this shard's run starts
+    lengths_host: np.ndarray  # [V] int64 this shard's run lengths
+    max_run_host: np.ndarray  # [V] int64 each term's longest local run
+
+
+def shard_runs(term_ids: np.ndarray, doc_ids: np.ndarray, vocab_size: int,
+               n_shards: int, per: int) -> np.ndarray:
+    """[n_shards, V] local run length of every term in every shard."""
+    key = (np.asarray(doc_ids, np.int64) // per) * vocab_size + term_ids
+    return np.bincount(key, minlength=n_shards * vocab_size)[
+        :n_shards * vocab_size].reshape(n_shards, vocab_size)
+
+
+def build_sharded_postings(
+    term_ids: np.ndarray,
+    doc_ids: np.ndarray,
+    weights: np.ndarray,
+    n_docs: int,
+    vocab_size: int,
+    n_shards: int,
+    shard: int,
+    device: torch.device,
+    docs_per_shard: Optional[int] = None,
+) -> ShardedBM25Postings:
+    """Host build of shard ``shard``'s postings from the whole COO (the
+    same on every rank); ``docs_per_shard`` aligns the partition with the
+    dense index's rows a shard so hybrid fusion runs shard-locally."""
+    per = docs_per_shard or -(-max(n_docs, 1) // n_shards)
+    t = np.asarray(term_ids, np.int64)
+    d = np.asarray(doc_ids, np.int64)
+    runs = shard_runs(t, d, vocab_size, n_shards, per)  # [S, V]
+    max_post = max(1, int(runs.max()) if runs.size else 1)
+    nnz_pad = int(runs.sum(axis=1).max()) + max_post
+    m = (d // per) == shard
+    ts, ds, ws = t[m], d[m] - shard * per, np.asarray(weights, np.float32)[m]
+    order = np.lexsort((ds, ts))  # doc-sorted runs
+    ds, ws = ds[order], ws[order]
+    ip = np.zeros(vocab_size + 1, dtype=np.int64)
+    ip[1:] = np.cumsum(runs[shard])
+    ids_arr = np.full(nnz_pad, per, dtype=np.int32)
+    ws_arr = np.zeros(nnz_pad, dtype=np.float32)
+    ids_arr[:len(ds)] = ds
+    ws_arr[:len(ws)] = ws
+    return ShardedBM25Postings(
+        indptr=torch.from_numpy(ip).to(device),
+        doc_ids=torch.from_numpy(ids_arr).to(device),
+        weights=torch.from_numpy(ws_arr).to(device),
+        n_docs=int(n_docs), docs_per_shard=per, max_postings=max_post,
+        vocab_size=vocab_size, n_shards=n_shards, shard=shard,
+        starts_host=ip[:-1].copy(), lengths_host=runs[shard].astype(np.int64),
+        max_run_host=runs.max(axis=0).astype(np.int64))
+
+
+def encode_run_pieces_sharded(
+    postings: ShardedBM25Postings,
+    query_term_ids: Sequence[Sequence[int]],
+) -> List[Tuple[int, np.ndarray, np.ndarray]]:
+    """This shard's run pieces: per bucket (width, starts [B, T], lengths
+    [B, T]). The bucket, piece and T structure follows each term's longest
+    local run over every shard (``max_run_host``), so every rank shares
+    it, as the JAX function's stacked [S, B, T] arrays do; each shard
+    slices its own run at that structure."""
+    B = len(query_term_ids)
+    cap = postings.max_postings
+    top = LENGTH_BUCKETS[-1]
+    buckets: dict = {}
+    for qi, ids in enumerate(query_term_ids):
+        for tid in ids:
+            run = int(postings.max_run_host[tid])
+            if run <= 0:
+                continue
+            if run > top:
+                w, n_pieces = top, -(-run // top)
+            else:
+                w, n_pieces = bucket_width(run, cap), 1
+            buckets.setdefault(w, [[] for _ in range(B)])[qi].extend(
+                (tid, pi * w) for pi in range(n_pieces))
+    out: List[Tuple[int, np.ndarray, np.ndarray]] = []
+    st_h, ln_h = postings.starts_host, postings.lengths_host
+    for w in sorted(buckets):
+        lists = buckets[w]
+        longest = max((len(x) for x in lists), default=0)
+        t_cap = T_CAPS.get(w, TERM_LADDER[-1])
+        for chunk_start in range(0, longest, t_cap):
+            chunk = [x[chunk_start:chunk_start + t_cap] for x in lists]
+            c_longest = max((len(x) for x in chunk), default=0)
+            if c_longest == 0:
+                continue
+            T = _ladder(c_longest, t_cap)
+            s_arr = np.zeros((B, T), dtype=np.int32)
+            l_arr = np.zeros((B, T), dtype=np.int32)
+            for qi, pieces in enumerate(chunk):
+                for j, (tid, off) in enumerate(pieces[:T]):
+                    s_arr[qi, j] = int(st_h[tid]) + off
+                    l_arr[qi, j] = max(0, min(w, int(ln_h[tid]) - off))
+            out.append((w, s_arr, l_arr))
+    return out
+
+
+def sharded_bm25_scores(
+    postings: ShardedBM25Postings,
+    groups: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+    batch: int,
+) -> torch.Tensor:
+    """This rank's [B, docs_per_shard] columns of the doc-sharded scores
+    (global columns [shard * per, (shard + 1) * per))."""
+    return local_bucketed_scores(postings.doc_ids, postings.weights, groups,
+                                 postings.docs_per_shard, batch)
+
+
+def sharded_bm25_topk(
+    mesh,
+    postings: ShardedBM25Postings,
+    groups: Sequence[Tuple[int, np.ndarray, np.ndarray]],
+    k: int,
+    batch: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact global top-k BM25 over doc-sharded postings: each rank scores
+    its own docs, takes a local top-k (docs past n_docs masked), and the k
+    candidates of every rank merge (the dense index's collective
+    pattern). Returns (values [B, k], global doc ids [B, k])."""
+    from hybridsearch_tpu_torch.ops.dense import stable_topk, tiled_matrix_topk
+    from hybridsearch_tpu_torch.parallel.collectives import merge_topk
+
+    per = postings.docs_per_shard
+    scores = sharded_bm25_scores(postings, groups, batch)
+    k_local = min(k, per)
+    if per > 65536:
+        vals, idxs = tiled_matrix_topk(scores, k_local)
+        idxs = idxs.clamp_min(0)
+    else:
+        vals, idxs = stable_topk(scores, k_local)
+    gidx = idxs + postings.shard * per
+    ok = gidx < postings.n_docs
+    return merge_topk(torch.where(ok, vals, float("-inf")),
+                      torch.where(ok, gidx, -1), k, mesh)
 
 
 def compute_eager_weights(

@@ -10,7 +10,10 @@ statistics, so the [B, N] score matrix is never materialized:
   - ``tiled_dense_topk``: exact top-k by tile-max selection (pass 1 is the
     same sweep);
   - ``tiled_matrix_topk``: exact top-k over a precomputed score matrix;
-  - ``gather_tile_scores``: exact scores of every doc in chosen tiles.
+  - ``gather_tile_scores``: exact scores of every doc in chosen tiles;
+  - ``scan_dense_topk``: exact top-k streamed over doc blocks, a running
+    top-k merged with each block's product (each shard's top-k on a mesh,
+    parallel/collectives.py; no Pallas kernel backs it).
 
 The sweep is kernel K1 (``ops/cuda_topk.py``) on the card, at the shapes the
 JAX package sent to its Pallas kernel; elsewhere it is K1's plain version.
@@ -246,6 +249,41 @@ def tiled_dense_topk(
     elif probe_tiles is not None:
         outs = outs + (torch.ones(B, dtype=torch.bool, device=q.device),)
     return outs
+
+
+def scan_dense_topk(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    block_n: int = 4096,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k inner-product search (queries and docs L2-normalized)
+    streamed over doc blocks: each [B, block_n] block product (plus
+    ``bias``; rows past N score -inf) is merged into the running top-k
+    with ``stable_topk``, the running entries first, so ties keep the lower
+    doc id as ``jax.lax.top_k`` keeps it. Returns (values [B, k] float32,
+    indices [B, k] int64); slots past N hold -inf / -1. No Pallas kernel
+    backs the JAX function."""
+    q = queries.float()
+    d = docs
+    B = q.shape[0]
+    N = d.shape[0]
+    nb = max(1, -(-N // block_n))
+    q_mm = q.to(torch.bfloat16) if d.dtype == torch.bfloat16 else q
+    vals = q.new_full((B, k), NEG_INF)
+    idxs = torch.full((B, k), -1, dtype=torch.long, device=q.device)
+    for i in range(nb):
+        blk = d[i * block_n:(i + 1) * block_n]
+        s = (q_mm @ blk.T).float()
+        if bias is not None:
+            s = s + bias[i * block_n:(i + 1) * block_n].float()[None, :]
+        if blk.shape[0] < block_n:  # the padded tail of the last block
+            s = torch.cat([s, s.new_full((B, block_n - blk.shape[0]), NEG_INF)], 1)
+        gidx = i * block_n + torch.arange(block_n, device=q.device)
+        vals, sel = stable_topk(torch.cat([vals, s], dim=1), k)
+        idxs = torch.gather(torch.cat([idxs, gidx.expand(B, block_n)], dim=1), 1, sel)
+    return vals, idxs
 
 
 def scatter_topk_to_dense(values: torch.Tensor, indices: torch.Tensor,

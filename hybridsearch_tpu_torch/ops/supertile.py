@@ -34,8 +34,9 @@ kernels for K4 (``super_scores_dedup``, the (query, probe) pairs sorted
 by supertile) and K5 (``place_fused``, the windows read inside the
 kernel); both give the same bits as K2 and K3. ``save_super_postings`` /
 ``load_super_postings`` keep the build-time structures as the JAX
-package's ``.npy`` files. The mesh build (``build_super_postings_sharded``)
-is not part of the port yet.
+package's ``.npy`` files. On a mesh each rank builds its own shard's
+structures (``build_super_postings_sharded``, local doc ids) for the
+collective program of ``parallel/collectives.py``.
 """
 
 from __future__ import annotations
@@ -231,9 +232,17 @@ def encode_super_queries(
     rungs in all). No window can silently truncate: the rungs cover the
     build-time maxima, and an overflow is flagged per query by the rung.
     ``wcap`` forces one uniform rung."""
-    df_host, win_max_host = sp.df_host, sp.win_max_host
-    cap = min(sp.super_docs, WCAP_LADDER[-1])
-    device = sp.sup_max.device
+    return _encode_super(query_term_ids, sp.df_host, sp.win_max_host,
+                         sp.starts_host, min(sp.super_docs, WCAP_LADDER[-1]),
+                         sp.sup_max.device, wcap)
+
+
+def _encode_super(query_term_ids, df_host, win_max_host, starts_host, cap,
+                  device, wcap=None) -> SuperQueryEnc:
+    """The host encode of ``encode_super_queries`` and
+    ``encode_super_queries_sharded``; without ``starts_host`` the slots'
+    run starts and lengths are zeros (the sharded program reads each
+    shard's position table instead)."""
     B = len(query_term_ids)
     V = len(df_host)
     lens = np.fromiter((len(ids) for ids in query_term_ids), dtype=np.int64,
@@ -263,10 +272,12 @@ def encode_super_queries(
     tid = np.take_along_axis(tid, order, axis=1)
     wm = np.take_along_axis(wm, order, axis=1)
 
-    st_ext = np.concatenate([sp.starts_host, [0]])
-    df_ext = np.concatenate([df_host, [0]])
-    st = st_ext[tid].astype(np.int32)
-    ln = df_ext[tid].astype(np.int32)
+    if starts_host is not None:
+        st = np.concatenate([starts_host, [0]])[tid].astype(np.int32)
+        ln = np.concatenate([df_host, [0]])[tid].astype(np.int32)
+    else:
+        st = np.zeros((B, t_pad), dtype=np.int32)
+        ln = np.zeros((B, t_pad), dtype=np.int32)
 
     slot_need = np.maximum(wm.max(axis=0), 1) if B else np.ones(t_pad)
 
@@ -288,6 +299,88 @@ def encode_super_queries(
         wcaps=wcaps,
         t_pad=t_pad,
     )
+
+
+class ShardedSuperPostings(NamedTuple):
+    """One rank's supertile structures on a mesh (the collective program,
+    ``parallel/collectives.py`` ``sharded_supertile_topk``): the tables and
+    the CSR rows of its shard, with LOCAL doc ids (global - shard *
+    docs_per_shard), plus the GLOBAL per-term df and widest window that
+    the query encode reads. The JAX class stacks every shard on a leading
+    axis."""
+
+    sup_max: torch.Tensor  # [V+1, ns_l] float32
+    sup_pos: torch.Tensor  # [V+1, ns_l+1] int32
+    ids_rows: torch.Tensor  # [M_l, ROW] int32 (pad = docs_per_shard)
+    ws_rows: torch.Tensor  # [M_l, ROW] float32
+    docs_per_shard: int
+    n_docs: int
+    super_tiles: int
+    n_shards: int
+    shard: int
+    df_host: np.ndarray  # [V] int64 global dfs
+    win_max_host: np.ndarray  # [V] int64 widest window over every shard
+
+    @property
+    def super_docs(self) -> int:
+        return self.super_tiles * TILE
+
+
+def build_super_postings_sharded(
+    term_ids: np.ndarray,
+    doc_ids: np.ndarray,
+    weights: np.ndarray,
+    n_docs: int,
+    vocab_size: int,
+    docs_per_shard: int,
+    n_shards: int,
+    shard: int,
+    device: torch.device,
+    super_tiles: int = 128,
+) -> ShardedSuperPostings:
+    """Shard ``shard``'s SuperPostings (local doc ids) from the whole
+    term-major doc-sorted COO (the same on every rank), and the global df
+    and widest (term, shard supertile) window, which every rank computes
+    from that COO alike. ``docs_per_shard`` must cover n_docs over
+    n_shards."""
+    t = np.asarray(term_ids, dtype=np.int64)
+    d = np.asarray(doc_ids, dtype=np.int64)
+    w = np.asarray(weights, dtype=np.float32)
+    base = shard * docs_per_shard
+    m = (d >= base) & (d < base + docs_per_shard)
+    sp = build_super_postings(t[m], d[m] - base, w[m], docs_per_shard,
+                              vocab_size, device, super_tiles=super_tiles)
+    # widest window over every shard: segments of (term, shard, local
+    # supertile), the COO being term-major and doc-sorted
+    sd = super_tiles * TILE
+    win_max = np.zeros(vocab_size, dtype=np.int64)
+    if len(t):
+        sig = (d // docs_per_shard) * sp.n_super + (d % docs_per_shard) // sd
+        key = t * (n_shards * sp.n_super) + sig
+        seg_starts = np.concatenate([[0], np.flatnonzero(np.diff(key)) + 1])
+        seg_len = np.diff(np.concatenate([seg_starts, [len(t)]]))
+        seg_t = t[seg_starts]
+        tb = np.concatenate([[0], np.flatnonzero(np.diff(seg_t)) + 1])
+        win_max[seg_t[tb]] = np.maximum.reduceat(seg_len, tb)
+    return ShardedSuperPostings(
+        sup_max=sp.sup_max, sup_pos=sp.sup_pos, ids_rows=sp.ids_rows,
+        ws_rows=sp.ws_rows, docs_per_shard=docs_per_shard, n_docs=int(n_docs),
+        super_tiles=super_tiles, n_shards=n_shards, shard=shard,
+        df_host=np.bincount(t, minlength=vocab_size).astype(np.int64)[:vocab_size],
+        win_max_host=win_max)
+
+
+def encode_super_queries_sharded(
+    ssp: ShardedSuperPostings,
+    query_term_ids: Sequence[Sequence[int]],
+) -> SuperQueryEnc:
+    """Encode against the GLOBAL df and window maxima of a sharded build:
+    the ``SuperQueryEnc`` contract, the same on every rank (the slots' run
+    starts and lengths are zeros: each shard reads its own position
+    table)."""
+    return _encode_super(query_term_ids, ssp.df_host, ssp.win_max_host, None,
+                         min(ssp.super_docs, WCAP_LADDER[-1]),
+                         ssp.sup_max.device)
 
 
 def _window_bounds(sup_pos, term_ids, sup_s):

@@ -22,6 +22,10 @@ Quirks kept deliberately, as in the JAX package:
 No Pallas kernel backs this layer. Its device work goes through the port's
 kernels underneath: ``DenseIndex.search`` (K1 and K4 at tile grain), the
 impact hybrid (K1, K4, K6, K7) and ``Searcher.search_batch``.
+
+``mesh`` (every rank building the same pipeline) reaches the Indexer, so
+the pipelines serve through the mesh's collective programs;
+HybridBM25Pipeline's [1, n] fusion raises there (not ported to the mesh).
 """
 
 from __future__ import annotations
@@ -77,11 +81,12 @@ class BasePipeline:
         highlight: bool = False,
         highlight_style: str = "markdown",
         device: DeviceLike = None,
+        mesh=None,
         **kwargs,
     ) -> None:
         self.config = config or EngineConfig()
         self.indexer = Indexer(db_path=db_path, encoder=encoder,
-                               config=self.config, device=device)
+                               config=self.config, device=device, mesh=mesh)
         self.searcher = Searcher(indexer=self.indexer, config=self.config)
         self.highlighter: Optional[Highlighter] = (
             get_highlighter(highlight_style) if highlight else None
@@ -264,6 +269,11 @@ class HybridBM25Pipeline(BasePipeline):
 
     def search(self, query: str, top_k: int = 5) -> PipelineResult:
         ix = self.indexer
+        if ix.mesh is not None:
+            raise NotImplementedError(
+                "HybridBM25Pipeline.search on a mesh: its divide-by-max fusion of "
+                "two [1, n] arms is a single-device program the JAX package "
+                "leaves to XLA's partitioning; not ported to the mesh yet")
         snap = ix.dense._snap
         n = snap.n
         if n == 0:

@@ -31,8 +31,24 @@ generation, fuses two full [B, n] arms: the semantic arm exact, or
 where one covers the snapshot, else of ``DenseIndex.search``, scattered
 into zeros); the lexical arm BM25's ``batch_scores``, or ``"fuzzy"`` (the
 reference's host ``partial_ratio`` blend, capped at ``FUZZY_MAX_DOCS``). A
-pending BM25 delta is compacted before the snapshot pair is taken. The
-mesh branches are not part of the port yet.
+pending BM25 delta is compacted before the snapshot pair is taken.
+
+On a mesh (``Searcher(mesh=)``; every rank serves the same batch and gets
+the same rows) a BM25 state aligned with the dense shards takes the exact
+collective program (``sharded_hybrid_topk``): both arms over each rank's
+columns, global min/max, local top-k, merge. On a ``layout="clustered"``
+index of ``SPARSE_HYBRID_MIN_DOCS`` docs or more it first tries the
+sharded supertile ladder (``_sharded_supertile``, gated by
+``HST_SUPER_HYBRID``): per-rank probes at the budgets of ``_SUPER_LADDER``
+capped at a shard's supertiles, the uncertified rows escalated; unless
+the ladder certifies the whole batch, the exact program serves it and
+``hybrid_sharded_uncertified`` counts it. Any other mode or an unaligned
+BM25 state fuses each rank's columns of the two arms, each computed on
+its rank alone, through the same collective fusion
+(``sharded_fuse_topk``); the semantic arm there is
+always the scatter of the top 2k (the JAX package's ``mesh_fallback``,
+warned once and counted in ``semantic_exactness_downgrade`` when it
+replaces the exact arm).
 """
 
 from __future__ import annotations
@@ -270,10 +286,12 @@ class Searcher:
         semantic_mode: str = "exact",  # "exact" | "scatter"
         config: Optional[EngineConfig] = None,
         device: DeviceLike = None,
+        mesh=None,
     ) -> None:
         self.config = config or EngineConfig()
         self.indexer = indexer or Indexer(db_path=db_path, encoder=encoder,
-                                          config=self.config, device=device)
+                                          config=self.config, device=device,
+                                          mesh=mesh)
         self.device = self.indexer.device
         self.query_memory = (QueryMemory(self.indexer.store)
                              if use_query_memory else None)
@@ -335,7 +353,38 @@ class Searcher:
             q_vecs = self.indexer.encoder.encode(list(queries)).to(self.device)
         fitted = (self.lexical_mode == "bm25" and self.semantic_mode == "exact"
                   and bm25_state.postings is not None and bm25_state.n_docs == n)
-        if fitted and n >= SPARSE_HYBRID_MIN_DOCS:
+        mesh = self.indexer.mesh
+        sh = bm25_state.sharded
+        if (mesh is not None and self.lexical_mode == "bm25" and sh is not None
+                and bm25_state.n_docs == n
+                and sh.docs_per_shard * sh.n_shards == snap.capacity):
+            from hybridsearch_tpu_torch.parallel.collectives import sharded_hybrid_topk
+
+            with trace_span("hybrid_sharded"):
+                res = None
+                if (self.indexer.config.index.layout == "clustered"
+                        and n >= SPARSE_HYBRID_MIN_DOCS):
+                    res = self._sharded_supertile(queries, q_vecs, snap, bm25,
+                                                  bm25_state, k, sw, lw)
+                if res is not None:
+                    vals, idxs = res
+                else:
+                    groups = bm25.encode_queries_bucketed(list(queries), bm25_state)
+                    vals, idxs = sharded_hybrid_topk(
+                        mesh, l2_normalize(q_vecs.float()), snap.docs, sh.doc_ids,
+                        sh.weights, groups, k, sw, lw, valid_n=n,
+                        bias_local=snap.bias)
+        elif mesh is not None:
+            from hybridsearch_tpu_torch.parallel.collectives import sharded_fuse_topk
+
+            with trace_span("semantic"):
+                sem = self._semantic_scores(q_vecs, top_k, snap)
+            with trace_span("lexical"):
+                lex = self._lexical_scores(queries, n, snap)
+            with trace_span("fuse_topk"):
+                vals, idxs = sharded_fuse_topk(mesh, sem, lex, k, sw, lw, n,
+                                               bias_local=snap.bias)
+        elif fitted and n >= SPARSE_HYBRID_MIN_DOCS:
             with trace_span("hybrid_sparse"):
                 vals, idxs = self._sparse_hybrid(queries, q_vecs, snap, bm25,
                                                  k, sw, lw)
@@ -349,7 +398,7 @@ class Searcher:
             with trace_span("semantic"):
                 sem = self._semantic_scores(q_vecs, top_k, snap)
             with trace_span("lexical"):
-                lex = self._lexical_scores(queries, n)
+                lex = self._lexical_scores(queries, n, snap)
             with trace_span("fuse_topk"):
                 vals, idxs = _fuse_and_topk(sem, lex, sw, lw, snap.bias[:n], k)
         vals_np = np.asarray(vals.cpu().numpy() if torch.is_tensor(vals) else vals)
@@ -379,33 +428,59 @@ class Searcher:
         scatter mode the raw scores of the top min(2 top_k, n) docs of the
         IVF index (when it covers the snapshot's n docs) or of
         ``DenseIndex.search``, scattered into zeros (negative cosines may
-        rank below docs not retrieved, as in the reference)."""
+        rank below docs not retrieved, as in the reference). On a mesh,
+        this rank's [B, per] columns of the scatter arm, whatever the mode
+        (only the retrieved ids in its rows land): the exact arm is
+        replaced (warned once, counted in ``semantic_exactness_downgrade``
+        while 2 top_k < n)."""
         n = snap.n
-        if self.semantic_mode == "scatter":
+        mesh_fallback = (self.semantic_mode != "scatter"
+                         and self.indexer.mesh is not None and n > 0)
+        if mesh_fallback and 2 * top_k < n:
+            if GLOBAL_COUNTERS.inc("semantic_exactness_downgrade") == 1:
+                import warnings
+
+                warnings.warn(
+                    "mesh hybrid fell back to scatter-2k semantics (BM25 shards "
+                    "misaligned with the dense index); results are approximate "
+                    "until the next aligned (re)fit", RuntimeWarning)
+        if self.semantic_mode == "scatter" or mesh_fallback:
             k2 = min(2 * top_k, n)
             ivf = self.indexer.ivf
             if ivf is not None and ivf.n_docs == n:
                 vals, idxs = ivf.search(q_vecs, k2)
             else:  # no IVF, or one made stale by an add
                 vals, idxs = self.indexer.dense.search(q_vecs, k2)
-            vals = torch.from_numpy(np.where(np.isfinite(vals), vals, 0.0))
-            idxs = torch.from_numpy(np.minimum(idxs, n - 1))
-            return scatter_topk_to_dense(vals.to(self.device),
-                                         idxs.to(self.device), n)
+            vals = torch.from_numpy(np.where(np.isfinite(vals), vals, 0.0)).to(self.device)
+            idxs = torch.from_numpy(np.minimum(idxs, n - 1)).to(self.device)
+            if self.indexer.mesh is not None:
+                return _scatter_local(vals, idxs,
+                                      *self.indexer.dense._rows(snap.capacity))
+            return scatter_topk_to_dense(vals, idxs, n)
         return l2_normalize(q_vecs.float()) @ snap.docs[:n].T
 
-    def _lexical_scores(self, queries: Sequence[str], n: int) -> torch.Tensor:
+    def _lexical_scores(self, queries: Sequence[str], n: int,
+                        snap) -> torch.Tensor:
         """[B, n] lexical arm, shape-locked to the dense snapshot's n: a
         BM25 state of another index generation gives zeros (min-max of a
-        constant arm is all ones)."""
-        zeros = torch.zeros((len(queries), n), dtype=torch.float32,
+        constant arm is all ones). On a mesh, this rank's [B, per] columns,
+        scored on this rank alone (``BM25.shard_scores``, or the fuzzy
+        blend of this rank's docs)."""
+        mesh = self.indexer.mesh
+        lo, cols = self.indexer.dense._rows(snap.capacity) if mesh is not None else (0, n)
+        zeros = torch.zeros((len(queries), cols), dtype=torch.float32,
                             device=self.device)
         if self.lexical_mode == "fuzzy":
-            out = self._fuzzy_scores_host(queries)
-            return zeros if out.shape[1] != n else torch.from_numpy(out).to(self.device)
+            if len(self.indexer.contents) != n:
+                return zeros
+            out = self._fuzzy_scores_host(queries, lo, min(lo + cols, n))
+            zeros[:, :out.shape[1]] = torch.from_numpy(out).to(self.device)
+            return zeros
         bm25 = self.indexer.bm25
         if bm25.n_docs != n:
             return zeros
+        if mesh is not None:
+            return bm25.shard_scores(queries, cols)
         scores = bm25.batch_scores(queries)
         return zeros if scores.shape[1] != n else scores
 
@@ -413,9 +488,10 @@ class Searcher:
     # the reference; past this many docs it refuses.
     FUZZY_MAX_DOCS = 50_000
 
-    def _fuzzy_scores_host(self, queries: Sequence[str]) -> np.ndarray:
+    def _fuzzy_scores_host(self, queries: Sequence[str], lo: int = 0,
+                           hi: Optional[int] = None) -> np.ndarray:
         """The reference's lexical blend: 0.7 * partial_ratio / 100 + 0.3 *
-        the share of the query's tokens the doc holds."""
+        the share of the query's tokens the doc holds, over docs [lo, hi)."""
         docs = self.indexer.contents
         if len(docs) > self.FUZZY_MAX_DOCS:
             raise ValueError(
@@ -423,6 +499,7 @@ class Searcher:
                 f"(O(B*N) edit distances) and is capped at "
                 f"{self.FUZZY_MAX_DOCS} docs; this index has {len(docs)}. "
                 f"Use lexical_mode='bm25' at scale.")
+        docs = docs[lo:hi]
         out = np.zeros((len(queries), len(docs)), dtype=np.float32)
         doc_toks = [set(extract_tokens(d)) for d in docs]
         for qi, query in enumerate(queries):
@@ -461,6 +538,59 @@ class Searcher:
         stats["total_documents"] = len(self.indexer.contents)
         stats["stages"] = GLOBAL_TIMER.stats()
         return stats
+
+    def _sharded_supertile(self, queries, q_vecs, snap, bm25, bm25_state, k,
+                           sw, lw):
+        """The sharded supertile ladder (clustered layouts): escalate each
+        rank's probe budget while a certificate can still close; None to
+        let the exact collective program serve the batch (counted in
+        ``hybrid_sharded_uncertified``). Every decision here reads values
+        that are equal on every rank (reduced or merged), so the ranks
+        take the same branches."""
+        if os.environ.get("HST_SUPER_HYBRID", "1") == "0":
+            return None
+        ssp = bm25.super_postings_sharded(state=bm25_state)
+        if ssp is None:
+            return None
+        from hybridsearch_tpu_torch.ops.supertile import encode_super_queries_sharded
+        from hybridsearch_tpu_torch.parallel.collectives import sharded_supertile_topk
+
+        term_lists = [bm25_state.vocab.encode(extract_tokens(q)) for q in queries]
+        enc_s = encode_super_queries_sharded(ssp, term_lists)
+        q = l2_normalize(q_vecs.float())
+        n_alive = snap.n - self.indexer.dense.deleted_count
+        certifiable = enc_s.complete & (enc_s.full_touched < n_alive)
+        ns_local = ssp.sup_max.shape[-1]
+        B = q.shape[0]
+        st = _LadderState(B)
+        cur_q, cur_enc = q, enc_s
+        prev_fails = None
+        for s_probe in _SUPER_LADDER:
+            res = sharded_supertile_topk(
+                self.indexer.mesh, cur_q, snap.docs, ssp.sup_max, ssp.sup_pos,
+                ssp.ids_rows, ssp.ws_rows, cur_enc, k, sw, lw,
+                s_probe=min(s_probe, ns_local), valid_n=snap.n, n_alive=n_alive,
+                bias_local=snap.bias, super_tiles=ssp.super_tiles)
+            st.merge(*res)
+            if st.exact.all():
+                return st.values, st.indices
+            if not np.logical_and(~st.exact, certifiable).any():
+                break
+            if s_probe >= ns_local:
+                break
+            fails = int((~st.exact).sum())
+            if prev_fails is not None and fails >= prev_fails:
+                break  # no progress: deeper rungs are not certifying more
+            prev_fails = fails
+            fi = st.next_rows()  # compacted escalation
+            if fi is not None:
+                fp = st.padded(fi)
+                cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+                cur_enc = _subset_batch_rows(enc_s, fp, B)
+            else:
+                cur_q, cur_enc = q, enc_s
+        GLOBAL_COUNTERS.inc("hybrid_sharded_uncertified")
+        return None
 
     def _sparse_hybrid(self, queries, q_vecs, snap, bm25, k, sw, lw):
         """At-scale hybrid: on a clustered index the supertile ladder, else
@@ -610,6 +740,19 @@ def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
         else:
             cur_queries, cur_q = list(queries), q
     return st, rungs
+
+
+def _scatter_local(values: torch.Tensor, indices: torch.Tensor, lo: int,
+                   per: int) -> torch.Tensor:
+    """This rank's [B, per] columns of ``scatter_topk_to_dense`` on a mesh:
+    only the ids in [lo, lo + per) land, at their local columns."""
+    local = indices.long() - lo
+    keep = (indices >= 0) & (local >= 0) & (local < per)
+    out = torch.zeros((values.shape[0], per + 1), dtype=torch.float32,
+                      device=values.device)
+    out.scatter_add_(1, torch.where(keep, local, per),
+                     torch.where(keep, values.float(), 0.0))
+    return out[:, :per]
 
 
 def _warn_uncertified(message: str) -> None:

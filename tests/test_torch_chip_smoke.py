@@ -112,6 +112,22 @@ def test_cpu_rehearsal_runs_every_phase():
                for ln in lines)
     assert any("] small-topic/ivf: " in ln and "full probe equals DenseIndex.search"
                in ln and "match the plain scatter reference" in ln for ln in lines)
+    # the mesh: four gloo ranks serve small-topic, a quarter each, every rank
+    # equal and every row exact; one batch on a world of one rank
+    assert any("] index_documents: small-topic/mesh4: 4 ranks" in ln for ln in lines)
+    assert any("] small-topic/mesh4: every rank's rows" in ln and "are equal" in ln
+               for ln in lines)
+    assert any("] small-topic/mesh4: all " in ln
+               and "rows match the plain exact fused reference" in ln
+               and "saved and loaded onto the mesh is equal bit for bit" in ln
+               for ln in lines)
+    assert sum(ln.startswith("    rank ") and "build" in ln for ln in lines) == 4
+    assert any("] small-topic/mesh4: the first batch under HST_SUPER_HYBRID=0: "
+               "the exact collective program once on every rank, all " in ln
+               and "rows match the plain exact fused reference" in ln for ln in lines)
+    assert any("shard of " in ln and "tile_scores at " in ln for ln in lines)
+    assert any("] mesh world 1: gloo: one batch" in ln
+               and "rows match the plain exact fused reference" in ln for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

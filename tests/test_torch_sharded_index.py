@@ -1,0 +1,342 @@
+"""The port's indexes on a mesh against the JAX package's, on the CPU:
+``DenseIndex`` (build, add, tombstones at shard edges, n not a multiple of
+the shards' rows, save at 4 shards and load at 4, a 1-shard save loaded at
+4), ``BM25`` (sharded fit, search, scores, a saved single-device state
+loaded onto the mesh, adds), the sharded ``IVFIndex`` (its own build at
+full probe, a JAX build carried across), the ``Indexer`` (build, delete,
+save / load on the mesh, a JAX single-device save loaded onto it, adds)
+and the routes that raise ``NotImplementedError`` on a mesh; then a world
+of one rank, the degenerate mesh, against the single device.
+
+The port runs in one spawned world of 4 gloo ranks for the 4-rank checks
+and one of 1 rank (tests/_torch_mesh_worker.py); the JAX side runs here
+on a 4-device mesh of the 8 virtual CPU devices. Every rank must return
+the same answer.
+
+Tolerances: scores rtol=1e-4, atol=1e-5; ids exact except inside a
+near-tie of eps_num=1e-4; a saved manifest and bias byte for byte, saved
+rows rtol=1e-5, atol=1e-6 (the packages normalize in another float
+order); a save loaded back bit for bit.
+"""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+
+import _torch_mesh_worker as worker
+from hybridsearch_tpu.config import EngineConfig as JConfig
+from hybridsearch_tpu.index.builder import Indexer as JIndexer
+from hybridsearch_tpu.index.dense_index import DenseIndex as JDense
+from hybridsearch_tpu.index.ivf import IVFIndex as JIVF
+from hybridsearch_tpu.index.sparse_index import BM25 as JBM25
+from hybridsearch_tpu.models.encoder import HashingEncoder as JEnc
+from hybridsearch_tpu.parallel.mesh import build_mesh as jbuild_mesh
+from hybridsearch_tpu.retrieval.searcher import Searcher as JSearcher
+from hybridsearch_tpu_torch.parallel.dryrun import launch
+
+S = 4
+EPS = 1e-4
+QUERIES = ["machine learning artificial intelligence", "cooking pasta",
+           "stock market quarter", "neural networks brains"]
+MORE = ["pasta with tomato sauce and basil", "a quarter of machine learning"]
+
+
+def _same_topk(got_v, got_i, want_v, want_i):
+    got_v, want_v = np.asarray(got_v), np.asarray(want_v)
+    np.testing.assert_allclose(got_v, want_v, rtol=1e-4, atol=1e-5)
+    diff = np.asarray(got_i) != np.asarray(want_i)
+    for b, j in zip(*np.nonzero(diff)):
+        row = want_v[b]
+        assert (np.abs(row - row[j]) <= EPS).sum() > 1, (b, j)
+
+
+def _same_rows(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        _same_topk([[v for v, _i in g]], [[i for _v, i in g]],
+                   [[v for v, _i in w]], [[i for _v, i in w]])
+
+
+def _jrows(results):
+    return [[(float(v), int(i)) for v, _c, i in row] for row in results]
+
+
+def _clustered(rng, n_clusters=12, per=64, d=64):
+    centers = rng.standard_normal((n_clusters, d)) * 3
+    return np.concatenate([c + 0.3 * rng.standard_normal((per, d))
+                           for c in centers]).astype(np.float32)
+
+
+def _jax_dense(jmesh, inp, save_dir=None):
+    """The JAX mesh index through the same mutations as the port's."""
+    idx = JDense(dim=inp["vecs"].shape[1], mesh=jmesh, block_n=64,
+                 capacity_round=inp["round"]).build(inp["vecs"])
+    out = {"search": idx.search(inp["q"], inp["k"])}
+    idx.add(inp["new"])
+    out["search_added"] = idx.search(inp["new"][2:3], 1)
+    idx.delete(inp["dead"])
+    out["search_dead"] = idx.search(inp["q"], inp["k"])
+    out["capacity"] = idx.capacity
+    if save_dir:
+        idx.save(save_dir)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jmesh():
+    return jbuild_mesh(n_data=S, devices=jax.devices()[:S])
+
+
+@pytest.fixture(scope="module")
+def jdense(jmesh, world, tmp_path_factory):
+    """The JAX mesh index's results and its save, once for the module."""
+    save_dir = str(tmp_path_factory.mktemp("jax_mesh_save"))
+    return _jax_dense(jmesh, world[0]["dense_index"], save_dir=save_dir), save_dir
+
+
+@pytest.fixture(scope="module")
+def world(jmesh, demo_docs, tmp_path_factory):
+    """(inputs, the JAX saves, each world's results): one 4-rank world runs
+    every 4-rank check, one 1-rank world the degenerate mesh."""
+    tmp = tmp_path_factory.mktemp("sharded_index")
+    rng = np.random.default_rng(0)
+    vecs = rng.standard_normal((300, 64)).astype(np.float32)
+    one_dir = str(tmp / "one_shard")
+    JDense(dim=64, capacity_round=8).build(vecs).save(one_dir)
+    # the rows a shard is 80: tombstones at both edges of shards 0 and 1
+    dense = {"vecs": vecs, "round": 8, "q": vecs[[123, 79, 80, 299]], "k": 3,
+             "new": rng.standard_normal((5, 64)).astype(np.float32),
+             "dead": np.array([79, 80, 159, 7]), "get": [0, 79, 80, 250, 304],
+             "save_dir": str(tmp / "mesh_save"), "one_shard_dir": one_dir}
+    single_npz = str(tmp / "single_bm25.npz")
+    JBM25().fit(demo_docs).save(single_npz)
+    bm25 = {"docs": list(demo_docs), "queries": QUERIES + ["zzz nothing"],
+            "cand": [0, 3, 5, -1, 11], "dir": str(tmp), "npz": single_npz}
+    docs_ivf = _clustered(np.random.default_rng(1))
+    jivf = JIVF(dim=64, n_clusters=16, nprobe=6, mesh=jmesh).build(docs_ivf)
+    q_ivf = docs_ivf[np.random.default_rng(2).integers(0, len(docs_ivf), 8)] + \
+        0.05 * np.random.default_rng(3).standard_normal((8, 64)).astype(np.float32)
+    ivf = {"docs": docs_ivf, "q": q_ivf,
+           "arrays": (np.asarray(jivf._centroids), np.asarray(jivf._docs_perm),
+                      np.asarray(jivf._chunk_starts), np.asarray(jivf._chunk_lens),
+                      np.asarray(jivf._perm_to_orig), jivf._cap, jivf.n_docs)}
+    table = np.asarray(JEnc(dim=128).table)
+    single_db = str(tmp / "single.db")
+    cfg = JConfig()
+    cfg.index.dim = 128
+    jix = JIndexer(db_path=single_db, encoder=JEnc(dim=128), config=cfg)
+    jix.index_documents(demo_docs)
+    jix.save(str(tmp / "single_index"))
+    jix.close()
+    indexer = {"table": table, "round": 8, "docs": list(demo_docs),
+               "queries": QUERIES, "dead": [1, 3], "more": MORE, "dir": str(tmp),
+               "single_dir": str(tmp / "single_index"), "single_db": single_db}
+    inputs = {"dense_index": dense, "bm25": bm25, "ivf": ivf, "indexer": indexer}
+    four = launch(worker.run_checks, S, args=("index", inputs),
+                  workdir=str(tmp / "world4"), timeout_s=240)
+    one_in = {"searcher_world1": {"table": table, "docs": list(demo_docs),
+                                  "queries": QUERIES}}
+    one = launch(worker.run_checks, 1, args=("index", one_in),
+                 workdir=str(tmp / "world1"), timeout_s=240)
+    return inputs, jivf, four, one
+
+
+def _ranks(results, name):
+    outs = [r[name] for r in results]
+    for o in outs:
+        assert "error" not in o, o.get("error")
+    for o in outs[1:]:
+        _assert_equal(o, outs[0])
+    return outs
+
+
+def _assert_equal(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for key in a:
+            if key != "local_rows":
+                _assert_equal(a[key], b[key])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_equal(x, y)
+    elif isinstance(a, np.ndarray):
+        np.testing.assert_array_equal(a, b)
+    else:
+        assert a == b
+
+
+def test_dense_index_on_mesh_matches_jax(world, jdense):
+    """Build at 300 rows (80 a shard at capacity_round 8, the last shard
+    part padding), search, add within the capacity, tombstones at shard
+    edges (one named twice, counted once), and rows of every shard read
+    back."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "dense_index")[0]
+    inp = inputs["dense_index"]
+    want = jdense[0]
+    assert got["capacity"] == want["capacity"] == 320
+    assert [o["local_rows"] for o in (r["dense_index"] for r in four)] == [80] * S
+    for key in ("search", "search_added", "search_dead"):
+        _same_topk(got[key][0], got[key][1], want[key][0], want[key][1])
+    assert got["search"][1][0, 0] == 123 and got["search"][1][3, 0] == 299
+    np.testing.assert_array_equal(got["added"], np.arange(300, 305))
+    assert got["search_added"][1][0, 0] == 302
+    assert got["deleted_count"] == len(inp["dead"])
+    assert not set(inp["dead"].tolist()) & set(got["search_dead"][1].ravel().tolist())
+    vecs = np.concatenate([inp["vecs"], inp["new"]])
+    unit = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+    np.testing.assert_allclose(got["vectors"], unit[inp["get"]], rtol=1e-5, atol=1e-6)
+
+
+def test_dense_index_save_at_four_shards_is_the_jax_layout(world, jdense):
+    """Every rank writes its own rows into the JAX layout: the same files
+    as a JAX mesh index's save of the same state (the manifest and the
+    bias byte for byte, each shard file of the same shape, its rows within
+    the tolerance: the two packages normalize in another float order), and
+    the index loaded back at 4 shards equals the saved one."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "dense_index")[0]
+    inp = inputs["dense_index"]
+    jax_dir = jdense[1]
+    names = sorted(os.listdir(jax_dir))
+    assert names == sorted(os.listdir(inp["save_dir"]))
+    for name in names:
+        if name.startswith("shard_"):
+            a = np.load(os.path.join(jax_dir, name))
+            b = np.load(os.path.join(inp["save_dir"], name))
+            assert a.shape == b.shape and a.dtype == b.dtype, name
+            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+            continue
+        with open(os.path.join(jax_dir, name), "rb") as a, \
+                open(os.path.join(inp["save_dir"], name), "rb") as b:
+            assert a.read() == b.read(), name
+    assert got["loaded_equal"] and got["loaded_deleted"] == len(inp["dead"])
+    _same_topk(got["loaded_search"][0], got["loaded_search"][1],
+               got["search_dead"][0], got["search_dead"][1])
+
+
+def test_one_shard_save_loaded_at_four(world):
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "dense_index")[0]
+    want = JDense.load(inputs["dense_index"]["one_shard_dir"]).search(
+        inputs["dense_index"]["q"], 3)
+    _same_topk(got["one_shard_search"][0], got["one_shard_search"][1], *want)
+
+
+def test_sharded_bm25_matches_jax_and_single(world, demo_docs):
+    """BM25 fitted on the mesh scores and ranks as the JAX package's BM25
+    and the port's single-device one (tests/test_parallel.py holds the JAX
+    mesh BM25 to the JAX single-device one; tests/test_torch_parallel.py
+    the sharded ops to the JAX mesh's)."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "bm25")[0]
+    assert got["sharded"]
+    jm = JBM25().fit(demo_docs)
+    for q, scores, hits, single in zip(inputs["bm25"]["queries"], got["scores"],
+                                       got["search"], got["single_search"]):
+        np.testing.assert_allclose(scores, jm.score_all(q), rtol=1e-4, atol=1e-5)
+        assert hits == jm.search(q, top_k=3) == single, q
+    want = jm.candidate_scores(inputs["bm25"]["queries"][0],
+                               np.array(inputs["bm25"]["cand"]))
+    np.testing.assert_allclose(got["cand"], want, rtol=1e-4, atol=1e-5)
+    assert "cannot be saved" in got["save"]
+    jm.add_tokens([["machine", "learning", "pasta"]])
+    assert got["added_n"] == jm.n_docs == len(demo_docs) + 1
+    assert got["added_search"] == jm.search("pasta", top_k=3)
+
+
+def test_single_device_bm25_loaded_onto_the_mesh(world):
+    """A saved single-device state loaded onto the mesh takes the sharded
+    postings (the JAX package keeps it single-device there)."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "bm25")[0]
+    single = JBM25().load(inputs["bm25"]["npz"])
+    assert got["loaded_sharded"]
+    for q, hits in zip(inputs["bm25"]["queries"], got["loaded_search"]):
+        assert hits == single.search(q, top_k=3), q
+
+
+def test_ivf_sharded_matches_jax_and_exact(world, jmesh):
+    """The port's own sharded build at full probe equals exact search; a
+    JAX sharded build carried across serves what the JAX one serves at the
+    default probe (each rank probing ceil(6 / 4) chunks) and at full
+    probe; from_layout refuses a mesh."""
+    inputs, jivf, four, _one = world
+    got = _ranks(four, "ivf")[0]
+    inp = inputs["ivf"]
+    qn = inp["q"] / np.linalg.norm(inp["q"], axis=1, keepdims=True)
+    dn = inp["docs"] / np.linalg.norm(inp["docs"], axis=1, keepdims=True)
+    s = qn @ dn.T
+    want = np.argsort(-s, axis=1, kind="stable")[:, :10]
+    _same_topk(got["own_full"][0], got["own_full"][1],
+               np.take_along_axis(s, want, 1), want)
+    _same_topk(got["carried"][0], got["carried"][1], *jivf.search(inp["q"], 10))
+    _same_topk(got["carried_full"][0], got["carried_full"][1],
+               *jivf.search(inp["q"], 10, nprobe=10**9))
+    assert "single-device" in got["from_layout"]
+
+
+def test_indexer_on_mesh_build_save_load(world, demo_docs):
+    """The Indexer on the mesh serves what the JAX Indexer serves (its
+    single-device fused program, which tests/test_parallel.py holds the
+    JAX mesh to); after deletes, saved and loaded back onto the mesh (BM25
+    refitted, aligned with the dense shards) it serves the same rows bit
+    for bit; a JAX single-device save (with its bm25.npz) loaded onto the
+    mesh serves what the JAX single-device searcher serves; adds keep it
+    live."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "indexer")[0]
+    inp = inputs["indexer"]
+    cfg = JConfig()
+    cfg.index.capacity_round = 8
+    js = JSearcher(encoder=JEnc(dim=128), use_query_memory=False, config=cfg)
+    js.indexer.index_documents(demo_docs)
+    _same_rows(got["built"], _jrows(js.search_batch(QUERIES, top_k=5, log=False)))
+    js.indexer.delete_documents(inp["dead"])
+    _same_rows(got["deleted"], _jrows(js.search_batch(QUERIES, top_k=5, log=False)))
+    assert got["loaded"] == got["deleted"] and got["loaded_aligned"]
+    single = JSearcher(indexer=JIndexer.load(inp["single_dir"], encoder=JEnc(dim=128),
+                                             db_path=inp["single_db"]),
+                       use_query_memory=False)
+    _same_rows(got["single_saved"], _jrows(single.search_batch(QUERIES, top_k=5,
+                                                               log=False)))
+    js.indexer.add_documents(MORE)
+    _same_rows(got["added"], _jrows(js.search_batch(QUERIES, top_k=5, log=False)))
+
+
+@pytest.mark.parametrize("route", ["grow", "compact", "export", "hybrid_bm25"])
+def test_unported_mesh_routes_raise(world, route):
+    """The routes the JAX package serves on a mesh only through XLA's
+    partitioning raise NotImplementedError and name themselves: growing a
+    sharded capacity, compacting, the JSON export (every row onto every
+    rank) and HybridBM25Pipeline's [1, n] fusion."""
+    _inputs, _jivf, four, _one = world
+    dense = _ranks(four, "dense_index")[0]
+    ix = _ranks(four, "indexer")[0]
+    msg = {"grow": dense["grow"], "compact": dense["compact"],
+           "export": ix["export"], "hybrid_bm25": ix["hybrid_bm25"]}[route]
+    name = {"grow": "DenseIndex.add", "compact": "DenseIndex.compact",
+            "export": "Indexer.export_json", "hybrid_bm25": "HybridBM25Pipeline"}[route]
+    assert msg is not None and name in msg and "mesh" in msg
+
+
+def test_pipelines_take_the_mesh(world):
+    _inputs, _jivf, four, _one = world
+    ix = _ranks(four, "indexer")[0]
+    assert ix["basic"][0] and ix["basic"][0][0][1] == ix["built"][0][0][1]
+
+
+def test_degenerate_mesh_of_one_rank(world, demo_docs):
+    """A world of one rank: the mesh programs (with their collectives)
+    serve what the single-device searcher serves."""
+    _inputs, _jivf, _four, one = world
+    got = _ranks(one, "searcher_world1")[0]
+    _same_rows(got["mesh"], got["single"])
+    js = JSearcher(encoder=JEnc(dim=128), use_query_memory=False)
+    js.indexer.index_documents(demo_docs)
+    _same_rows(got["mesh"], _jrows(js.search_batch(QUERIES, top_k=6, log=False)))
+    assert got["deleted"] not in [i for _v, i in got["after_delete"][0]]
