@@ -109,6 +109,21 @@ launches there are counted and printed. No corpus's topic
 structure comes from a published source, so their qps describe these
 corpora only.
 
+Last come the trainers (``training/``) on those two trunks, on pairs from
+the small-topic corpus (a doc and a query of its topic; the cross pairs
+alternate relevant and of another topic): "train contrastive"
+(``ContrastiveTrainer`` from hst-bi-v3, 96 pairs at seq 48) and "train
+cross" (``CrossEncoderTrainer`` from the cross-encoder checkpoint, 64
+pairs at seq 128) each hold the first step's loss and gradients to the
+port on the CPU (same params and batch), then time 20 steps (every loss
+finite; ms, tokens/s, TFLOP/s against the bf16 peak, peak bytes) and
+profile one more; "train checkpoint" requires a restored train state to
+take the uninterrupted trainer's next step, and the saved encoder to
+encode 256 queries as the trainer's model, bit for bit; "train mesh"
+holds the step the mesh run's four ranks took as data 2 x model 2 (a
+tensor-parallel trunk; ``mesh_rank``) to the one-device step. No kernel
+of K1-K7 may launch while they train.
+
 Every phase prints one line with its elapsed seconds before the next
 starts. The last two lines are a JSON object of per-kernel numbers and the
 device line; per-batch details go to ``chiprun_out/chip_smoke_detail.json``.
@@ -126,6 +141,7 @@ import gc
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -1558,9 +1574,12 @@ def main(argv=None) -> int:
     # small-topic index (run) is their reference until they are collected
     mesh_world = start_mesh(sz, dev, args.seed, rehearsal)
 
+    mesh_train = {}  # the mesh's training step, held to the one-device step later
+
     def collect_mesh():
         nonlocal run
         mesh = finish_mesh(mesh_world, run, sz, dev, clock, kind, smi)
+        mesh_train.update(mesh.pop("train"))
         detail["corpora"]["small-topic/mesh4"] = mesh
         for rank, counts in mesh["launches"].items():
             routes[f"small-topic/mesh4 rank {rank}"] = counts
@@ -1650,11 +1669,20 @@ def main(argv=None) -> int:
     detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
         sz, dev, args.seed, clock, kind, smi, rehearsal)
     pipelines = serve_pipelines(handoff, sz, dev, clock, kind, smi)
-    del handoff
     detail["corpora"]["small-topic/source/pipelines"] = pipelines
     for row in numbers:
         if row["name"] in pipelines["launches"]:
             row["launches_pipelines"] = pipelines["launches"][row["name"]]
+    # the trainers, on the minilm run's corpus (the source layout keeps the
+    # corpus order)
+    contents, make_queries = handoff["searcher"].indexer.contents, handoff["make_queries"]
+    del handoff
+    training = serve_training(contents, make_queries, mesh_train, sz, dev, args.seed,
+                              clock, kind, smi, rehearsal)
+    del contents, mesh_train
+    detail["training"] = training
+    for row in numbers:
+        row["launches_training"] = training["launches"][row["name"]]
 
     if rehearsal:
         # plain versions on the host: no device numbers to report
@@ -2418,7 +2446,8 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
     through the exact collective program, ``DenseIndex.search``,
     ``BM25.search`` and the sharded IVF at full probe on the first batch's
     queries, then ``Indexer.save`` and ``Indexer.load`` onto the mesh and
-    the first batch from the loaded index."""
+    the first batch from the loaded index. Last, the "train mesh" step
+    (``mesh_train_step``) on a data 2 x model 2 mesh of the same ranks."""
     import hashlib
 
     from hybridsearch_tpu_torch.config import EngineConfig
@@ -2435,6 +2464,8 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
     out = {"rank": rank}
     t0 = time.perf_counter()
     docs, make_queries = make_corpus(sz, "small-topic", job["seed"])
+    # the first batch of the "train contrastive" phase (the parent's)
+    train_pairs = train_texts(docs, "contrastive", 1, job["train_B"], job["seed"])[0]
     cfg = EngineConfig()
     cfg.index.layout, cfg.index.ann, cfg.index.dim = "clustered", "ivf", sz["dim"]
     db = os.path.join(job["dir"], f"store_{rank}.db")
@@ -2531,6 +2562,8 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
     ls = Searcher(indexer=loaded, use_query_memory=False, config=loaded.config)
     out["loaded_equal"] = _bare_rows(ls.search_batch(batches[0], top_k=TOP_K,
                                                      log=False)) == results[0]
+    del ls, loaded, searcher, idx
+    out["train"] = dict(mesh_train_step(dev, job, train_pairs, rank), rank=rank)
     return out
 
 
@@ -2585,8 +2618,10 @@ def start_mesh(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple
 
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     os.makedirs(MESH_DIR)
+    B, L = TRAIN_SHAPES["cpu" if rehearsal else "card"]["contrastive"]
     job = {"sz": sz, "seed": seed, "device": dev.type, "rehearsal": rehearsal,
-           "dir": os.path.abspath(MESH_DIR)}
+           "dir": os.path.abspath(MESH_DIR), "train_B": B, "train_L": L,
+           "train_ckpt": None if rehearsal else MINILM_CKPT}
     return (start(mesh_rank, MESH_RANKS, args=(job,), device=dev.type,
                   threads=REHEARSAL_THREADS if rehearsal else 2,
                   workdir=os.path.join(MESH_DIR, "world"), timeout_s=420),
@@ -2729,7 +2764,8 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
             "save_s": {o["rank"]: o["save_s"] for o in outs},
             "load_s": {o["rank"]: o["load_s"] for o in outs},
             "saved_bytes": saved_bytes, "spans": spans, "collectives_ms": coll,
-            "repeat_equal": True, "loaded_equal": True}
+            "repeat_equal": True, "loaded_equal": True,
+            "train": {"ranks": [o["train"] for o in outs]}}
 
 
 def start_nccl_batch(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple:
@@ -4025,6 +4061,373 @@ def serve_pipelines(handoff: dict, sz: dict, dev: torch.device, clock: Clock,
                                                    label, where)
     stats["launches"] = launches
     clock.phase(label, f"launches {json.dumps(launches)} {where}")
+    return stats
+
+
+# -- the trainers (training/) on the trunks the minilm run serves --------------------
+
+TRAIN_DIR = "chiprun_out/train"  # the train state and encoder checkpoint; removed at the end
+# (pairs a batch, sequence length) of each trainer: the card's, the rehearsal's
+TRAIN_SHAPES = {"card": {"contrastive": (96, 48), "cross": (64, 128)},
+                "cpu": {"contrastive": (8, 16), "cross": (8, 32)}}
+TRAIN_STEPS = {"card": 20, "cpu": 2}  # timed steps after the warm-up step
+TRAIN_QUERIES = 256  # queries encoded through the saved and loaded encoder
+# The first step's loss and gradients against the same step elsewhere (the
+# port on the card's CPU; the data 2 x model 2 mesh): bf16 sums in other
+# orders, as tests/test_torch_training.py bounds them against JAX: the loss
+# within TRAIN_LOSS_TOL of it, each gradient tensor's relative Frobenius
+# error (against the larger of its norm and TRAIN_GRAD_FLOOR of the whole
+# gradient's) within TRAIN_GRAD_TOL
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_GRAD_FLOOR = 5e-3, 0.15, 1e-2
+TRAIN_MESH = (2, 2)  # (data, model) of the mesh step on the four ranks
+TOPIC_WORD = re.compile(r"\bt(\d+)x\d+\b")  # a small-topic doc's topic words
+
+
+def train_texts(docs, trainer: str, n_batches: int, B: int, seed: int) -> list:
+    """``n_batches`` batches of (query, doc) text pairs from the small-topic
+    corpus: each doc's topic read from its topic words (t<T>x<j>), each
+    query 2-4 distinct words of a topic plus one background word. A
+    contrastive batch pairs every doc with a query of its topic; a cross
+    batch alternates a relevant pair (label 1) and one whose query is of
+    another topic (label 0). Returns [(queries, docs, labels)]."""
+    tv = CORPORA["small-topic"][3]
+    rng = np.random.default_rng(seed + 17)
+    n_topics = max(int(m) for m in TOPIC_WORD.findall(" ".join(docs[:4096]))) + 1
+
+    def query(t):
+        m = int(rng.integers(2, 5))
+        js = rng.choice(tv, size=m, replace=False)
+        return " ".join([f"t{t}x{j}" for j in js] + [f"w{int(rng.integers(0, 1000))}"])
+
+    out = []
+    for _ in range(n_batches):
+        picks = rng.choice(len(docs), size=B, replace=False)
+        qs, ds, labels = [], [], []
+        for r, i in enumerate(picks.tolist()):
+            topic = int(TOPIC_WORD.search(docs[i]).group(1))
+            relevant = trainer == "contrastive" or r % 2 == 0
+            if not relevant:
+                topic = (topic + 1 + int(rng.integers(0, n_topics - 1))) % n_topics
+            qs.append(query(topic))
+            ds.append(docs[i])
+            labels.append(1.0 if relevant else 0.0)
+        out.append((qs, ds, labels))
+    return out
+
+
+def _padded(arrs, L: int, pad_id: int):
+    ids = np.full((len(arrs[0]), L), pad_id, np.int32)
+    ids[:, :arrs[0].shape[1]] = arrs[0][:, :L]
+    rest = []
+    for a in arrs[1:]:
+        b = np.zeros((len(a), L), np.int32)
+        b[:, :a.shape[1]] = a[:, :L]
+        rest.append(b)
+    return (ids, *rest)
+
+
+def train_batch(tokenizer, trainer: str, texts, L: int) -> tuple:
+    """The trainer's numpy batch of one ``train_texts`` entry, every array
+    padded to L: (q_ids, q_mask, d_ids, d_mask) or (ids, mask, types,
+    labels)."""
+    qs, ds, labels = texts
+    pad = tokenizer.vocab.pad_id
+    if trainer == "contrastive":
+        q_ids, q_mask = _padded(tokenizer.batch_encode(qs, L), L, pad)
+        d_ids, d_mask = _padded(tokenizer.batch_encode(ds, L), L, pad)
+        return q_ids, q_mask, d_ids, d_mask
+    ids, types, mask = _padded(tokenizer.batch_encode_pairs(list(zip(qs, ds)), L), L, pad)
+    return ids, mask, types, np.asarray(labels, np.float32)
+
+
+def train_start(ckpt: str):
+    """(cfg, flat params, tokenizer) of a native checkpoint."""
+    from hybridsearch_tpu_torch.models.minilm import load_trained_checkpoint
+    from hybridsearch_tpu_torch.models.tokenizer import BertTokenizer
+
+    flat, cfg = load_trained_checkpoint(ckpt)
+    vocab = os.path.join(ckpt, "vocab.txt")
+    return cfg, flat, BertTokenizer(vocab_path=vocab if os.path.exists(vocab) else None,
+                                    vocab_size=cfg.vocab_size)
+
+
+def make_trainer(trainer: str, cfg, flat, device=None, mesh=None):
+    """A trainer of the port from a checkpoint's params."""
+    from hybridsearch_tpu_torch.convert import bert_state
+    from hybridsearch_tpu_torch.training import ContrastiveTrainer, CrossEncoderTrainer
+
+    cls = ContrastiveTrainer if trainer == "contrastive" else CrossEncoderTrainer
+    tr = cls(cfg=cfg, mesh=mesh, device=device)
+    tr.params = bert_state(flat)
+    return tr
+
+
+def _host_grads(tr) -> dict:
+    return {n: g.float().cpu().numpy() for n, g in tr.grads().items()}
+
+
+def grad_errors(got: dict, want: dict) -> dict:
+    """Each gradient tensor's relative Frobenius error against ``want``, the
+    denominator at least TRAIN_GRAD_FLOOR of the whole gradient's norm."""
+    total = np.sqrt(sum(float(np.sum(w.astype(np.float64) ** 2)) for w in want.values()))
+    return {n: float(np.linalg.norm(got[n].astype(np.float64) - w)
+                     / max(np.linalg.norm(w.astype(np.float64)), TRAIN_GRAD_FLOOR * total))
+            for n, w in want.items()}
+
+
+def _same_step(label: str, loss, grads, want_loss, want_grads) -> dict:
+    """Fail unless a first step's loss and gradients agree with another
+    run of it within the training bounds; returns the errors."""
+    errs = grad_errors(grads, want_grads)
+    worst = max(errs, key=errs.get)
+    loss_err = abs(loss - want_loss) / max(abs(want_loss), 1e-12)
+    if not (np.isfinite(loss) and loss_err <= TRAIN_LOSS_TOL
+            and errs[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"{label}: loss {loss} against {want_loss} (relative "
+                             f"{loss_err:.3g}), worst gradient {worst} {errs[worst]:.3g}")
+    return {"loss_rel_err": loss_err, "worst_grad": worst, "worst_grad_err": errs[worst]}
+
+
+def mesh_train_step(mesh_dev: torch.device, job: dict, texts, rank: int) -> dict:
+    """The "train mesh" step on one rank: a ContrastiveTrainer over a data 2
+    x model 2 mesh of the four ranks, from the bi-encoder checkpoint, on the
+    contrastive phase's first batch, its loss and gradients computed twice
+    (the first a warm-up of the process's first backward pass); the loss
+    and the gathered gradients (rank 0's), the second's collectives' spans
+    and wall time."""
+    from hybridsearch_tpu_torch.parallel.mesh import build_mesh
+    from hybridsearch_tpu_torch.utils.tracing import GLOBAL_TIMER
+
+    mesh = build_mesh(*TRAIN_MESH, device=mesh_dev)
+    ckpt = job["train_ckpt"] or tiny_checkpoints(
+        os.path.join(job["dir"], f"train_ckpt_{rank}"), job["sz"]["dim"])[0]
+    cfg, flat, tok = train_start(ckpt)
+    L = job["train_L"]
+    batch = train_batch(tok, "contrastive", texts, L)
+    tr = make_trainer("contrastive", cfg, flat, mesh=mesh)
+    t = time.perf_counter()
+    tr.loss_and_grads(batch)
+    sync(mesh_dev)
+    warm_ms = (time.perf_counter() - t) * 1e3
+    GLOBAL_TIMER._samples.clear()
+    GLOBAL_TIMER._counts.clear()
+    sync(mesh_dev)
+    t = time.perf_counter()
+    loss = float(tr.loss_and_grads(batch))
+    sync(mesh_dev)
+    step_ms = (time.perf_counter() - t) * 1e3
+    spans = {n: row for n, row in GLOBAL_TIMER.stats().items() if n in MESH_SPANS}
+    grads = _host_grads(tr)  # collective: every rank gathers
+    return {"loss": loss, "grads": grads if rank == 0 else None, "spans": spans,
+            "step_ms": step_ms, "warm_ms": warm_ms,
+            "coords": (mesh.data_index, mesh.model_index),
+            "texts": texts if rank == 0 else None,
+            "local_query_weight": tuple(tr.model.bert.layer_0.attention.query.weight.shape)}
+
+
+def _train_readings(trainer: str, cfg, B: int, L: int, ms: float) -> dict:
+    """Tokens a second and model FLOP/s of one step: 3 x ``trunk_flops``
+    (forward and backward) for each tower the step runs."""
+    from hybridsearch_tpu_torch.models.bert import trunk_flops
+
+    towers = 2 if trainer == "contrastive" else 1
+    flops = 3 * towers * trunk_flops(cfg, B * L, L)
+    return {"tokens_per_s": towers * B * L / (ms / 1e3), "flops": flops,
+            "tflop_per_s": flops / ms / 1e9,
+            "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOP_PER_S}
+
+
+def train_phase(trainer: str, ckpt: str, docs, sz_key: str, dev: torch.device,
+                seed: int, clock: Clock, where: str) -> tuple:
+    """"train contrastive" / "train cross": the trainer from the checkpoint's
+    params; the first step's loss and gradients against the port on the
+    CPU (same params and batch); then that step's update (the warm-up) and
+    the timed steps, every loss finite; on the card one more step under
+    the profiler. Returns (stats, the trainer, cfg,
+    tokenizer, first batch's gradients on the card)."""
+    B, L = TRAIN_SHAPES[sz_key][trainer]
+    steps = TRAIN_STEPS[sz_key]
+    cfg, flat, tok = train_start(ckpt)
+    texts = train_texts(docs, trainer, steps + 2, B, seed)
+    batches = [train_batch(tok, trainer, t, L) for t in texts]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = make_trainer(trainer, cfg, flat, device=dev)
+    loss = float(tr.loss_and_grads(batches[0]))
+    grads = _host_grads(tr)
+    t = time.perf_counter()
+    cpu = make_trainer(trainer, cfg, flat, device="cpu")
+    cpu_loss = float(cpu.loss_and_grads(batches[0]))
+    vs_cpu = _same_step(f"train {trainer}: the card against the CPU", loss, grads,
+                        cpu_loss, _host_grads(cpu))
+    cpu_s = time.perf_counter() - t
+    del cpu
+    tr.optimizer.step()
+    losses, step_ms = [loss], []
+    for b in batches[1:steps + 1]:
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            losses.append(tr.train_step(b))  # float(): waits for the step
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        else:
+            t = time.perf_counter()
+            losses.append(tr.train_step(b))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+    if not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"train {trainer}: a loss is not finite: {losses}")
+    ms = float(np.mean(step_ms))
+    stats = {"checkpoint": ckpt, "B": B, "L": L, "steps": steps, "losses": losses,
+             "step_ms": step_ms, "ms": ms, "cpu_loss": cpu_loss, "vs_cpu": vs_cpu,
+             "cpu_check_s": cpu_s, **_train_readings(trainer, cfg, B, L, ms)}
+    if dev.type == "cuda":
+        stats["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+        # one more step (on the last timed batch) under the profiler
+        stats["profile"] = profile_call(lambda: tr.train_step(batches[steps]))
+        clock.phase("profile", f"train {trainer}: one step: {stats['profile']}")
+    clock.phase(f"train {trainer}", (
+        f"{ckpt} ({cfg.num_layers} layers, hidden {cfg.hidden_dim}), batches of {B} "
+        f"pairs at seq {L}: the first step's loss {loss:.6f} against {cpu_loss:.6f} on "
+        f"the CPU (relative {vs_cpu['loss_rel_err']:.3g}), worst gradient "
+        f"{vs_cpu['worst_grad']} {vs_cpu['worst_grad_err']:.3g} (bounds "
+        f"{TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL}; CPU check {cpu_s:.1f} s); {steps} timed "
+        f"steps after the warm-up, every loss finite ({losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}): {ms:.3f} ms a step, {stats['tokens_per_s']:.0f} tokens/s, "
+        f"{stats['tflop_per_s']:.2f} TFLOP/s ({100 * stats['bf16_peak_share']:.2f}% of "
+        f"{BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); peak "
+        f"{stats.get('peak_bytes', 'not measured')} bytes {where}"))
+    return stats, tr, cfg, tok, (loss, grads), texts[steps + 1]
+
+
+def train_checkpoint(tr, cfg, tok, ckpt: str, next_texts, L: int, make_queries,
+                     dev: torch.device, clock: Clock, where: str) -> dict:
+    """"train checkpoint": the contrastive trainer's state through
+    ``save_train_state`` and ``restore_train_state`` into a fresh trainer
+    (another seed): its next step must equal the uninterrupted trainer's bit
+    for bit (loss, every parameter, both moments); then
+    ``save_encoder_params`` and ``load_encoder``: TRAIN_QUERIES queries
+    encoded by the loaded encoder must equal the trainer's model in eval
+    mode (served through the same MiniLMEncoder batching) bit for bit."""
+    import shutil
+
+    from hybridsearch_tpu_torch.models.minilm import MiniLMEncoder
+    from hybridsearch_tpu_torch.training import ContrastiveTrainer
+    from hybridsearch_tpu_torch.training.checkpoint import (
+        load_encoder,
+        restore_train_state,
+        save_encoder_params,
+        save_train_state,
+    )
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        t = time.perf_counter()
+        save_train_state(TRAIN_DIR, tr.params, tr.opt_state, step=tr.opt_state["count"])
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        params, opt_state, step = restore_train_state(TRAIN_DIR)
+        fresh = ContrastiveTrainer(cfg=cfg, seed=1, device=dev)
+        fresh.params, fresh.opt_state = params, opt_state
+        restore_s = time.perf_counter() - t
+        batch = train_batch(tok, "contrastive", next_texts, L)
+        want, got = tr.train_step(batch), fresh.train_step(batch)
+        same = want == got and all(torch.equal(a, b) for a, b in zip(
+            tr.params.values(), fresh.params.values()))
+        for key in ("mu", "nu"):
+            a, b = tr.opt_state[key], fresh.opt_state[key]
+            same = same and all(torch.equal(a[n], b[n]) for n in a)
+        if not same:
+            raise AssertionError("train checkpoint: the restored trainer's next step "
+                                 f"differs (loss {got} against {want})")
+        save_encoder_params(TRAIN_DIR, tr.params, cfg)
+        enc = load_encoder(TRAIN_DIR, cfg=cfg, device=dev)
+        ref = MiniLMEncoder(checkpoint=ckpt, device=dev)
+        ref.model = tr.model.eval()
+        queries = make_queries(TRAIN_QUERIES)
+        encode_equal = torch.equal(enc.encode(queries), ref.encode(queries))
+        if not encode_equal:
+            raise AssertionError("train checkpoint: the loaded encoder's embeddings "
+                                 "differ from the trainer's model")
+        nbytes = sum(os.path.getsize(os.path.join(r, f))
+                     for r, _d, fs in os.walk(TRAIN_DIR) for f in fs)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    clock.phase("train checkpoint", (
+        f"save_train_state ({save_s:.2f} s) -> restore_train_state into a fresh "
+        f"trainer ({restore_s:.2f} s): step {step + 1} equals the uninterrupted step "
+        f"bit for bit (loss {got:.6f}, every parameter and moment); "
+        f"save_encoder_params -> load_encoder: {len(queries)} queries encoded equal "
+        f"the trainer's model in eval mode bit for bit; {nbytes} bytes written, "
+        f"removed {where}"))
+    return {"save_s": save_s, "restore_s": restore_s, "next_step_equal": True,
+            "encode_equal": True, "queries": len(queries), "bytes": nbytes}
+
+
+def check_train_mesh(mesh_train: dict, first: tuple, clock: Clock, where: str) -> dict:
+    """"train mesh": the four ranks' contrastive step on a data 2 x model 2
+    mesh (``mesh_rank``) against the one-device card step on the same batch
+    and params: every rank's loss equal, the loss and gathered gradients
+    within the training bounds; the collectives' spans."""
+    outs = mesh_train["ranks"]
+    losses = [o["loss"] for o in outs]
+    if len(set(losses)) != 1:
+        raise AssertionError(f"train mesh: the ranks' losses differ: {losses}")
+    if [o["coords"] for o in outs] != [(r // TRAIN_MESH[1], r % TRAIN_MESH[1])
+                                      for r in range(len(outs))]:
+        raise AssertionError("train mesh: the ranks are not laid out on the grid")
+    loss, grads = first
+    errs = _same_step("train mesh: the mesh against the one-device step",
+                      losses[0], outs[0]["grads"], loss, grads)
+    spans = {o["rank"]: {n: {"count": sp["count"], "mean_ms": sp["mean_ms"]}
+                         for n, sp in o["spans"].items()} for o in outs}
+    coll = {r: round(sum(sp["count"] * sp["mean_ms"] for sp in s.values()), 3)
+            for r, s in spans.items()}
+    clock.phase("train mesh", (
+        f"{len(outs)} gloo ranks sharing the card as data {TRAIN_MESH[0]} x model "
+        f"{TRAIN_MESH[1]} (layer 0's query weight {outs[0]['local_query_weight']} a "
+        f"rank): every rank's loss {losses[0]:.6f}, against {loss:.6f} on one device "
+        f"(relative {errs['loss_rel_err']:.3g}), worst gathered gradient "
+        f"{errs['worst_grad']} {errs['worst_grad_err']:.3g}; the step (after a "
+        f"warm-up of {[round(o['warm_ms'], 1) for o in outs]} ms) "
+        f"{[round(o['step_ms'], 1) for o in outs]} ms by rank, of which collectives "
+        f"{coll} ms ({json.dumps(spans[0])} on rank 0) {where}"))
+    return {"losses": losses, "vs_one_device": errs, "spans": spans,
+            "collectives_ms": coll, "step_ms": [o["step_ms"] for o in outs],
+            "warm_ms": [o["warm_ms"] for o in outs]}
+
+
+def serve_training(docs, make_queries, mesh_train: dict, sz: dict, dev: torch.device,
+                   seed: int, clock: Clock, kind: str, smi: str, rehearsal: bool) -> dict:
+    """The four training phases: "train contrastive" (hst-bi-v3),
+    "train cross" (the cross-encoder checkpoint), "train checkpoint", and
+    the gate of "train mesh" (the step ran on the mesh's ranks). No kernel
+    of K1-K7 may launch."""
+    import tempfile
+
+    where = f"({kind}; {smi})"
+    sz_key = "cpu" if rehearsal else "card"
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp, counting({}) as launches:
+        bi_ckpt, ce_ckpt = (tiny_checkpoints(tmp, sz["dim"]) if rehearsal
+                            else (MINILM_CKPT, CROSS_CKPT))
+        stats["contrastive"], tr, cfg, tok, first, next_texts = train_phase(
+            "contrastive", bi_ckpt, docs, sz_key, dev, seed, clock, where)
+        if mesh_train["ranks"][0]["texts"] != train_texts(
+                docs, "contrastive", 1, TRAIN_SHAPES[sz_key]["contrastive"][0], seed)[0]:
+            raise AssertionError("train mesh: the ranks trained on another batch")
+        stats["mesh"] = check_train_mesh(mesh_train, first, clock, where)
+        stats["checkpoint"] = train_checkpoint(
+            tr, cfg, tok, bi_ckpt, next_texts, TRAIN_SHAPES[sz_key]["contrastive"][1],
+            make_queries, dev, clock, where)
+        del tr
+        stats["cross"] = train_phase("cross", ce_ckpt, docs, sz_key, dev, seed + 1,
+                                     clock, where)[0]
+    if any(launches.values()):
+        raise AssertionError(f"training launched a kernel of K1-K7: {launches}")
+    stats["launches"] = launches
     return stats
 
 

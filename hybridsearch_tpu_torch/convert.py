@@ -316,3 +316,14 @@ def bert_flat(module: nn.Module) -> Dict[str, np.ndarray]:
             out[base + "/scale"] = sub.weight.detach().float().cpu().numpy()
             out[base + "/bias"] = sub.bias.detach().float().cpu().numpy()
     return out
+
+
+def adamw_state(count, mu: Mapping[str, np.ndarray],
+                nu: Mapping[str, np.ndarray]) -> dict:
+    """An ``optax.adamw`` state (its ``ScaleByAdamState``: ``count``, and
+    the moments ``mu`` and ``nu`` as flat Flax arrays keyed like
+    ``bert_state``'s input) as a trainer's ``opt_state``: the moments by
+    state-dict name, kernels transposed as their parameters are. Assigned
+    with the carried parameters, a JAX train state takes its next step in
+    the port."""
+    return {"count": int(np.asarray(count)), "mu": bert_state(mu), "nu": bert_state(nu)}

@@ -216,12 +216,18 @@ class DenseIndex:
 
     def delete(self, row_ids) -> None:
         """Tombstone rows (score bias -> -inf). A row named twice, or already
-        tombstoned, is counted once. On a mesh every rank is given the same
-        ids, tombstones the rows it owns, and the count is summed over the
-        shards."""
+        tombstoned, is counted once. An id outside ``[0, capacity)`` raises
+        ``IndexError`` before any row changes (a negative id too: it names no
+        row). On a mesh every rank is given the same ids, so every rank
+        raises alike; each tombstones the rows it owns, and the count is
+        summed over the shards."""
         ids = np.unique(np.asarray(row_ids, dtype=np.int64))
         with self._lock:
             snap = self._snap
+            if ids.size and (ids[0] < 0 or ids[-1] >= snap.capacity):
+                bad = ids[0] if ids[0] < 0 else ids[-1]
+                raise IndexError(f"row {bad} is out of range for a dense index "
+                                 f"of capacity {snap.capacity}")
             lo, rows = self._rows(snap.capacity)
             ids = ids[(ids >= lo) & (ids < lo + rows)] - lo
             ids = torch.as_tensor(ids, device=self.device)

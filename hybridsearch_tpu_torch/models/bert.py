@@ -27,6 +27,19 @@ by default) along the JAX trunk's flow:
 The products are plain ``torch.matmul`` calls (no global precision flag is
 touched: the port pins full float32 matmuls at import, and the trunk leaves
 that alone).
+
+Tensor parallelism follows the Flax annotations: ``query``, ``key``,
+``value`` and ``mlp_in`` (``shard_out``) are column-parallel, ``out`` and
+``mlp_out`` (``shard_in``) row-parallel; embeddings, LayerNorms, the
+pooler and the classifier stay replicated. ``shard_model`` cuts each
+annotated weight to this rank's slice over the mesh's model axis (the heads
+split with the columns). A column-parallel layer adds its slice of the
+(replicated) bias; its input passes ``copy_to_model`` (identity forward,
+input gradient all-reduced backward). A row-parallel layer's partial
+products are all-reduced (``reduce_from_model``: the sum forward, identity
+backward) before the bias is added once. The all-reduces sum in float32
+and round back to the activation dtype. A module ``shard_model`` never
+touched computes exactly what it did before.
 """
 
 from __future__ import annotations
@@ -36,7 +49,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from hybridsearch_tpu_torch.utils.tracing import trace_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,20 +100,101 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
 _TRUNC_STD = 0.87962566103423978
 
 
+def _model_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the model axis, in float32, rounded back to its
+    dtype."""
+    y = t.to(torch.float32, copy=True).contiguous()
+    with trace_span("mesh_all_reduce"):
+        dist.all_reduce(y, group=group)
+    return y.to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    """In front of a column-parallel layer: identity forward, the input
+    gradient all-reduced over the model axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _model_all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """After a row-parallel layer: the partial products all-reduced over
+    the model axis forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _model_all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
 class Dense(nn.Linear):
     """``nn.Dense(dtype=...)``: input, kernel and bias cast to ``dtype``,
     the product rounded to it, then the bias added in it. ``lecun`` marks
-    a layer Flax initialises with its default ``lecun_normal``."""
+    a layer Flax initialises with its default ``lecun_normal``; ``shard``
+    is its model-axis annotation (``"out"``: column-parallel, Flax's
+    ``shard_out``; ``"in"``: row-parallel, ``shard_in``), acted on once
+    ``shard_model`` has cut the weight (``model_axis`` = (group, this
+    rank's index on it))."""
 
     def __init__(self, in_features: int, out_features: int, dtype: torch.dtype,
-                 lecun: bool = False) -> None:
+                 lecun: bool = False, shard: Optional[str] = None) -> None:
         super().__init__(in_features, out_features)
         self.act_dtype = dtype
         self.lecun = lecun
+        self.shard = shard
+        self.model_axis = None
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as a column-parallel layer's input (``copy_to_model`` once
+        cut), for this layer and any that share its input."""
+        if self.model_axis is None or self.shard != "out":
+            return x
+        return _CopyToModel.apply(x, self.model_axis[0])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.act_dtype
-        return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+        y = torch.matmul(x.to(dt), self.weight.to(dt).t())
+        if self.model_axis is None:
+            return y + self.bias.to(dt)
+        group, index = self.model_axis
+        if self.shard == "out":
+            n = self.weight.shape[0]
+            return y + self.bias[index * n:(index + 1) * n].to(dt)
+        return _ReduceFromModel.apply(y, group) + self.bias.to(dt)
+
+
+def shard_model(module: nn.Module, group, size: int, index: int) -> nn.Module:
+    """Cut every annotated ``Dense`` of ``module`` to rank ``index``'s
+    slice of ``size`` over the model axis ``group``: a column-parallel
+    weight keeps rows (outputs, and so heads), a row-parallel one columns
+    (inputs); biases stay whole. Raises when a width or the head count does
+    not split evenly. Call it before an optimizer takes the parameters."""
+    for sub in module.modules():
+        if isinstance(sub, SelfAttention) and sub.cfg.num_heads % size:
+            raise ValueError(f"{sub.cfg.num_heads} heads do not split into {size} "
+                             "model shards")
+    with torch.no_grad():
+        for sub in module.modules():
+            if not isinstance(sub, Dense) or sub.shard is None:
+                continue
+            dim = 0 if sub.shard == "out" else 1
+            n = sub.weight.shape[dim]
+            if n % size:
+                raise ValueError(f"a width of {n} does not split into {size} model shards")
+            per = n // size
+            part = sub.weight.narrow(dim, index * per, per).clone()
+            sub.weight = nn.Parameter(part, requires_grad=sub.weight.requires_grad)
+            sub.model_axis = (group, index)
+    return module
 
 
 def _layer_norm(cfg: BertConfig, dim: int) -> nn.LayerNorm:
@@ -114,18 +211,21 @@ class SelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         H = cfg.hidden_dim
-        self.query = Dense(H, H, cfg.dtype)
-        self.key = Dense(H, H, cfg.dtype)
-        self.value = Dense(H, H, cfg.dtype)
-        self.out = Dense(H, H, cfg.dtype)
+        self.query = Dense(H, H, cfg.dtype, shard="out")
+        self.key = Dense(H, H, cfg.dtype, shard="out")
+        self.value = Dense(H, H, cfg.dtype, shard="out")
+        self.out = Dense(H, H, cfg.dtype, shard="in")
 
     def heads(self, x: torch.Tensor):
-        """(q, k, v), each [B, heads, L, head_dim] in the activation dtype."""
+        """(q, k, v), each [B, heads, L, head_dim] in the activation dtype
+        (this rank's heads once the model axis is cut)."""
         cfg = self.cfg
         B, L, _H = x.shape
+        n_heads = self.query.weight.shape[0] // cfg.head_dim
+        x = self.query.enter(x)
 
         def split(t):
-            return t.reshape(B, L, cfg.num_heads, cfg.head_dim).transpose(1, 2)
+            return t.reshape(B, L, n_heads, cfg.head_dim).transpose(1, 2)
 
         return split(self.query(x)), split(self.key(x)), split(self.value(x))
 
@@ -141,9 +241,9 @@ class SelfAttention(nn.Module):
         return torch.matmul(probs, v)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        B, L, H = x.shape
+        B, L, _H = x.shape
         ctx = self.context(*self.heads(x), mask)
-        return self.out(ctx.transpose(1, 2).reshape(B, L, H))
+        return self.out(ctx.transpose(1, 2).reshape(B, L, -1))
 
 
 class TransformerLayer(nn.Module):
@@ -151,13 +251,13 @@ class TransformerLayer(nn.Module):
         super().__init__()
         self.attention = SelfAttention(cfg)
         self.attn_ln = _layer_norm(cfg, cfg.hidden_dim)
-        self.mlp_in = Dense(cfg.hidden_dim, cfg.mlp_dim, cfg.dtype)
-        self.mlp_out = Dense(cfg.mlp_dim, cfg.hidden_dim, cfg.dtype)
+        self.mlp_in = Dense(cfg.hidden_dim, cfg.mlp_dim, cfg.dtype, shard="out")
+        self.mlp_out = Dense(cfg.mlp_dim, cfg.hidden_dim, cfg.dtype, shard="in")
         self.mlp_ln = _layer_norm(cfg, cfg.hidden_dim)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         x = _ln32(self.attn_ln, x + self.attention(x, mask))
-        h = nn.functional.gelu(self.mlp_in(x), approximate="none")
+        h = nn.functional.gelu(self.mlp_in(self.mlp_in.enter(x)), approximate="none")
         return _ln32(self.mlp_ln, x + self.mlp_out(h))
 
 

@@ -38,7 +38,7 @@ class Encoder(Protocol):
     dim: int
     name: str
 
-    def encode(self, texts: Sequence[str]) -> torch.Tensor:
+    def encode(self, texts: Sequence[str], batch_size: int = 64) -> torch.Tensor:
         """[len(texts), dim] float32 embeddings on the encoder's device."""
         ...
 
@@ -110,9 +110,11 @@ class HashingEncoder:
         out_w[doc_of[a][keep], col[keep]] = self.bigram_weight
         return out_ids, out_w
 
-    def encode(self, texts: Sequence[str]) -> torch.Tensor:
+    def encode(self, texts: Sequence[str], batch_size: int = 64) -> torch.Tensor:
         """[len(texts), dim] float32 embeddings on the encoder's device (not
-        normalized): one gather-mean over the whole call."""
+        normalized): one gather-mean over the whole call, whatever
+        ``batch_size`` (taken, as the JAX encoder takes it, for the callers
+        of the Encoder protocol)."""
         if not len(texts):
             return torch.zeros((0, self.dim), dtype=torch.float32, device=self.device)
         ids, w = self.features(texts)

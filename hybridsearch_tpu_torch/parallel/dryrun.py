@@ -12,12 +12,14 @@ cards (gloo only: NCCL refuses two ranks on one device). ``start``
 returns at once, so the caller can work while the world runs, and
 ``World.join`` collects it.
 
-``dryrun_multichip`` is the retrieval half of the JAX package's
-``__graft_entry__.dryrun_multichip``: on an n-rank mesh, the hybrid, BM25,
-IVF and supertile programs are held to their single-device results
-(``_dryrun_retrieval``), then a sharded dense top-k over 1M docs is timed
-(``_dryrun_sharded_throughput``). Its training half (the contrastive step
-over a (data, model) mesh) waits for the port's trainer.
+``dryrun_multichip`` is the JAX package's
+``__graft_entry__.dryrun_multichip``: first its training half
+(``_dryrun_training``: one ``ContrastiveTrainer`` step on a tiny trunk
+over a (data, model) mesh, the model axis 2 when the rank count is even,
+and a finite loss), then its retrieval half: on an n-rank mesh, the
+hybrid, BM25, IVF and supertile programs are held to their single-device
+results (``_dryrun_retrieval``), then a sharded dense top-k over 1M docs is
+timed (``_dryrun_sharded_throughput``).
 
     python -m hybridsearch_tpu_torch.parallel.dryrun --ranks 4
 """
@@ -256,20 +258,48 @@ def _dryrun_sharded_throughput(mesh, n_docs: int = 1_000_000, dim: int = 128,
             "qps": batch * iters / dt, "ms_per_step": dt / iters * 1e3}
 
 
+def _dryrun_training(world: int, device: str) -> dict:
+    """One contrastive step with data and tensor parallelism: a mesh with
+    the model axis 2 when ``world`` is even, the tiny trunk of the JAX dry
+    run (vocab 512, hidden 64, 2 layers, 4 heads, MLP 128), a batch of
+    ``max(8, 2 * n_data)`` rows rounded to the data axis, seq 16. Returns
+    the mesh's shape and the loss, which must be finite."""
+    from hybridsearch_tpu_torch.models.bert import BertConfig
+    from hybridsearch_tpu_torch.parallel.mesh import build_mesh
+    from hybridsearch_tpu_torch.training.contrastive import ContrastiveTrainer
+
+    n_model = 2 if world % 2 == 0 else 1
+    n_data = world // n_model
+    mesh = build_mesh(n_data=n_data, n_model=n_model, device=device)
+    cfg = BertConfig(vocab_size=512, hidden_dim=64, num_layers=2, num_heads=4,
+                     mlp_dim=128, max_position=64)
+    trainer = ContrastiveTrainer(cfg=cfg, mesh=mesh)
+    rng = np.random.default_rng(0)
+    B, L = max(8, n_data * 2), 16
+    B = -(-B // n_data) * n_data
+    batch = (rng.integers(0, 512, (B, L)).astype(np.int32), np.ones((B, L), np.int32),
+             rng.integers(0, 512, (B, L)).astype(np.int32), np.ones((B, L), np.int32))
+    loss = trainer.train_step(batch)
+    assert np.isfinite(loss), f"non-finite loss: {loss}"
+    return {"data": n_data, "model": n_model, "loss": loss}
+
+
 def _dryrun_rank(rank: int, world: int, n_docs: int, device: str) -> dict:
     from hybridsearch_tpu_torch.parallel.mesh import build_mesh
 
+    training = _dryrun_training(world, device)
     mesh = build_mesh(device=device)
     out = _dryrun_retrieval(mesh)
+    out["training"] = training
     out["throughput"] = _dryrun_sharded_throughput(mesh, n_docs=n_docs)
     return out
 
 
 def dryrun_multichip(n_ranks: int = 4, n_docs: int = 1_000_000,
                      device: str = "cpu") -> dict:
-    """The retrieval dry run on ``n_ranks`` gloo ranks (on the CPU, or
-    sharing the card with ``device="cuda"``); returns rank 0's report (every
-    rank asserted its checks)."""
+    """The dry run (training half, then retrieval half) on ``n_ranks`` gloo
+    ranks (on the CPU, or sharing the card with ``device="cuda"``); returns
+    rank 0's report (every rank asserted its checks)."""
     return launch(_dryrun_rank, n_ranks, args=(n_docs, device), device=device)[0]
 
 

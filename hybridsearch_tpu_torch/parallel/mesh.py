@@ -10,8 +10,11 @@ function reshapes its device list, and never picks a backend itself.
 
   data  — the document axis: each rank of a data row holds one shard of
           the rows of every index (``doc_sharding``);
-  model — tensor parallelism for encoder weights in training, which the
-          port does not run yet; serving uses the data axis.
+  model — tensor parallelism for encoder weights in training: the ranks
+          of a model row (``model_group``, the ranks that share a data
+          coordinate) each hold one slice of every sharded weight
+          (``model_bounds``; ``training/contrastive.py`` names the
+          sharded weights). Serving uses the data axis only.
 
 Collectives over the data axis (``parallel/collectives.py``) take CUDA
 tensors on both backends: gloo copies them through host memory inside the
@@ -35,14 +38,18 @@ MODEL_AXIS = "model"
 class Mesh:
     """This rank's view of the (data, model) grid: the axis sizes, its
     coordinates, the process group of its data row (the ranks that share
-    its model coordinate), and the device its shards live on."""
+    its model coordinate), that of its model row (the ranks that share its
+    data coordinate; None when the model axis has one rank), and the
+    device its shards live on."""
 
     def __init__(self, n_data: int, n_model: int, data_index: int,
-                 model_index: int, data_group, device: torch.device) -> None:
+                 model_index: int, data_group, device: torch.device,
+                 model_group=None) -> None:
         self.shape = {DATA_AXIS: n_data, MODEL_AXIS: n_model}
         self.data_index = data_index
         self.model_index = model_index
         self.data_group = data_group
+        self.model_group = model_group
         self.device = device
 
     @property
@@ -61,7 +68,7 @@ def build_mesh(n_data: int = -1, n_model: int = 1,
     ``n_data == -1`` takes every rank left (world // n_model). Rank r sits
     at (r // n_model, r % n_model). Raises when no group is initialized or
     the grid does not fit the world. Every rank must call it (the data-row
-    groups are created collectively)."""
+    and model-row groups are created collectively)."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "build_mesh needs an initialized torch.distributed default process "
@@ -75,20 +82,34 @@ def build_mesh(n_data: int = -1, n_model: int = 1,
     if n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} "
                          f"ranks, the world has {world}")
+    group = model_group = None
     if n_model == 1:
         group = dist.group.WORLD
     else:
-        group = None
         for m in range(n_model):  # every rank creates every row's group
             g = dist.new_group([d * n_model + m for d in range(n_data)])
             if m == rank % n_model:
                 group = g
+        for d in range(n_data):
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            if d == rank // n_model:
+                model_group = g
     return Mesh(n_data, n_model, rank // n_model, rank % n_model, group,
-                resolve_device(device))
+                resolve_device(device), model_group)
 
 
 def shard_count(mesh: Mesh) -> int:
     return mesh.shape[DATA_AXIS]
+
+
+def model_bounds(mesh: Mesh, n: int) -> Tuple[int, int]:
+    """(first, end) of this rank's slice of an axis of length ``n`` split
+    evenly over the model axis (a weight's sharded dimension)."""
+    m = mesh.shape[MODEL_AXIS]
+    if n % m:
+        raise ValueError(f"{n} does not split into {m} model shards")
+    per = n // m
+    return mesh.model_index * per, (mesh.model_index + 1) * per
 
 
 def pad_to_shards(n: int, n_shards: int, multiple: int = 8) -> int:

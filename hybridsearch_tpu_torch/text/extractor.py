@@ -5,12 +5,15 @@ removed; preprocessing collapses whitespace. Term identity for the bulk
 index path is the 64-bit FNV-1a hash of the token (``HashVocabulary``),
 hash-identical to the JAX package's native ``textops`` path; the port
 computes it in Python and numpy (``token_hashes_docs``), hashing each
-distinct token once. The file loaders of the JAX module are not part of
-this slice.
+distinct token once. The file loaders (``SUPPORTED_EXTENSIONS``,
+``extract_metadata``, ``load_file_content``, ``discover_documents``) are
+the JAX module's, for .txt/.md/.log/.csv/.json files.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import re
 from typing import Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -75,6 +78,74 @@ def preprocess_text(text: str) -> str:
     """Collapse whitespace and strip (reference extractor.py:34-52).
     ``str.split`` splits on exactly the characters ``\\s`` matches."""
     return " ".join(text.split())
+
+
+SUPPORTED_EXTENSIONS = (".txt", ".md", ".log", ".csv", ".json")
+
+
+def extract_metadata(path: str) -> Dict[str, object]:
+    """Basic file metadata (reference extractor.py:55-71)."""
+    st = os.stat(path)
+    return {
+        "path": os.path.abspath(path),
+        "filename": os.path.basename(path),
+        "extension": os.path.splitext(path)[1].lower(),
+        "size_bytes": st.st_size,
+        "modified_at": st.st_mtime,
+    }
+
+
+def load_file_content(path: str) -> Optional[str]:
+    """Text of a supported file, or None (an unsupported extension, an
+    unreadable file); a JSON file's string values, depth first, one a line
+    (its raw text when it does not parse)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext not in SUPPORTED_EXTENSIONS:
+        return None
+    try:
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            raw = f.read()
+    except OSError:
+        return None
+    if ext != ".json":
+        return raw
+    try:
+        data = json.loads(raw)
+    except json.JSONDecodeError:
+        return raw
+    parts: List[str] = []
+
+    def walk(v):
+        if isinstance(v, str):
+            parts.append(v)
+        elif isinstance(v, dict):
+            for vv in v.values():
+                walk(vv)
+        elif isinstance(v, list):
+            for vv in v:
+                walk(vv)
+
+    walk(data)
+    return "\n".join(parts)
+
+
+def discover_documents(
+    directory: str, extensions: Optional[Iterable[str]] = None
+) -> List[Tuple[str, str]]:
+    """Every supported file under ``directory`` (recursively; the files of
+    each directory by name) with non-empty content, as [(path,
+    preprocessed content)]."""
+    exts = tuple(extensions) if extensions else SUPPORTED_EXTENSIONS
+    out: List[Tuple[str, str]] = []
+    for root, _dirs, files in os.walk(directory):
+        for name in sorted(files):
+            if os.path.splitext(name)[1].lower() not in exts:
+                continue
+            path = os.path.join(root, name)
+            content = load_file_content(path)
+            if content:
+                out.append((path, preprocess_text(content)))
+    return out
 
 
 class Vocabulary:

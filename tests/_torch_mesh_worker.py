@@ -1,5 +1,5 @@
 """Rank code of the port's mesh tests (tests/test_torch_parallel.py,
-tests/test_torch_sharded_index.py): each test module starts one world of
+tests/test_torch_sharded_index.py, tests/test_torch_training_mesh.py): each test module starts one world of
 ranks (``hybridsearch_tpu_torch.parallel.dryrun.launch``) that runs every
 check of the module and returns, per check, each rank's result (or the
 error it raised). This module imports torch, numpy and the port only, so
@@ -422,6 +422,60 @@ def check_card_mesh(mesh, inp):
                 "\n".join(s.indexer.contents).encode()).hexdigest()}
 
 
+# -- the trainers on a (data 2, model 2) mesh (tests/test_torch_training_mesh.py) --
+
+def _trainer(inp, dtype, mesh):
+    from hybridsearch_tpu_torch import convert
+    from hybridsearch_tpu_torch.models.bert import BertConfig
+    from hybridsearch_tpu_torch.training import ContrastiveTrainer, CrossEncoderTrainer
+
+    cls = ContrastiveTrainer if inp["kind"] == "contrastive" else CrossEncoderTrainer
+    tr = cls(cfg=BertConfig(**inp["cfg"], dtype=getattr(torch, dtype)), mesh=mesh,
+             learning_rate=inp["lr"])
+    tr.params = convert.bert_state(inp["params"])
+    return tr
+
+
+def _np_state(state):
+    return {k: _np(v) for k, v in state.items()}
+
+
+def check_train(mesh, inp):
+    """On a data 2 x model 2 mesh, from the given init (flat Flax-layout
+    arrays): at each activation dtype the loss and the gathered gradients of
+    one batch, the parameters after the step; the AdamW step fed the JAX
+    gradients (each rank its slice) from the same init, when the inputs
+    hold them; the local shapes of two sharded weights."""
+    from hybridsearch_tpu_torch import convert
+    from hybridsearch_tpu_torch.parallel.mesh import build_mesh
+
+    m22 = build_mesh(n_data=2, n_model=2, device=mesh.device)
+    out = {"coords": (m22.data_index, m22.model_index)}
+    for dtype in ("bfloat16", "float32"):
+        tr = _trainer(inp, dtype, m22)
+        loss = tr.loss_and_grads(inp["batch"])
+        out[dtype] = {"loss": float(loss), "grads": _np_state(tr.grads())}
+        tr.optimizer.step()
+        out[dtype]["params"] = _np_state(tr.params)
+    out["local_shapes"] = {n: tuple(p.shape) for n, p in tr.model.named_parameters()
+                           if n.endswith(("layer_0.attention.query.weight",
+                                          "layer_0.mlp_out.weight"))}
+    if "jax_grads" in inp:
+        tr = _trainer(inp, "float32", m22)
+        jax_grads = convert.bert_state(inp["jax_grads"])
+        for n, p in tr.model.named_parameters():
+            p.grad = tr._local(n, jax_grads[n])
+        tr.optimizer.step()
+        out["update_rule"] = _np_state(tr.params)
+    return out
+
+
+def check_dryrun_training(mesh, inp):
+    from hybridsearch_tpu_torch.parallel.dryrun import _dryrun_training
+
+    return _dryrun_training(inp["world"], mesh.device.type)
+
+
 CHECKS = {
     "parallel": {
         "mesh": check_mesh,
@@ -444,4 +498,9 @@ CHECKS = {
         "searcher_world1": check_searcher,
     },
     "card": {"card_mesh": check_card_mesh},
+    "training": {
+        "contrastive": check_train,
+        "cross": check_train,
+        "dryrun": check_dryrun_training,
+    },
 }

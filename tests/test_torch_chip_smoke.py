@@ -128,6 +128,17 @@ def test_cpu_rehearsal_runs_every_phase():
     assert any("shard of " in ln and "tile_scores at " in ln for ln in lines)
     assert any("] mesh world 1: gloo: one batch" in ln
                and "rows match the plain exact fused reference" in ln for ln in lines)
+    # the trainers: both one-device trainers held to the port on the CPU,
+    # the train state and encoder round trips, the mesh step against the
+    # one-device step
+    for trainer in ("contrastive", "cross"):
+        assert any(f"] train {trainer}: " in ln and "the first step's loss" in ln
+                   and "every loss finite" in ln for ln in lines), trainer
+    assert any("] train checkpoint: " in ln and "equals the uninterrupted step bit for "
+               "bit" in ln and "equal the trainer's model in eval mode bit for bit" in ln
+               for ln in lines)
+    assert any("] train mesh: 4 gloo ranks" in ln and "data 2 x model 2" in ln
+               and "every rank's loss" in ln for ln in lines)
     assert lines[-1] == '{"ok": true, "rehearsal": "cpu"}'
     assert '"platform": "gpu"' not in out.stdout
 

@@ -282,3 +282,32 @@ def test_dense_delete_counts_each_row_once():
     assert (idx.deleted_count, len(idx)) == (3, 7)
     dead = torch.isinf(idx._snap.bias[:10]).nonzero().flatten().tolist()
     assert dead == [3, 5, 7]
+
+
+def test_dense_delete_rejects_out_of_range_ids():
+    """An id past the capacity raises IndexError before BM25, the store or
+    the dense tombstones change, as JAX ``Indexer.delete_documents`` does;
+    a negative id raises too, where the JAX package wraps it to the end of
+    the capacity (a reference fault the port does not copy)."""
+    rng = np.random.default_rng(5)
+    texts = _texts(rng, 20)
+    jenc = JEnc(dim=32)
+    jidx = jbuilder.Indexer(encoder=jenc)
+    jidx.index_documents(texts)
+    with pytest.raises(IndexError):
+        jidx.delete_documents([99999])
+    assert jidx.store.deleted_ids() == []
+
+    tidx = tbuilder.Indexer(encoder=convert.hashing_encoder(np.asarray(jenc.table),
+                                                            device=CPU), device=CPU)
+    tidx.index_documents(texts)
+    bias = tidx.dense._snap.bias.clone()
+    for bad in ([99999], [-1], [2, 99999], [-1, 3]):
+        with pytest.raises(IndexError):
+            tidx.delete_documents(bad)
+        assert tidx.dense.deleted_count == 0
+        assert torch.equal(tidx.dense._snap.bias, bias)
+        assert not tidx.bm25._tombstones
+        assert tidx.store.deleted_ids() == []
+    assert tidx.delete_documents([2]) == 1
+    assert (tidx.dense.deleted_count, tidx.store.deleted_ids()) == (1, [2])
