@@ -144,6 +144,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -542,24 +543,37 @@ def check_impact_kernels(sz: dict, dev: torch.device, seed: int, shapes) -> None
 
 # -- phase 4: the corpus -------------------------------------------------------
 
+# (corpus, seed, n_docs, n_background) -> (docs, the generator's state after
+# them): small-topic at one seed is indexed by five runs, and drawing its
+# 524,288 docs takes about 8 s on the card's host. Callers do not mutate docs.
+_CORPUS_CACHE: dict = {}
+
+
 def make_corpus(sz: dict, corpus: str, seed: int):
     """Topic-correlated synthetic corpus (``CORPORA``): each doc draws its
     topic words from its topic's vocabulary and its other words from a
     Zipf(1.1) background of ``n_background`` words, shuffled. Queries: 2-4
-    words of one topic plus one background word."""
-    rng = np.random.default_rng(seed)
+    words of one topic plus one background word. A repeated call returns
+    the same docs and a query maker that draws the same queries."""
     topic_docs, n_tw, n_bw, tv = CORPORA[corpus]
     n, V = sz["n_docs"], sz["n_background"]
     T = max(1, n // topic_docs)
-    words = [f"t{t}x{j}" for t in range(T) for j in range(tv)]
-    words += [f"w{r}" for r in range(V)]
     zipf = 1.0 / np.arange(1, V + 1) ** 1.1
     zipf /= zipf.sum()
-    topic = rng.integers(0, T, n)
-    tw = topic[:, None] * tv + rng.integers(0, tv, (n, n_tw))
-    bw = T * tv + rng.choice(V, size=(n, n_bw), p=zipf)
-    mat = rng.permuted(np.concatenate([tw, bw], axis=1), axis=1)
-    docs = [" ".join([words[i] for i in row]) for row in mat.tolist()]
+    key = (corpus, seed, n, V)
+    if key not in _CORPUS_CACHE:
+        rng = np.random.default_rng(seed)
+        words = [f"t{t}x{j}" for t in range(T) for j in range(tv)]
+        words += [f"w{r}" for r in range(V)]
+        topic = rng.integers(0, T, n)
+        tw = topic[:, None] * tv + rng.integers(0, tv, (n, n_tw))
+        bw = T * tv + rng.choice(V, size=(n, n_bw), p=zipf)
+        mat = rng.permuted(np.concatenate([tw, bw], axis=1), axis=1)
+        docs = [" ".join([words[i] for i in row]) for row in mat.tolist()]
+        _CORPUS_CACHE[key] = (docs, rng.bit_generator.state)
+    docs, state = _CORPUS_CACHE[key]
+    rng = np.random.Generator(np.random.PCG64())
+    rng.bit_generator.state = state
 
     def queries(count: int):
         out = []
@@ -1575,9 +1589,16 @@ def main(argv=None) -> int:
     mesh_world = start_mesh(sz, dev, args.seed, rehearsal)
 
     mesh_train = {}  # the mesh's training step, held to the one-device step later
+    minilm = {}  # the minilm run's index, built beside the ranks, served later
 
     def collect_mesh():
+        # the minilm run's build, a set-up stage, also runs beside the ranks
         nonlocal run
+        bm25_mod._hot_tables = real_hot
+        try:
+            minilm.update(build_minilm(sz, dev, args.seed, clock, rehearsal))
+        finally:
+            bm25_mod._hot_tables = timed_hot
         mesh = finish_mesh(mesh_world, run, sz, dev, clock, kind, smi)
         mesh_train.update(mesh.pop("train"))
         detail["corpora"]["small-topic/mesh4"] = mesh
@@ -1657,7 +1678,24 @@ def main(argv=None) -> int:
         world1[0].stop()
         raise
     del regime
-    ivf = serve_ivf(sz, dev, args.seed, clock, kind, smi)
+
+    # the API run's CLI chain (``index`` + ``serve`` of a small corpus of
+    # its own, each a process that starts torch and the card) runs beside
+    # the IVF run's index build, a set-up stage, not a timed batch
+    chain = CliChain(make_corpus(dict(sz, n_docs=API_SIZES[
+        "cpu" if rehearsal else "card"]["cli_docs"]), "small-topic", args.seed + 3)[0],
+        rehearsal)
+    try:
+        # the chain's processes start the card and load the encoder: they
+        # are done before the IVF run's timed batches
+        ivf = serve_ivf(sz, dev, args.seed, clock, kind, smi,
+                        before_serve=chain.wait_healthy)
+        detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
+            minilm, sz, dev, clock, kind, smi)
+        pipelines = serve_pipelines(handoff, sz, dev, clock, kind, smi)
+    except BaseException:
+        chain.stop()
+        raise
     detail["corpora"]["small-topic/ivf"] = ivf
     routes["small-topic/ivf"] = ivf["launches"]
     order = list(KERNEL_META)
@@ -1665,17 +1703,20 @@ def main(argv=None) -> int:
     for row in numbers:
         row["launches_routes"] = {label: counts[row["name"]]
                                   for label, counts in routes.items()}
-
-    detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
-        sz, dev, args.seed, clock, kind, smi, rehearsal)
-    pipelines = serve_pipelines(handoff, sz, dev, clock, kind, smi)
     detail["corpora"]["small-topic/source/pipelines"] = pipelines
     for row in numbers:
         if row["name"] in pipelines["launches"]:
             row["launches_pipelines"] = pipelines["launches"][row["name"]]
-    # the trainers, on the minilm run's corpus (the source layout keeps the
-    # corpus order)
-    contents, make_queries = handoff["searcher"].indexer.contents, handoff["make_queries"]
+    # the trainers read the minilm run's corpus as it was before the API
+    # run's add (the source layout keeps the corpus order)
+    contents, make_queries = list(handoff["searcher"].indexer.contents), handoff["make_queries"]
+    try:
+        api = serve_api(handoff, chain, sz, dev, clock, kind, smi, rehearsal)
+    finally:
+        chain.stop()
+    detail["corpora"]["small-topic/source/api"] = api
+    for row in numbers:
+        row["launches_api"] = api["launches"][row["name"]]
     del handoff
     training = serve_training(contents, make_queries, mesh_train, sz, dev, args.seed,
                               clock, kind, smi, rehearsal)
@@ -2303,7 +2344,7 @@ def serve_sparse(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str
 
 
 def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
-              smi: str) -> dict:
+              smi: str, before_serve=None) -> dict:
     """"small-topic/ivf": the small-topic corpus indexed with
     ``layout="clustered"`` and ``ann="ivf"`` (sqrt(N) clusters, nprobe 8; the
     layout's k-means is the quantizer and the IVF adopts the dense buffer)
@@ -2313,7 +2354,8 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
     reference built from the same IVF top 2k. The IVF at full probe must
     equal ``DenseIndex.search``; recall@10 at nprobe 8 against it is a
     reading. The route runs none of the seven kernels (the JAX package's IVF
-    has no Pallas kernel); their counts are read all the same."""
+    has no Pallas kernel); their counts are read all the same.
+    ``before_serve()``, if given, runs between the build and the batches."""
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
     label = "small-topic/ivf"
@@ -2330,6 +2372,8 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
         f"cluster's centroid), nprobe {ivf.nprobe}; the IVF holds the dense "
         f"snapshot's buffer ({snap.capacity} rows, {idx.dense.reserve_rows} "
         f"reserved): one corpus copy"))
+    if before_serve is not None:
+        before_serve()
     searcher = Searcher(indexer=idx, use_query_memory=False, config=built.config,
                         semantic_mode="scatter")
     warm = make_queries(sz["batch"])
@@ -2645,6 +2689,7 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
 
     label = "small-topic/mesh4"
     world, t = started
+    t_join = time.perf_counter()
     try:
         outs = world.join()
     finally:
@@ -2652,6 +2697,7 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
                           for r, _d, fs in os.walk(MESH_DIR) for f in fs)
         shutil.rmtree(MESH_DIR, ignore_errors=True)
     world_s = time.perf_counter() - t
+    wait_s = time.perf_counter() - t_join
     for o in outs:
         stages = ", ".join(f"{k} {v:.1f}" for k, v in o["index_timings_s"].items())
         print(f"    rank {o['rank']}: build {o['build_s']:.1f} s ({stages}; "
@@ -2661,7 +2707,8 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
               "bytes", flush=True)
     clock.phase("index_documents", f"{label}: {MESH_RANKS} ranks, "
                 f"{sz['n_docs']} docs, the world's wall {world_s:.1f} s (started "
-                f"before small-topic/source's build, which ran beside it); the save "
+                f"before small-topic/source's build, which ran beside it with the "
+                f"minilm run's build; then waited for {wait_s:.1f} s); the save "
                 f"{saved_bytes} bytes, removed")
     _ranks_equal(outs, ("results", "fallbacks", "rungs", "exact_calls", "exact_rows",
                         "dense", "ivf_full", "bm25", "contents_sha", "repeat_equal",
@@ -2757,7 +2804,8 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
             "rungs": o0["rungs"][:len(batches)], "exact_batch_rows_checked": exact_checked,
             "exact_batch_ms": o0["exact_ms"], "exact_batch_launches": o0["exact_launches"],
             "qps": qps, "p50_ms": p50, "p99_ms": p99, "batch_ms": o0["batch_ms"],
-            "world_s": world_s, "launches": {o["rank"]: o["launches"] for o in outs},
+            "world_s": world_s, "wait_s": wait_s,
+            "launches": {o["rank"]: o["launches"] for o in outs},
             "build_s": {o["rank"]: o["build_s"] for o in outs},
             "index_timings_s": {o["rank"]: o["index_timings_s"] for o in outs},
             "peak_bytes": {o["rank"]: o.get("peak_bytes") for o in outs},
@@ -3271,32 +3319,35 @@ def trunk_rows(enc, texts_by_shape: dict, dev: torch.device, smi: str) -> list:
     return rows
 
 
-def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
-                 smi: str, rehearsal: bool) -> tuple:
-    """The default configuration end to end: small-topic under
+MINILM_LABEL = "small-topic/source/minilm"
+
+
+def _minilm_environ(built: dict):
+    """The variables under which the Indexer resolves its default encoder
+    and the cross-encoder its checkpoint: discovery on, and in the
+    rehearsal the tiny checkpoints' directory."""
+    return _environ(HST_ENCODER="auto", HST_CKPT_DISCOVERY="1",
+                    HST_MODEL_DIR=built["tmp"].name if built["rehearsal"] else None)
+
+
+def build_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock,
+                 rehearsal: bool) -> dict:
+    """The index of the default configuration: small-topic under
     ``layout="source"`` with no encoder given, so the Indexer's
     ``default_encoder`` serves the promoted in-repo bi-encoder (the run
     fails on any other encoder or weights). The index build splits its
-    embed stage into tokenize and trunk; the served batches take the impact
-    ladder (K1, K4 at tile grain, K6, K7, each of which must launch) and
-    every certified row is held against the exact reference; the encode
-    span is set beside the batch wall time. Then the trunk alone at a query
-    and an index batch shape, and the cross-encoder on the served top-20 of
-    one batch (``predict``, and ``CrossEncoderReranker.rerank`` on one
-    query). Returns (stats, the searcher, encoder, cross-encoder and query
-    maker the pipelines run serves)."""
+    embed stage into tokenize and trunk. A set-up stage, so it runs beside
+    the mesh's ranks; ``serve_minilm`` serves it. Returns what that takes."""
     import tempfile
 
-    from hybridsearch_tpu_torch.models.minilm import MiniLMCrossEncoder, MiniLMEncoder
-    from hybridsearch_tpu_torch.retrieval.reranker import CrossEncoderReranker
-    from hybridsearch_tpu_torch.utils.tracing import GLOBAL_TIMER
+    from hybridsearch_tpu_torch.models.minilm import MiniLMEncoder
 
-    label = "small-topic/source/minilm"
-    with tempfile.TemporaryDirectory() as tmp, _environ(
-            HST_ENCODER="auto", HST_CKPT_DISCOVERY="1",
-            HST_MODEL_DIR=tmp if rehearsal else None):
-        bi_ckpt, ce_ckpt = (tiny_checkpoints(tmp, sz["dim"]) if rehearsal
-                            else (MINILM_CKPT, CROSS_CKPT))
+    label = MINILM_LABEL
+    built = {"tmp": tempfile.TemporaryDirectory(), "rehearsal": rehearsal}
+    with _minilm_environ(built):
+        built["ckpts"] = (tiny_checkpoints(built["tmp"].name, sz["dim"]) if rehearsal
+                          else (MINILM_CKPT, CROSS_CKPT))
+        bi_ckpt = built["ckpts"][0]
         spent = [0.0]
 
         def prepare(searcher):
@@ -3322,8 +3373,31 @@ def serve_minilm(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str
 
             return finish
 
-        searcher, make_queries, timings = index_corpus(
+        built["searcher"], built["make_queries"], built["timings"] = index_corpus(
             "small-topic", "source", sz, dev, seed, clock, label, prepare=prepare)
+    return built
+
+
+def serve_minilm(built: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                 smi: str) -> tuple:
+    """The default configuration end to end on ``build_minilm``'s index:
+    the served batches take the impact ladder (K1, K4 at tile grain, K6,
+    K7, each of which must launch) and every certified row is held against
+    the exact reference; the encode span is set beside the batch wall time.
+    Then the trunk alone at a query and an index batch shape, and the
+    cross-encoder on the served top-20 of one batch (``predict``, and
+    ``CrossEncoderReranker.rerank`` on one query). Returns (stats, the
+    searcher, encoder, cross-encoder and query maker the pipelines run
+    serves)."""
+    from hybridsearch_tpu_torch.models.minilm import MiniLMCrossEncoder
+    from hybridsearch_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from hybridsearch_tpu_torch.utils.tracing import GLOBAL_TIMER
+
+    label = MINILM_LABEL
+    searcher, make_queries, timings = (built.pop(k) for k in
+                                       ("searcher", "make_queries", "timings"))
+    ce_ckpt = built["ckpts"][1]
+    with built["tmp"], _minilm_environ(built):
         enc = searcher.indexer.encoder
         warm = make_queries(sz["batch"])
         batches = [make_queries(sz["batch"]) for _ in range(sz["n_batches"])]
@@ -4062,6 +4136,555 @@ def serve_pipelines(handoff: dict, sz: dict, dev: torch.device, clock: Clock,
     stats["launches"] = launches
     clock.phase(label, f"launches {json.dumps(launches)} {where}")
     return stats
+
+
+# -- the API (api/) on the minilm run's index, served over HTTP -----------------------
+
+API_DIR = "chiprun_out/api"  # the CLI's store and docs; removed at the end
+API_LABEL = "small-topic/source/api"
+# the load and each step's size: the card's, the rehearsal's
+API_SIZES = {
+    "card": dict(threads=64, per_thread=8, cached=64, batch_queries=256, filtered=16,
+                 funnel=64, added=64, cli_docs=256),
+    "cpu": dict(threads=16, per_thread=4, cached=16, batch_queries=32, filtered=4,
+                funnel=16, added=8, cli_docs=32),
+}
+API_KERNELS = ("tile_stats", "super_scores_dedup", "slice_runs", "rescore")
+API_TIE = 1e-4  # /search rows against search_batch: values and near-ties
+API_QUERY_MARGIN = 0.01  # below the cache's threshold between two load queries
+API_FILTER_EVERY = 16  # every 16th doc carries {"group": (doc_id // 16) % 8}
+API_HEALTH_S = 300.0  # the CLI chain's index + serve must be healthy by then
+API_CLIENT_TIMEOUT_S = 300.0
+
+
+def _post(conn, path: str, body, method: str = "POST") -> tuple:
+    """(status, parsed payload, seconds) of one request on a kept-alive
+    ``http.client`` connection."""
+    t = time.perf_counter()
+    raw = None if body is None else json.dumps(body).encode()
+    conn.request(method, path, body=raw, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    return resp.status, json.loads(data) if data else None, time.perf_counter() - t
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CliChain:
+    """``python -m hybridsearch_tpu_torch --db <db> index <docs>``, then
+    ``... search <probe> --json`` on that store, then ``... serve`` on a
+    free port, in the background: the package's real entry point, on its
+    own small store. ``wait_healthy`` blocks until the server's /health
+    reports every doc; ``stop`` kills the server."""
+
+    def __init__(self, texts, rehearsal: bool):
+        from hybridsearch_tpu_torch.text.extractor import preprocess_text
+
+        self.texts = [preprocess_text(t) for t in texts]  # as the store keeps them
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.docs_dir = os.path.join(API_DIR, "docs")
+        os.makedirs(self.docs_dir, exist_ok=True)
+        for i, text in enumerate(texts):
+            with open(os.path.join(self.docs_dir, f"doc_{i:04d}.txt"), "w") as f:
+                f.write(text)
+        self.n = len(texts)
+        self.db = os.path.join(API_DIR, "cli.db")
+        self.port = _free_port()
+        self.env = dict(os.environ, PYTHONPATH=self.root)
+        if rehearsal:
+            self.device = ["--device", "cpu"]
+            self.env.update(HST_ENCODER="hashing", OMP_NUM_THREADS=str(REHEARSAL_THREADS))
+        else:  # the default encoder, as a user runs the CLI
+            self.device = []
+            self.env.update(HST_ENCODER="auto", HST_CKPT_DISCOVERY="1")
+        self.server = None
+        self.error = None
+        self.index_s = self.start_to_healthy_s = self.search_json_s = None
+        self.index_out = ""
+        self.probe = " ".join(self.texts[0].split()[:6])
+        self.search_rows = None
+        self._thread = threading.Thread(target=self._run, name="cli-chain", daemon=True)
+        self._thread.start()
+
+    def _cmd(self, *args):
+        return [sys.executable, "-m", "hybridsearch_tpu_torch", "--db", self.db,
+                *self.device, *args]
+
+    def _run(self) -> None:
+        try:
+            t = time.perf_counter()
+            out = subprocess.run(self._cmd("index", self.docs_dir), cwd=self.root,
+                                 env=self.env, capture_output=True, text=True,
+                                 timeout=API_HEALTH_S)
+            self.index_s = time.perf_counter() - t
+            self.index_out = out.stdout.strip()
+            if out.returncode != 0:
+                raise RuntimeError(f"cli index exited {out.returncode}: {out.stderr[-2000:]}")
+            t = time.perf_counter()
+            out = subprocess.run(self._cmd("search", self.probe, "--json", "-k", "5"),
+                                 cwd=self.root, env=self.env, capture_output=True,
+                                 text=True, timeout=API_HEALTH_S)
+            self.search_json_s = time.perf_counter() - t
+            if out.returncode != 0:
+                raise RuntimeError(f"cli search exited {out.returncode}: "
+                                   f"{out.stderr[-2000:]}")
+            self.search_rows = json.loads(out.stdout)
+            t = time.perf_counter()
+            self.server = subprocess.Popen(
+                self._cmd("serve", "--host", "127.0.0.1", "--port", str(self.port)),
+                cwd=self.root, env=self.env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+            while True:
+                if self.server.poll() is not None:
+                    raise RuntimeError("cli serve exited " + str(self.server.returncode)
+                                       + ": " + self.server.stdout.read()[-2000:])
+                try:
+                    import http.client
+
+                    conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=5)
+                    status, health, _s = _post(conn, "/health", None, "GET")
+                    conn.close()
+                    if status == 200 and health["documents"] == self.n:
+                        self.start_to_healthy_s = time.perf_counter() - t
+                        return
+                except (OSError, ValueError):
+                    pass
+                time.sleep(0.2)
+        except BaseException as e:  # noqa: BLE001  (reported by wait_healthy)
+            self.error = e
+
+    def wait_healthy(self) -> None:
+        self._thread.join(API_HEALTH_S)
+        if self.error is not None:
+            raise AssertionError(f"{API_LABEL}: the CLI chain failed: {self.error}")
+        if self.start_to_healthy_s is None:
+            raise AssertionError(f"{API_LABEL}: the CLI server was not healthy within "
+                                 f"{API_HEALTH_S:.0f} s")
+
+    def stop(self) -> None:
+        import shutil
+
+        self._thread.join(API_HEALTH_S)
+        if self.server is not None and self.server.poll() is None:
+            self.server.kill()
+            self.server.wait(30)
+        shutil.rmtree(API_DIR, ignore_errors=True)
+
+
+def _engine_over(searcher, enc, ce, dev):
+    """The smoke's own arrangement (not an API), as ``_adopt`` is for the
+    pipelines: an ``EngineState`` built with the minilm run's encoder and
+    config whose indexer, searcher, metadata engine, job queue and batcher
+    are pointed at that run's ``Indexer`` and ``Searcher`` instead of
+    re-indexing 524,288 docs; its funnel serves the run's cross-encoder."""
+    from hybridsearch_tpu_torch.api.app import EngineState
+    from hybridsearch_tpu_torch.api.batching import SearchBatcher
+    from hybridsearch_tpu_torch.retrieval.reranker import CrossEncoderReranker
+    from hybridsearch_tpu_torch.services.jobs import JobQueue
+    from hybridsearch_tpu_torch.services.metadata_filter import MetadataFilterEngine
+
+    ix = searcher.indexer
+    st = EngineState(encoder=enc, config=ix.config, device=dev)
+    st.batcher.close()
+    st.jobs.shutdown(wait=False)
+    st.indexer.close()
+    st.indexer, st.searcher = ix, searcher
+    st.metadata = MetadataFilterEngine(store=ix.store)
+    st.jobs = JobQueue(n_workers=3, docstore=ix.store)
+    st.jobs.register_handler("index", st._index_job)
+    serving = ix.config.serving
+    st.batcher = SearchBatcher(searcher, query_memory=searcher.query_memory,
+                               max_batch=serving.max_batch,
+                               queue_timeout_s=serving.queue_timeout_s)
+    st._funnel_reranker = CrossEncoderReranker(model=ce)
+    return st
+
+
+def distinct_queries(enc, make_queries, count: int, threshold: float) -> list:
+    """``count`` queries of the run's generator, distinct strings whose
+    encoded vectors lie below ``threshold`` in cosine from one another, so
+    no load query can hit another's entry in the semantic cache."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+
+    cands = list(dict.fromkeys(make_queries(8 * count)))
+    unit = l2_normalize(enc.encode(cands).float())
+    sim = (unit @ unit.T).cpu().numpy()
+    blocked = np.zeros(len(cands), bool)
+    out = []
+    for i in range(len(cands)):
+        if not blocked[i]:
+            out.append(cands[i])
+            blocked |= sim[i] >= threshold
+            if len(out) == count:
+                return out
+    raise AssertionError(f"{API_LABEL}: only {len(out)} of {count} distinct queries")
+
+
+def _rows_of(payload) -> list:
+    return [(r["score"], r["content"], r["doc_id"]) for r in payload["results"]]
+
+
+def api_load(base_port: int, queries, threads: int, body_of) -> tuple:
+    """A closed loop: ``threads`` client threads, each with its own kept-alive
+    connection, sending its share of ``queries`` one after another. Returns
+    ({query: (status, payload)}, [seconds of each request], wall seconds)."""
+    import http.client
+
+    per = len(queries) // threads
+    out, lat, errs = {}, [], []
+    start = threading.Barrier(threads + 1)
+
+    def client(w):
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", base_port,
+                                              timeout=API_CLIENT_TIMEOUT_S)
+            start.wait()
+            for q in queries[w * per:(w + 1) * per]:
+                status, payload, s = _post(conn, "/search", body_of(q))
+                out[q] = (status, payload)
+                lat.append(s)
+            conn.close()
+        except BaseException as e:  # noqa: BLE001  (reported below)
+            errs.append(e)
+
+    workers = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
+    for t in workers:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in workers:
+        t.join(API_CLIENT_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errs:
+        raise AssertionError(f"{API_LABEL}: a client failed: {errs[0]!r}")
+    return out, lat, wall
+
+
+def serve_api(handoff: dict, chain: CliChain, sz: dict, dev: torch.device,
+              clock: Clock, kind: str, smi: str, rehearsal: bool) -> dict:
+    """"small-topic/source/api": the minilm run's index served over HTTP by
+    the port's API (``EngineState`` pointed at the run's indexer and
+    searcher, ``APIServer`` on a free port, the continuous batcher), with
+    the CLI's ``index`` + ``serve`` chain (``chain``, started beside the
+    minilm run's index build) on a small store of its own in the
+    background. Steps: ``warmup``; a closed loop of client threads of
+    ``POST /search`` (every status 200, uncached, rows against a direct
+    ``search_batch``; K1, K4, K6 and K7 must launch); the first queries
+    again from the semantic cache; ``/search/batch`` bit for bit;
+    ``/search/filtered`` on a metadata pre-filter against a plain masked
+    top-10; ``/search/funnel`` against ``run_funnel_batch``; ``/index/add``,
+    ``/search`` of a new doc and ``DELETE /documents/{id}``; last the CLI
+    server's ``/search`` and ``search --json``."""
+    import http.client
+
+    from hybridsearch_tpu_torch.api.httpd import APIServer
+    from hybridsearch_tpu_torch.pipelines import run_funnel_batch
+
+    where = f"({kind}; {smi})"
+    a = API_SIZES["cpu" if rehearsal else "card"]
+    searcher, enc, ce = handoff["searcher"], handoff["encoder"], handoff["cross_encoder"]
+    ix = searcher.indexer
+    n0 = ix.dense.n_docs
+    stats: dict = {"sizes": a}
+    st = None
+    try:
+        st = _engine_over(searcher, enc, ce, dev)
+        t = time.perf_counter()
+        warm = st.warmup()
+        sync(dev)
+        stats["warmup"] = {"dispatches": warm, "s": time.perf_counter() - t}
+        if warm != int(np.log2(st.batcher.max_batch)) + 1:
+            raise AssertionError(f"{API_LABEL}: warmup ran {warm} dispatches")
+        n_load = a["threads"] * a["per_thread"]
+        queries = distinct_queries(enc, handoff["make_queries"], n_load,
+                                   st.semantic_cache.similarity_threshold
+                                   - API_QUERY_MARGIN)
+        clock.phase("api warmup", (
+            f"{API_LABEL}: EngineState over the minilm run's {n0} docs; warmup "
+            f"{warm} dispatches (buckets 1-{st.batcher.max_batch}) in "
+            f"{stats['warmup']['s']:.2f} s; {n_load} load queries apart by cosine "
+            f"< {st.semantic_cache.similarity_threshold - API_QUERY_MARGIN:.2f} {where}"))
+        # the cache-key encode alone: one query at a time on one thread
+        alone = []
+        for q in queries[:a["cached"]]:
+            t = time.perf_counter()
+            enc.encode([q])
+            sync(dev)
+            alone.append(time.perf_counter() - t)
+        chain.wait_healthy()
+        stats["cli"] = {"index_s": chain.index_s,
+                        "start_to_healthy_s": chain.start_to_healthy_s,
+                        "index_out": chain.index_out}
+
+        def body(q):
+            return {"query": q, "top_k": TOP_K, "semantic_weight": 0.7,
+                    "lexical_weight": 0.3}
+
+        key_s = [0.0]  # the per-request cache-key encode, outside the batcher
+        key_calls = [0]
+        real_encode = enc.encode
+
+        def encode(texts, *args, **kw):
+            if len(texts) != 1 or threading.current_thread().name == "search-batcher":
+                return real_encode(texts, *args, **kw)
+            t = time.perf_counter()
+            try:
+                return real_encode(texts, *args, **kw)
+            finally:
+                key_s[0] += time.perf_counter() - t
+                key_calls[0] += 1
+
+        with APIServer(st, host="127.0.0.1", port=0) as server:
+            port = server.port
+            b = st.batcher
+            before = (b.dispatches, b.batched_requests)
+            b.max_seen_batch = 0
+            launches: dict = {}
+            enc.encode = encode
+            try:
+                with _pipeline_launches(launches):
+                    got, lat, wall = api_load(port, queries, a["threads"], body)
+            finally:
+                del enc.encode
+            dispatches = b.dispatches - before[0]
+            coalesced = b.batched_requests - before[1]
+            bad = [(q, s) for q, (s, p) in got.items() if s != 200 or p["cached"]]
+            if len(got) != n_load or bad:
+                raise AssertionError(f"{API_LABEL}: {len(bad)} responses not 200 and "
+                                     f"uncached, e.g. {bad[:2]}")
+            _require_launched(API_LABEL, launches, API_KERNELS, dev)
+            direct = []
+            for i in range(0, n_load, a["batch_queries"]):
+                direct += searcher.search_batch(queries[i:i + a["batch_queries"]],
+                                                top_k=TOP_K, semantic_weight=0.7,
+                                                lexical_weight=0.3, log=False)
+            differ = [q for q, row in zip(queries, direct)
+                      if not _ce_rows_agree(_rows_of(got[q][1]), row, API_TIE)]
+            if differ:
+                raise AssertionError(f"{API_LABEL}: {len(differ)} /search responses "
+                                     f"differ from search_batch, e.g. {differ[0]!r}")
+            p50, p99 = np.percentile(np.array(lat) * 1e3, [50, 99])
+            stats["load"] = {
+                "requests": n_load, "threads": a["threads"], "wall_s": wall,
+                "requests_per_s": n_load / wall, "p50_ms": float(p50),
+                "p99_ms": float(p99), "dispatches": dispatches,
+                "mean_batch": coalesced / max(dispatches, 1),
+                "max_batch": b.max_seen_batch, "launches": launches,
+                "cache_key_encode_ms": key_s[0] * 1e3 / max(key_calls[0], 1),
+                "cache_key_encodes": key_calls[0],
+                "cache_key_encode_share": key_s[0] / sum(lat),
+                "cache_key_encode_alone_ms": float(np.mean(alone)) * 1e3}
+            ld = stats["load"]
+            clock.phase("api load", (
+                f"{API_LABEL}: {a['threads']} client threads x {a['per_thread']} POST "
+                f"/search (top_k {TOP_K}, 0.7/0.3): {ld['requests_per_s']:.1f} "
+                f"requests/s, p50 {ld['p50_ms']:.2f} ms, p99 {ld['p99_ms']:.2f} ms "
+                f"(client clock); {dispatches} dispatches, coalesced batch mean "
+                f"{ld['mean_batch']:.1f}, largest {ld['max_batch']}; cache-key encode "
+                f"{ld['cache_key_encode_ms']:.2f} ms a request ({key_calls[0]} calls, "
+                f"{100 * ld['cache_key_encode_share']:.1f}% of request time; "
+                f"{ld['cache_key_encode_alone_ms']:.2f} ms alone on one thread); launches "
+                f"{json.dumps(launches)}; all {n_load} 200 and uncached, every row "
+                f"equals search_batch {where}"))
+
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=API_CLIENT_TIMEOUT_S)
+            first = queries[:a["cached"]]
+            for q in first:
+                status, payload, _s = _post(conn, "/search", body(q))
+                keep = lambda p: {k: v for k, v in p.items()  # noqa: E731
+                                  if k not in ("latency_ms", "cached")}
+                if status != 200 or payload["cached"] is not True or \
+                        keep(payload) != keep(got[q][1]):
+                    raise AssertionError(f"{API_LABEL}: {q!r} again is not its cached "
+                                         "first response")
+            stats["cached"] = len(first)
+
+            for i in range(2):
+                qs = queries[i * a["batch_queries"]:(i + 1) * a["batch_queries"]]
+                status, payload, s = _post(conn, "/search/batch", {
+                    "queries": qs, "top_k": TOP_K, "semantic_weight": 0.7,
+                    "lexical_weight": 0.3})
+                want = direct[i * a["batch_queries"]:(i + 1) * a["batch_queries"]]
+                if status != 200 or [_rows_of(r) for r in payload["results"]] != want:
+                    raise AssertionError(f"{API_LABEL}: /search/batch {i} is not the "
+                                         "direct search_batch bit for bit")
+                stats.setdefault("batch_ms", []).append(s * 1e3)
+            clock.phase("api cache and batch", (
+                f"{API_LABEL}: the first {len(first)} queries again all cached and equal "
+                f"to their first responses; 2 x POST /search/batch of "
+                f"{a['batch_queries']} equal the direct search_batch bit for bit "
+                f"({', '.join(f'{x:.1f}' for x in stats['batch_ms'])} ms) {where}"))
+
+            stats["filtered"] = api_filtered(conn, st, enc, queries[:a["filtered"]], dev,
+                                             clock, where)
+            stats["funnel"] = api_funnel(conn, st, queries[:a["funnel"]], clock, where,
+                                         run_funnel_batch)
+            stats["mutations"] = api_mutations(conn, st, queries[0], n0, a["added"],
+                                               body, clock, where)
+            conn.close()
+
+        # the CLI's own server, idle since it became healthy
+        cli_conn = http.client.HTTPConnection("127.0.0.1", chain.port,
+                                              timeout=API_CLIENT_TIMEOUT_S)
+        status, payload, s = _post(cli_conn, "/search", {"query": chain.probe,
+                                                         "top_k": 5})
+        cli_conn.close()
+        cli_texts = set(chain.texts)
+        if status != 200 or not payload["results"] or not all(
+                r["content"] in cli_texts for r in payload["results"]):
+            raise AssertionError(f"{API_LABEL}: the CLI server's /search: {status}")
+        rows = chain.search_rows
+        if not rows or set(rows[0]) != {"score", "content", "doc_id"} or not all(
+                r["content"] in cli_texts for r in rows):
+            raise AssertionError(f"{API_LABEL}: search --json returned {rows[:1]}")
+        stats["cli"].update(search_ms=s * 1e3, search_json_s=chain.search_json_s)
+        clock.phase("api cli", (
+            f"{API_LABEL}: python -m hybridsearch_tpu_torch index of "
+            f"{chain.n} .txt docs {chain.index_s:.1f} s, serve start to healthy "
+            f"{chain.start_to_healthy_s:.1f} s; its /search answered in {s * 1e3:.1f} ms "
+            f"and search --json (a process of its own, before serve) in "
+            f"{chain.search_json_s:.1f} s {where}"))
+    finally:
+        chain.stop()
+        if st is not None:
+            st.batcher.close()
+            st.jobs.shutdown(wait=False)
+    stats["launches"] = stats["load"]["launches"]
+    return stats
+
+
+def api_filtered(conn, st, enc, queries, dev, clock: Clock, where: str) -> dict:
+    """``POST /search/filtered`` with ``group:3`` over metadata written for
+    every API_FILTER_EVERY-th doc in one transaction: every row's doc
+    carries group 3, the rows equal a plain masked exact dense top-10 on the
+    card (each query encoded alone, as the handler does), and K1 and K4
+    launch. The metadata table's read (``all_metadata``) is timed."""
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize
+
+    ix = st.indexer
+    n = ix.dense.n_docs
+    tagged = list(range(0, n, API_FILTER_EVERY))
+    store = ix.store
+    with store._lock:
+        store._conn.executemany(
+            "INSERT OR REPLACE INTO doc_metadata (doc_id, meta_json) VALUES (?,?)",
+            [(i, json.dumps({"group": (i // API_FILTER_EVERY) % 8})) for i in tagged])
+        store._conn.commit()
+    group3 = [i for i in tagged if (i // API_FILTER_EVERY) % 8 == 3]
+    read_s, bias_s = [0.0], [0.0]
+    launches: dict = {}
+    lat, rows = [], []
+    with _timing(store, "all_metadata", read_s), _timing(st.metadata, "bias_for", bias_s), \
+            _pipeline_launches(launches):
+        for q in queries:
+            status, payload, s = _post(conn, "/search/filtered",
+                                       {"query": q, "filter": "group:3", "top_k": TOP_K})
+            if status != 200:
+                raise AssertionError(f"{API_LABEL}: /search/filtered {status}: {payload}")
+            rows.append(_rows_of(payload))
+            lat.append(s)
+    _require_launched(API_LABEL + " filtered", launches, ("tile_stats", "super_scores_dedup"),
+                      dev)
+    allowed = set(group3)
+    snap = ix.dense._snap
+    keep = torch.full((n,), float("-inf"), device=snap.docs.device)
+    keep[torch.tensor(group3, device=snap.docs.device)] = 0.0
+    for q, row in zip(queries, rows):
+        if not row or not {i for *_x, i in row} <= allowed:
+            raise AssertionError(f"{API_LABEL}: a filtered row outside group 3: {q!r}")
+        qv = l2_normalize(enc.encode([q]).float())
+        vals, idx = torch.topk(qv @ snap.docs[:n].T + snap.bias[:n] + keep, TOP_K)
+        want = [(float(v), ix.contents[int(i)], int(i))
+                for v, i in zip(vals[0].tolist(), idx[0].tolist())]
+        if not _ce_rows_agree(row, want, API_TIE):
+            raise AssertionError(f"{API_LABEL}: filtered {q!r} differs from the plain "
+                                 "masked top-10")
+    out = {"requests": len(queries), "tagged": len(tagged), "group3": len(group3),
+           "ms": [x * 1e3 for x in lat], "all_metadata_ms": read_s[0] * 1e3 / len(queries),
+           "bias_for_ms": bias_s[0] * 1e3 / len(queries), "launches": launches}
+    clock.phase("api filtered", (
+        f"{API_LABEL}: {len(queries)} x POST /search/filtered 'group:3' ({len(tagged)} "
+        f"docs tagged in one transaction, {len(group3)} in group 3): "
+        f"{np.mean(out['ms']):.1f} ms a request, of which bias_for "
+        f"{out['bias_for_ms']:.1f} ms (all_metadata {out['all_metadata_ms']:.1f} ms); "
+        f"every row in group 3 and equal to the plain masked exact top-{TOP_K}; "
+        f"launches {json.dumps(launches)} {where}"))
+    return out
+
+
+def api_funnel(conn, st, queries, clock: Clock, where: str, run_funnel_batch) -> dict:
+    """One ``POST /search/funnel`` of the queries (100 -> 20 -> 5) against a
+    direct ``run_funnel_batch`` of the same queries (CE_SINGLE_TIE)."""
+    status, payload, s = _post(conn, "/search/funnel", {
+        "queries": queries, "stage1_k": 100, "stage2_k": 20, "top_k": 5})
+    if status != 200:
+        raise AssertionError(f"{API_LABEL}: /search/funnel {status}: {payload}")
+    want, _meta = run_funnel_batch(st.indexer, st._funnel_reranker, queries,
+                                   stage1_k=100, stage2_k=20, final_k=5)
+    got = [_rows_of(r) for r in payload["results"]]
+    if len(got) != len(queries) or not all(
+            _ce_rows_agree(g, w, CE_SINGLE_TIE) for g, w in zip(got, want)):
+        raise AssertionError(f"{API_LABEL}: /search/funnel differs from run_funnel_batch")
+    gap = max((abs(x[0] - y[0]) for g, w in zip(got, want) for x, y in zip(g, w)),
+              default=0.0)
+    clock.phase("api funnel", (
+        f"{API_LABEL}: POST /search/funnel of {len(queries)} queries (100 -> 20 -> 5) "
+        f"in {s * 1e3:.1f} ms equals run_funnel_batch (largest logit gap {gap:.3g}) "
+        f"{where}"))
+    return {"queries": len(queries), "ms": s * 1e3, "max_logit_gap": gap}
+
+
+def api_mutations(conn, st, cached_query: str, n0: int, n_add: int, body,
+                  clock: Clock, where: str) -> dict:
+    """``POST /index/add`` of new docs with inline metadata (ids from n0
+    on), then ``/search`` of one new doc's text (the first batch after the
+    add: it compacts BM25's delta and rebuilds the impact tier; timed
+    apart), which must return it; a query cached before the add is a miss
+    now; ``DELETE /documents/{id}`` of that doc, after which neither
+    ``/search`` nor ``GET /documents`` returns it."""
+    ix = st.indexer
+    new = [f"{ix.contents[i]} apinew{i}" for i in range(n_add)]
+    status, payload, add_s = _post(conn, "/index/add", {"documents": [
+        {"content": d, "metadata": {"group": 9, "api": i}} for i, d in enumerate(new)]})
+    if status != 200 or payload["doc_ids"] != list(range(n0, n0 + n_add)):
+        raise AssertionError(f"{API_LABEL}: /index/add {status}: {payload}")
+    target = n0 + 3
+    probe = body(new[3])
+    status, payload, first_s = _post(conn, "/search", probe)
+    if status != 200 or target not in [r["doc_id"] for r in payload["results"]]:
+        raise AssertionError(f"{API_LABEL}: /search of a new doc's text did not return it")
+    status, again, _s = _post(conn, "/search", body(cached_query))
+    if status != 200 or again["cached"] is not False:
+        raise AssertionError(f"{API_LABEL}: a query cached before the add is still cached")
+    status, payload, del_s = _post(conn, f"/documents/{target}", None, "DELETE")
+    if status != 200 or payload["doc_id"] != target:
+        raise AssertionError(f"{API_LABEL}: DELETE /documents/{target}: {status}")
+    status, payload, _s = _post(conn, "/search", probe)
+    if status != 200 or target in [r["doc_id"] for r in payload["results"]]:
+        raise AssertionError(f"{API_LABEL}: the deleted doc still surfaces in /search")
+    status, listed, list_s = _post(conn, f"/documents?offset={n0 - 8}&limit=100", None,
+                                   "GET")
+    ids = [d["doc_id"] for d in listed["documents"]]
+    if status != 200 or target in ids or not set(range(n0, n0 + n_add)) - {target} <= set(
+            ids) or listed["total"] != n0 + n_add - 1:
+        raise AssertionError(f"{API_LABEL}: GET /documents after the delete: {status}")
+    out = {"added": n_add, "add_ms": add_s * 1e3, "first_batch_ms": first_s * 1e3,
+           "delete_ms": del_s * 1e3, "list_ms": list_s * 1e3}
+    clock.phase("api mutations", (
+        f"{API_LABEL}: POST /index/add of {n_add} docs with metadata (ids {n0}-"
+        f"{n0 + n_add - 1}) {add_s * 1e3:.1f} ms; the first /search after it (BM25 "
+        f"compaction and impact tier rebuild) {first_s * 1e3:.1f} ms and returns the new "
+        f"doc; an earlier cached query is a miss; DELETE /documents/{target} "
+        f"{del_s * 1e3:.1f} ms, after which /search and GET /documents "
+        f"({list_s * 1e3:.1f} ms) no longer return it {where}"))
+    return out
 
 
 # -- the trainers (training/) on the trunks the minilm run serves --------------------

@@ -349,11 +349,14 @@ class DenseIndex:
                                  if bias is not None else 0)
         return idx
 
-    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+    def search(self, queries, k: int, extra_bias=None) -> Tuple[np.ndarray, np.ndarray]:
         """Exact top-k. queries: [B, D] raw embeddings (normalized here).
+        ``extra_bias``: an optional [n_docs] additive bias (the metadata
+        pre-filter; numpy or a tensor, shorter than capacity), zero-padded
+        to capacity and added to the tombstone bias.
         Returns numpy (values [B, k'], indices [B, k']), k' = min(k, n). On a
-        mesh every rank passes the same queries and gets the same answer
-        (``sharded_dense_topk``)."""
+        mesh every rank passes the same queries and bias and gets the same
+        answer (``sharded_dense_topk``; each rank adds its own rows' part)."""
         snap = self._snap
         q = (queries if torch.is_tensor(queries) else
              torch.from_numpy(np.array(queries, dtype=np.float32))).to(self.device)
@@ -361,19 +364,31 @@ class DenseIndex:
             B = q.shape[0]
             return np.zeros((B, 0), np.float32), np.zeros((B, 0), np.int64)
         k_eff = min(k, snap.n)
+        bias = snap.bias
+        if extra_bias is not None:
+            bias = bias + self._local_extra_bias(extra_bias, snap.capacity)
         if self.mesh is not None:
             from hybridsearch_tpu_torch.parallel.collectives import sharded_dense_topk
 
             vals, idxs = sharded_dense_topk(self.mesh, l2_normalize(q.float()),
                                             snap.docs, k_eff, block_n=self.block_n,
-                                            valid_n=snap.n, bias_local=snap.bias)
+                                            valid_n=snap.n, bias_local=bias)
             return vals.cpu().numpy(), idxs.cpu().numpy()
-        vals, idxs = tiled_dense_topk(l2_normalize(q), snap.docs, k_eff,
-                                      bias=snap.bias)
+        vals, idxs = tiled_dense_topk(l2_normalize(q), snap.docs, k_eff, bias=bias)
         valid = (idxs >= 0) & (idxs < snap.n)
         vals = torch.where(valid, vals, NEG_INF_F32)
         idxs = torch.where(valid, idxs, -1)
         return vals.cpu().numpy(), idxs.cpu().numpy()
+
+    def _local_extra_bias(self, extra_bias, capacity: int) -> torch.Tensor:
+        """This rank's rows of ``extra_bias`` zero-padded to ``capacity``."""
+        eb = (extra_bias if torch.is_tensor(extra_bias) else
+              torch.from_numpy(np.asarray(extra_bias, dtype=np.float32)))
+        eb = eb.to(self.device, torch.float32).reshape(-1)[:capacity]
+        full = torch.zeros((capacity,), dtype=torch.float32, device=self.device)
+        full[:eb.shape[0]] = eb
+        lo, rows = self._rows(capacity)
+        return full[lo:lo + rows]
 
 
 class _ShardFiles:

@@ -272,11 +272,13 @@ def to_bias(
     node: Node, metadata_by_doc: Dict[int, Dict[str, Any]], n_docs: int
 ) -> np.ndarray:
     """Compile a filter to a [n_docs] 0/-inf score-bias vector for the dense
-    kernel — docs failing the filter never enter top-k selection."""
-    bias = np.full(n_docs, -np.inf, dtype=np.float32)
-    for doc_id in range(n_docs):
-        if evaluate(node, metadata_by_doc.get(doc_id, {})):
-            bias[doc_id] = 0.0
+    kernel — docs failing the filter never enter top-k selection. A doc
+    with no metadata is judged as ``{}``: that verdict is taken once and
+    only the docs that carry metadata are evaluated one by one."""
+    bias = np.full(n_docs, 0.0 if evaluate(node, {}) else -np.inf, dtype=np.float32)
+    for doc_id, meta in metadata_by_doc.items():
+        if 0 <= doc_id < n_docs:
+            bias[doc_id] = 0.0 if evaluate(node, meta) else -np.inf
     return bias
 
 

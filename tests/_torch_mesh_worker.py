@@ -262,6 +262,7 @@ def check_dense_index(mesh, inp):
     idx.delete(inp["dead"][:2])  # named again: counted once
     out["deleted_count"] = idx.deleted_count
     out["search_dead"] = idx.search(inp["q"], inp["k"])
+    out["search_bias"] = idx.search(inp["q"], inp["k"], extra_bias=inp["extra_bias"])
     out["vectors"] = idx.get_vectors(inp["get"])
     try:
         idx.add(np.ones((idx.capacity, idx.dim), np.float32))

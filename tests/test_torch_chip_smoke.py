@@ -128,6 +128,26 @@ def test_cpu_rehearsal_runs_every_phase():
     assert any("shard of " in ln and "tile_scores at " in ln for ln in lines)
     assert any("] mesh world 1: gloo: one batch" in ln
                and "rows match the plain exact fused reference" in ln for ln in lines)
+    # the API over HTTP on the minilm run's index, and the CLI chain
+    api = "small-topic/source/api"
+    for phase in ("api warmup", "api load", "api cache and batch", "api filtered",
+                  "api funnel", "api mutations", "api cli"):
+        assert any(f"] {phase}: {api}" in ln for ln in lines), phase
+    assert any("] api warmup: " in ln and "warmup 7 dispatches" in ln for ln in lines)
+    assert any("] api load: " in ln and "requests/s" in ln and "coalesced batch mean"
+               in ln and "cache-key encode" in ln and "200 and uncached, every row "
+               "equals search_batch" in ln for ln in lines)
+    assert any("] api cache and batch: " in ln and "all cached and equal to their first "
+               "responses" in ln and "equal the direct search_batch bit for bit" in ln
+               for ln in lines)
+    assert any("] api filtered: " in ln and "every row in group 3 and equal to the plain "
+               "masked exact top-10" in ln and "all_metadata" in ln for ln in lines)
+    assert any("] api funnel: " in ln and "equals run_funnel_batch" in ln for ln in lines)
+    assert any("] api mutations: " in ln and "returns the new doc" in ln
+               and "no longer return it" in ln for ln in lines)
+    assert any("] api cli: " in ln and "python -m hybridsearch_tpu_torch index of" in ln
+               and "start to healthy" in ln and "search --json" in ln for ln in lines)
+    assert not os.path.exists(os.path.join(REPO, "chiprun_out", "api"))
     # the trainers: both one-device trainers held to the port on the CPU,
     # the train state and encoder round trips, the mesh step against the
     # one-device step

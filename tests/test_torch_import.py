@@ -13,9 +13,13 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import hybridsearch_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, "hybridsearch_tpu_torch."):
+    # the FastAPI adapter imports fastapi at import, as the JAX package's
+    # does: where fastapi is not installed it is the one module left out
+    if m.name.endswith(".fastapi_app") and importlib.util.find_spec("fastapi") is None:
+        continue
     importlib.import_module(m.name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -104,3 +108,44 @@ def test_ivf_index_defaults_to_the_card():
     else:
         with pytest.raises(RuntimeError):
             IVFIndex()
+
+
+_API_PROBE = """
+import sys
+from hybridsearch_tpu_torch.api import EngineState, Router, build_router
+from hybridsearch_tpu_torch.api.batching import BatchTimeout, SearchBatcher
+from hybridsearch_tpu_torch.api.cli import main
+from hybridsearch_tpu_torch.api.httpd import APIServer, make_handler, serve
+from hybridsearch_tpu_torch.api.schemas import ROUTE_SPECS, build_openapi
+from hybridsearch_tpu_torch.api.webui import HTML_PAGE, streamlit_app
+from hybridsearch_tpu_torch.demo import run_demo
+import hybridsearch_tpu_torch.__main__
+from hybridsearch_tpu_torch.evaluation import beir, harness, metrics, multilingual, oracle
+from hybridsearch_tpu_torch.evaluation import ood_english, synth_beir
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "hybridsearch_tpu",
+                                    "pydantic", "fastapi", "streamlit", "requests"))
+print(bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_the_api_demo_and_evaluation_import_no_jax():
+    """The API, the CLI, ``python -m``'s module, the demo and the
+    evaluation package load with no JAX module, and without pydantic,
+    fastapi, streamlit or requests (the card's machine has none of them;
+    each is imported where a route or a UI needs it)."""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _API_PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_engine_state_defaults_to_the_card():
+    from hybridsearch_tpu_torch.api.app import EngineState
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EngineState()

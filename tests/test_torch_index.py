@@ -311,3 +311,57 @@ def test_dense_delete_rejects_out_of_range_ids():
         assert tidx.store.deleted_ids() == []
     assert tidx.delete_documents([2]) == 1
     assert (tidx.dense.deleted_count, tidx.store.deleted_ids()) == (1, [2])
+
+
+@pytest.mark.parametrize("n, capacity_round", [(300, 4096), (1000, 65536)],
+                         ids=["scan", "tiled"])
+def test_dense_search_extra_bias_matches_jax(n, capacity_round):
+    """``DenseIndex.search(extra_bias=)``, the metadata pre-filter: an [n]
+    bias (shorter than capacity; -inf masks, finite values shift) added to
+    the tombstone bias gives JAX's values (atol 1e-5) and ids (outside
+    near-ties within 1e-4), on both of JAX's routes (its scan below a
+    65,536-row capacity, its tiled top-k from there)."""
+    from hybridsearch_tpu.index.dense_index import DenseIndex as JDense
+    from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+
+    rng = np.random.default_rng(11)
+    vecs = rng.standard_normal((n, 32)).astype(np.float32)
+    q = rng.standard_normal((4, 32)).astype(np.float32)
+    bias = np.where(rng.random(n) < 0.25, 0.0, -np.inf).astype(np.float32)
+    bias[:8] = 0.05  # a finite shift reaches the scores too
+    jidx = JDense(dim=32, capacity_round=capacity_round).build(vecs)
+    tidx = DenseIndex(dim=32, capacity_round=capacity_round, device=CPU).build(vecs)
+    for ix in (jidx, tidx):
+        ix.delete([3, 17])
+    jv, ji = jidx.search(q, 10, extra_bias=jnp.asarray(bias))
+    for eb in (bias, torch.from_numpy(bias)):
+        tv, ti = tidx.search(q, 10, extra_bias=eb)
+        np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-5)
+        for b in range(len(q)):
+            for j in np.nonzero(ti[b] != ji[b])[0]:
+                assert (np.abs(jv[b] - jv[b, j]) <= 1e-4).sum() > 1
+        keep = (bias == 0.0) | (bias == np.float32(0.05))
+        keep[[3, 17]] = False
+        assert keep[ti].all()
+
+
+def test_dense_search_without_extra_bias_is_unchanged():
+    """``extra_bias=None`` leaves the search as it was bit for bit (the
+    tombstone bias alone into ``tiled_dense_topk``), and a zero bias gives
+    the same rows."""
+    from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+    from hybridsearch_tpu_torch.ops.dense import l2_normalize, tiled_dense_topk
+
+    rng = np.random.default_rng(12)
+    tidx = DenseIndex(dim=16, device=CPU).build(rng.standard_normal((500, 16)))
+    tidx.delete([1, 2, 40])
+    q = torch.from_numpy(rng.standard_normal((3, 16)).astype(np.float32))
+    snap = tidx._snap
+    vals, idxs = tiled_dense_topk(l2_normalize(q), snap.docs, 12, bias=snap.bias)
+    valid = (idxs >= 0) & (idxs < snap.n)
+    want = (torch.where(valid, vals, float("-inf")).numpy(),
+            torch.where(valid, idxs, -1).numpy())
+    for got in (tidx.search(q, 12), tidx.search(q, 12, extra_bias=None),
+                tidx.search(q, 12, extra_bias=np.zeros(500, np.float32))):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])

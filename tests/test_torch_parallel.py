@@ -170,6 +170,21 @@ def _carried_searcher(jmesh):
     return js, inp
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _jax_counters_kept():
+    """The JAX package warns of a mesh hybrid's downgrade only at its
+    process-wide counter's first count, and tests/test_advice_fixes.py
+    asserts that warning: the JAX fallbacks this module runs give the
+    counters back as they found them."""
+    from hybridsearch_tpu.utils.tracing import GLOBAL_COUNTERS
+
+    saved = GLOBAL_COUNTERS.all()
+    yield
+    with GLOBAL_COUNTERS._lock:
+        GLOBAL_COUNTERS._counts.clear()
+        GLOBAL_COUNTERS._counts.update(saved)
+
+
 @pytest.fixture(scope="module")
 def jmesh():
     return jbuild_mesh(n_data=S, devices=jax.devices()[:S])

@@ -596,3 +596,22 @@ def test_services_import_no_optional_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          check=True, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("text", ["group:3", "NOT group:3", "group:>5 OR lang:en",
+                                  "group:!=2", "NOT (lang:en AND group:<4)"])
+def test_to_bias_over_sparse_metadata_equals_jax(text):
+    """``to_bias`` judges a doc without metadata once (as ``{}``) and walks
+    only the docs that carry some: the same bias as the JAX package's walk
+    over every doc, for filters that pass or fail an empty record, with
+    metadata on ids past ``n_docs`` ignored."""
+    jm, tm = both("services.metadata_filter")
+    rng = np.random.default_rng(3)
+    meta = {int(i): {"group": int(rng.integers(0, 8)),
+                     "lang": str(rng.choice(["en", "de"]))}
+            for i in rng.choice(5000, 700, replace=False)}
+    meta[7000] = {"group": 3, "lang": "en"}  # past n_docs
+    want = jm.to_bias(jm.FilterParser().parse(text), meta, 5000)
+    got = tm.to_bias(tm.FilterParser().parse(text), meta, 5000)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and got.shape == (5000,)

@@ -79,6 +79,8 @@ def _jax_dense(jmesh, inp, save_dir=None):
     out["search_added"] = idx.search(inp["new"][2:3], 1)
     idx.delete(inp["dead"])
     out["search_dead"] = idx.search(inp["q"], inp["k"])
+    out["search_bias"] = idx.search(inp["q"], inp["k"],
+                                    extra_bias=jax.numpy.asarray(inp["extra_bias"]))
     out["capacity"] = idx.capacity
     if save_dir:
         idx.save(save_dir)
@@ -111,6 +113,11 @@ def world(jmesh, demo_docs, tmp_path_factory):
              "new": rng.standard_normal((5, 64)).astype(np.float32),
              "dead": np.array([79, 80, 159, 7]), "get": [0, 79, 80, 250, 304],
              "save_dir": str(tmp / "mesh_save"), "one_shard_dir": one_dir}
+    # the metadata pre-filter's bias over the 305 rows after the add: about
+    # half masked, across every shard, with a finite shift on a few rows
+    eb = np.where(np.random.default_rng(7).random(305) < 0.5, 0.0, -np.inf)
+    eb[[78, 81, 123]] = 0.05
+    dense["extra_bias"] = eb.astype(np.float32)
     single_npz = str(tmp / "single_bm25.npz")
     JBM25().fit(demo_docs).save(single_npz)
     bm25 = {"docs": list(demo_docs), "queries": QUERIES + ["zzz nothing"],
@@ -190,6 +197,21 @@ def test_dense_index_on_mesh_matches_jax(world, jdense):
     vecs = np.concatenate([inp["vecs"], inp["new"]])
     unit = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
     np.testing.assert_allclose(got["vectors"], unit[inp["get"]], rtol=1e-5, atol=1e-6)
+
+
+def test_dense_index_on_mesh_extra_bias_matches_jax(world, jdense):
+    """``DenseIndex.search(extra_bias=)`` on the mesh: each rank adds its
+    own rows' part of the [n] bias (zero-padded to capacity) to its
+    tombstone bias; every rank's answer is JAX's, and no masked or
+    tombstoned row comes back."""
+    inputs, _jivf, four, _one = world
+    got = _ranks(four, "dense_index")[0]["search_bias"]
+    want = jdense[0]["search_bias"]
+    _same_topk(got[0], got[1], want[0], want[1])
+    inp = inputs["dense_index"]
+    ids = got[1].ravel()
+    assert np.isfinite(inp["extra_bias"][ids]).all()
+    assert not set(inp["dead"].tolist()) & set(ids.tolist())
 
 
 def test_dense_index_save_at_four_shards_is_the_jax_layout(world, jdense):
