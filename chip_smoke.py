@@ -41,6 +41,15 @@ of the one-call ``hybrid_supertile_topk`` at s_probe 2 and 16 (K1-K3),
 equal bit for bit to ``super_prefix`` + one rung. The route kernels'
 launches of each run are counted, all seven of them.
 
+On the same index, "dense/int8_swept" takes the first batch through
+``quantize_corpus_int8`` and ``int8_swept_topk`` (pass 1 an int8 product,
+``torch._int_mm``; pass 3 K4 at tile grain) at probe_tiles 4k, then 16k and
+every tile on the rows left uncertified: each certified row must equal the
+exact ``tiled_dense_topk`` bit for bit, ``dense_topk`` must equal
+``tiled_dense_topk``, ``cosine_scores`` and ``pairwise_cosine`` must match
+float64 numpy, and K1 and K4 must launch. ``QueryTracer`` then profiles
+one batch; its trace must name K1's kernel.
+
 The default configuration's path comes next: the same small-topic corpus
 indexed under ``layout="source"`` and served through the impact ladder,
 whose rungs run the dense sweep (K1), pass 3 of the dense top-k (K4 at
@@ -63,12 +72,21 @@ per-tile weight-sum row; the rows' count, bytes and build seconds (inside
 the ``bm25_s`` stage) are printed. "Regime 1" serves a corpus a quarter of the size, below
 ``SPARSE_HYBRID_MIN_DOCS``, through the full [B, n] fused program; one
 batch is served twice and must be equal bit for bit. A corpus with larger topics is served on the
-clustered path. "small-topic/ivf" is the one other new build: the
+clustered path; its index is built in a process of its own beside the
+lifecycle run, saved, and loaded (``Indexer.load``) to be served. "small-topic/ivf" is the one other new build, built
+and served in a process of its own beside the lifecycle run: the
 small-topic corpus with ``ann="ivf"`` on the clustered layout (the IVF
 adopts the dense buffer and the layout's k-means), served in scatter mode:
 every row against a plain scatter reference over the same IVF top 2k, the
 IVF at full probe against ``DenseIndex.search``, recall@10 at nprobe 8
-printed as a reading. Each of those runs is given the hashing encoder.
+printed as a reading; "ivf bf16" builds a float32 and a bfloat16
+``IVFIndex`` of the same rows, seed and cluster count and serves the
+run's batches through both: equal ids but at 2^-8 near-ties, half the
+bytes, recall@10 of each. Each of those runs is given the hashing encoder.
+The mesh run's ranks also drive the "mesh routes": ``DenseIndex.add`` past
+the sharded capacity and ``compact`` (rows moving between ranks), a small
+sharded ``Indexer`` grown past its capacity and exported to JSON, imported
+on one device, and ``HybridBM25Pipeline.search``, each held to one device.
 
 Last, "small-topic/source/minilm" runs the default configuration as a user
 keeps it: small-topic under ``layout="source"`` with no encoder given, so
@@ -142,6 +160,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -236,6 +255,18 @@ class Clock:
         print(f"[{el:8.1f}s] {name}{': ' + detail if detail else ''}", flush=True)
         if el > self.budget_s:
             raise RuntimeError(f"over the {self.budget_s:.0f} s budget at {name}")
+
+
+class LineClock(Clock):
+    """A Clock that keeps its phase lines for the parent to print (a
+    process of the smoke's own prints nothing), with no budget of its own."""
+
+    def __init__(self):
+        super().__init__(float("inf"))
+        self.lines = []
+
+    def phase(self, name: str, detail: str = "") -> None:
+        self.lines.append((name, detail))
 
 
 def sync(dev: torch.device) -> None:
@@ -558,8 +589,6 @@ def make_corpus(sz: dict, corpus: str, seed: int):
     topic_docs, n_tw, n_bw, tv = CORPORA[corpus]
     n, V = sz["n_docs"], sz["n_background"]
     T = max(1, n // topic_docs)
-    zipf = 1.0 / np.arange(1, V + 1) ** 1.1
-    zipf /= zipf.sum()
     key = (corpus, seed, n, V)
     if key not in _CORPUS_CACHE:
         rng = np.random.default_rng(seed)
@@ -567,11 +596,26 @@ def make_corpus(sz: dict, corpus: str, seed: int):
         words += [f"w{r}" for r in range(V)]
         topic = rng.integers(0, T, n)
         tw = topic[:, None] * tv + rng.integers(0, tv, (n, n_tw))
-        bw = T * tv + rng.choice(V, size=(n, n_bw), p=zipf)
+        bw = T * tv + rng.choice(V, size=(n, n_bw), p=_zipf(V))
         mat = rng.permuted(np.concatenate([tw, bw], axis=1), axis=1)
-        docs = [" ".join([words[i] for i in row]) for row in mat.tolist()]
+        docs = list(map(" ".join, np.array(words, dtype=object)[mat].tolist()))
         _CORPUS_CACHE[key] = (docs, rng.bit_generator.state)
     docs, state = _CORPUS_CACHE[key]
+    return docs, query_maker(sz, corpus, state)
+
+
+def _zipf(V: int) -> np.ndarray:
+    z = 1.0 / np.arange(1, V + 1) ** 1.1
+    return z / z.sum()
+
+
+def query_maker(sz: dict, corpus: str, state: dict):
+    """``make_corpus``'s query maker from its generator's state after the
+    draw (a process that did not draw the corpus can make its queries)."""
+    topic_docs, _n_tw, _n_bw, tv = CORPORA[corpus]
+    V = sz["n_background"]
+    T = max(1, sz["n_docs"] // topic_docs)
+    zipf = _zipf(V)
     rng = np.random.Generator(np.random.PCG64())
     rng.bit_generator.state = state
 
@@ -585,7 +629,7 @@ def make_corpus(sz: dict, corpus: str, seed: int):
             out.append(" ".join([f"t{t}x{j}" for j in js] + [f"w{b}"]))
         return out
 
-    return docs, queries
+    return queries
 
 
 # -- phase 4: the plain exact reference -----------------------------------------
@@ -1581,6 +1625,11 @@ def main(argv=None) -> int:
     detail["corpora"]["small-topic/one-call"] = one_call
     for s_probe, row in one_call.items():
         routes[f"small-topic/one-call s_probe={s_probe}"] = row["launches"]
+    int8 = serve_int8_swept(run, sz, dev, clock, kind, smi)
+    detail["corpora"][INT8_LABEL] = int8
+    routes[INT8_LABEL] = int8["launches"]
+    routes[DENSE_TOPK_LABEL] = int8["dense_topk_launches"]
+    detail["query_tracer"] = trace_batch(run, dev, clock)
     del lev, caps, gated
     clock.phase("P1 check", "small-topic: " + check_p1(rec))
     del rec
@@ -1658,44 +1707,47 @@ def main(argv=None) -> int:
         ("; times not reported (cpu rehearsal)" if rehearsal else
          ", each bit-equal to its first design")))
 
-    detail["corpora"]["small-topic/source/lifecycle"] = serve_lifecycle(
-        sz, dev, args.seed, clock, kind, smi, oneshot)
-    del oneshot
-
-    regime = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
-    detail["regime_1"] = {k: v for k, v in regime.items() if k != "searcher"}
-    # one batch on a world of one NCCL rank, beside large-topic's build
+    # large-topic's index build (a process of its own), one batch on a
+    # world of one NCCL rank, the IVF run (a process of its own) and the API
+    # run's CLI chain (``index`` + ``serve`` of a small corpus of its own,
+    # each a process that starts torch and the card) run beside the
+    # lifecycle run's build, set-up stages; the chain is healthy before the
+    # minilm run's timed batches
+    large_world = start_large(sz, dev, args.seed + 1, rehearsal)
     world1 = start_nccl_batch(sz, dev, args.seed + 2, rehearsal)
-
-    def collect_world1():
-        detail["mesh_world1"] = finish_nccl_batch(world1, regime, clock)
-
-    try:
-        detail["corpora"]["large-topic"] = serve_corpus(
-            "large-topic", "clustered", sz, dev, args.seed + 1, clock, kind, smi,
-            main_path=False, before_serve=collect_world1)["stats"]
-    except BaseException:
-        world1[0].stop()
-        raise
-    del regime
-
-    # the API run's CLI chain (``index`` + ``serve`` of a small corpus of
-    # its own, each a process that starts torch and the card) runs beside
-    # the IVF run's index build, a set-up stage, not a timed batch
+    ivf_world = start_ivf(sz, dev, args.seed, kind, smi, rehearsal)
     chain = CliChain(make_corpus(dict(sz, n_docs=API_SIZES[
         "cpu" if rehearsal else "card"]["cli_docs"]), "small-topic", args.seed + 3)[0],
         rehearsal)
     try:
-        # the chain's processes start the card and load the encoder: they
-        # are done before the IVF run's timed batches
-        ivf = serve_ivf(sz, dev, args.seed, clock, kind, smi,
-                        before_serve=chain.wait_healthy)
+        detail["corpora"]["small-topic/source/lifecycle"] = serve_lifecycle(
+            sz, dev, args.seed, clock, kind, smi, oneshot)
+        del oneshot
+        regime = serve_regime_one(sz, dev, args.seed + 2, clock, kind, smi)
+        detail["regime_1"] = {k: v for k, v in regime.items() if k != "searcher"}
+
+        def collect_world1():
+            detail["mesh_world1"] = finish_nccl_batch(world1, regime, clock)
+
+        large: dict = {}
+        run = serve_corpus("large-topic", "clustered", sz, dev, args.seed + 1, clock, kind,
+                           smi, False, before_serve=collect_world1,
+                           load=load_large(large_world, sz, dev, clock, large))
+        run["searcher"].indexer.close()
+        detail["corpora"]["large-topic"] = dict(run["stats"], **large)
+        del run, regime
+        ivf = finish_ivf(ivf_world, clock)
+        chain.wait_healthy()
         detail["corpora"]["small-topic/source/minilm"], handoff = serve_minilm(
             minilm, sz, dev, clock, kind, smi)
         pipelines = serve_pipelines(handoff, sz, dev, clock, kind, smi)
     except BaseException:
+        for world in (large_world, world1, ivf_world):
+            world[0].stop()
         chain.stop()
         raise
+    finally:
+        shutil.rmtree(LARGE_DIR, ignore_errors=True)
     detail["corpora"]["small-topic/ivf"] = ivf
     routes["small-topic/ivf"] = ivf["launches"]
     order = list(KERNEL_META)
@@ -1787,17 +1839,23 @@ def hashing_encoder(sz: dict, dev: torch.device):
 
 def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
                  clock: Clock, label: str, at_scale: bool = True, prepare=None,
-                 ann: str = "flat"):
+                 ann: str = "flat", load=None):
     """Index one corpus under ``layout`` (and ``config.index.ann``) through
     ``Indexer.index_documents`` and, ``at_scale``, build its ladder's
     lexical structures. The searcher
     serves the hashing encoder unless ``prepare`` is given: then the
     Indexer resolves its own default encoder, and ``prepare(searcher)``
     runs before indexing and returns a function that adds stages to the
-    index timings. Returns (searcher, make_queries, index timings)."""
+    index timings. ``load()``, if given, stands for the draw and the build:
+    it prints their phases and returns what this returns, for an index
+    built elsewhere. Returns (searcher, make_queries, index timings)."""
     from hybridsearch_tpu_torch.config import EngineConfig
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
+    if load is not None:
+        searcher, make_queries, timings = load()
+        return searcher, make_queries, _lexical_tier(searcher, layout, label, at_scale,
+                                                     dev, clock, timings)
     docs, make_queries = make_corpus(sz, corpus, seed)
     clock.phase("corpus", f"{label}: {len(docs)} docs, "
                 f"{sum(len(d) for d in docs)} chars")
@@ -1814,6 +1872,14 @@ def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
         finish(built["timings_s"])
     stages = ", ".join(f"{k} {v:.1f}" for k, v in built["timings_s"].items())
     clock.phase("index_documents", f"{label}: {stages}")
+    return searcher, make_queries, _lexical_tier(searcher, layout, label, at_scale, dev,
+                                                 clock, built["timings_s"])
+
+
+def _lexical_tier(searcher, layout: str, label: str, at_scale: bool, dev: torch.device,
+                  clock: Clock, timings: dict) -> dict:
+    """``index_corpus``'s last step: the ladder's lexical structures of the
+    indexed corpus, at scale. Returns ``timings``."""
     t = time.perf_counter()
     bm25 = searcher.indexer.bm25
     if not at_scale:
@@ -1831,19 +1897,20 @@ def index_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
                     f"{len(imp.weights_host)} pruned postings (p_max "
                     f"{imp.p_max}; {n_trunc} of {len(imp.df_host)} terms "
                     "truncated)")
-    return searcher, make_queries, built["timings_s"]
+    return timings
 
 
 def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: int,
                  clock: Clock, kind: str, smi: str, main_path: bool,
-                 before_serve=None) -> dict:
-    """Index one corpus (``index_corpus``), run ``before_serve()`` if given
-    (collecting a world of ranks that ran beside the build), and serve it
-    (``serve_batches``): one warm-up and ``n_batches`` timed batches.
-    Returns serve_batches' dict plus "searcher", "warm" and "batches"."""
+                 before_serve=None, load=None) -> dict:
+    """Index one corpus (``index_corpus``; ``load`` as there), run
+    ``before_serve()`` if given (collecting a world of ranks that ran beside
+    the build), and serve it (``serve_batches``): one warm-up and
+    ``n_batches`` timed batches. Returns serve_batches' dict plus
+    "searcher", "warm" and "batches"."""
     label = corpus if layout == "clustered" else f"{corpus}/{layout}"
     searcher, make_queries, timings = index_corpus(corpus, layout, sz, dev, seed,
-                                                   clock, label)
+                                                   clock, label, load=load)
     if before_serve is not None:
         before_serve()
     warm = make_queries(sz["batch"])
@@ -2269,6 +2336,161 @@ def serve_one_call(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: s
     return out
 
 
+INT8_LABEL = "dense/int8_swept"
+DENSE_TOPK_LABEL = "dense/dense_topk"
+INT8_PROBES = (4, 16)  # probe_tiles = m * TOP_K at the first rungs; then every tile
+INT8_CHECK_ROWS = 8  # a rung with no uncertified row left runs on this many rows
+COSINE_ROWS = 2048  # rows of the cosine_scores / pairwise_cosine check
+COSINE_TOL = 1e-5  # against float64 numpy
+
+
+def serve_int8_swept(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
+                     smi: str) -> dict:
+    """"dense/int8_swept": the small-topic index's dense rows (the clustered
+    run's snapshot, not re-indexed) through ``quantize_corpus_int8`` and
+    ``int8_swept_topk`` on the first batch's queries (B = 256, k = TOP_K)
+    at probe_tiles = 4k, the uncertified rows escalated to 16k and then to
+    every tile (a rung with none left runs on INT8_CHECK_ROWS rows, so each
+    rung is checked and timed). Every certified row must equal the exact
+    ``tiled_dense_topk``
+    (K1, then K4 at tile grain; the sweep's pass 3 is K4 at tile grain too)
+    in ids and, bit for bit, in values, and every row must be certified
+    after the last rung; ``dense_topk`` must equal ``tiled_dense_topk``;
+    ``cosine_scores`` and ``pairwise_cosine`` on COSINE_ROWS rows must
+    match float64 numpy within COSINE_TOL. The references run outside any
+    count; the rungs are counted on their own and must launch K4, and
+    ``dense_topk`` on its own and must launch K1 and K4. The
+    quantization, each rung and pass 1 alone are timed; the certified
+    share at each rung and the int8 copy's bytes are printed."""
+    from hybridsearch_tpu_torch.ops import dense as dm
+
+    label = INT8_LABEL
+    idx = run["searcher"].indexer
+    snap = idx.dense._snap
+    n = snap.n
+    docs, bias = snap.docs[:n], snap.bias[:n]
+    q = dm.l2_normalize(idx.encoder.encode(run["batches"][0]).float())
+    B = q.shape[0]
+    sync(dev)
+    t = time.perf_counter()
+    d8, scale, resid = dm.quantize_corpus_int8(docs)
+    sync(dev)
+    quantize_s = time.perf_counter() - t
+    int8_bytes = d8.numel() * d8.element_size() + 4 * (scale.numel() + resid.numel())
+    n_tiles = int(resid.shape[0])
+    # the exact references, outside any count
+    ev, ei = dm.tiled_dense_topk(q, docs, TOP_K, bias=bias)
+    tv, ti = dm.tiled_dense_topk(q, docs, TOP_K)
+    launches: dict = {}
+    rungs = []
+    with counting(launches):
+        pending = torch.arange(B, device=dev)
+        for probe in [m * TOP_K for m in INT8_PROBES] + [n_tiles]:
+            escalated = bool(pending.numel())
+            if not escalated:  # every row certified: the rung on a few rows
+                pending = torch.arange(min(INT8_CHECK_ROWS, B), device=dev)
+            qp = q[pending]
+            v, i, c = dm.int8_swept_topk(qp, d8, scale, docs, resid, TOP_K,
+                                         probe_tiles=probe, bias=bias)
+            why = _topk_within(v[c], i[c], ev[pending][c], ei[pending][c], 0.0)
+            if why:
+                raise AssertionError(f"{label}: a certified row at probe_tiles "
+                                     f"{probe} differs from tiled_dense_topk: {why}")
+            rungs.append({"probe_tiles": probe, "rows": int(pending.numel()),
+                          "certified": int(c.sum()), "escalated": escalated,
+                          "queries": qp})
+            pending = pending[~c] if escalated else pending[:0]
+    if rungs[-1]["certified"] != rungs[-1]["rows"]:
+        raise AssertionError(f"{label}: {rungs[-1]['rows'] - rungs[-1]['certified']} "
+                             "rows uncertified with every tile probed")
+    _require_launched(label, launches, ("super_scores_dedup",), dev)
+    # dense_topk's tiled route (the card's size takes it at the default
+    # block_n; the rehearsal's needs a smaller one), counted on its own
+    topk_launches: dict = {}
+    with counting(topk_launches):
+        dv, di = dm.dense_topk(q, docs, TOP_K, block_n=min(4096, n // 4))
+    why = _topk_within(dv, di, tv, ti, 0.0)
+    if why:
+        raise AssertionError(f"{label}: dense_topk differs from tiled_dense_topk: {why}")
+    _require_launched(DENSE_TOPK_LABEL, topk_launches, ("tile_stats", "super_scores_dedup"),
+                      dev)
+    for r in rungs:  # timed apart from the counted run
+        qp, probe = r.pop("queries"), r["probe_tiles"]
+        r["ms"] = time_ms(lambda: dm.int8_swept_topk(qp, d8, scale, docs, resid, TOP_K,
+                                                     probe_tiles=probe, bias=bias),
+                          dev, reps=3)
+    q8, inv, _rq = dm._quantize_queries(q)
+    pass1_ms = time_ms(lambda: dm._int8_tile_maxima(q8, inv, d8, scale, bias, n,
+                                                    262144, 128), dev, reps=3)
+    exact_ms = time_ms(lambda: dm.tiled_dense_topk(q, docs, TOP_K, bias=bias), dev,
+                       reps=3)
+    rows = docs[:COSINE_ROWS]
+    q64, d64 = q.double().cpu().numpy(), rows.double().cpu().numpy()
+    q64 /= np.linalg.norm(q64, axis=1, keepdims=True)
+    d64 /= np.linalg.norm(d64, axis=1, keepdims=True)
+    cos_err = float(np.abs(dm.cosine_scores(q, rows).cpu().numpy() - q64 @ d64.T).max())
+    pair_err = float(np.abs(dm.pairwise_cosine(rows).cpu().numpy() - d64 @ d64.T).max())
+    if max(cos_err, pair_err) > COSINE_TOL:
+        raise AssertionError(f"{label}: cosine_scores / pairwise_cosine off float64 "
+                             f"by {cos_err} / {pair_err}")
+    stats = {"n_docs": n, "queries": B, "k": TOP_K, "n_tiles": n_tiles,
+             "quantize_s": quantize_s, "int8_bytes": int8_bytes,
+             "float32_bytes": docs.numel() * 4, "rungs": rungs,
+             "pass1_ms": pass1_ms, "exact_tiled_ms": exact_ms,
+             "certified_first_rung": rungs[0]["certified"], "launches": launches,
+             "dense_topk_launches": topk_launches,
+             "cosine_max_err": cos_err, "pairwise_max_err": pair_err}
+    rung_text = "; ".join(f"probe_tiles {r['probe_tiles']}: {r['certified']} of "
+                          f"{r['rows']} {'' if r['escalated'] else 'check '}rows "
+                          f"certified, {r['ms']:.3f} ms" for r in rungs)
+    clock.phase(label, (
+        f"{n} docs x {docs.shape[1]} (small-topic's clustered snapshot), B={B}, "
+        f"k={TOP_K}: quantize_corpus_int8 {quantize_s * 1e3:.1f} ms, int8 copy "
+        f"{int8_bytes} bytes (float32 {docs.numel() * 4}); {rung_text}; every "
+        f"certified row equals tiled_dense_topk (ids; values bit for bit); pass 1 "
+        f"alone {pass1_ms:.3f} ms, exact tiled_dense_topk {exact_ms:.3f} ms; "
+        f"dense_topk = tiled_dense_topk; cosine_scores / pairwise_cosine on "
+        f"{COSINE_ROWS} rows within {cos_err:.2e} / {pair_err:.2e} of float64; "
+        f"the rungs' launches {json.dumps(launches)}, dense_topk's "
+        f"{json.dumps(topk_launches)} ({kind}; {smi})"))
+    return stats
+
+
+TRACE_DIR = "chiprun_out/trace"  # QueryTracer's output; removed after the check
+K1_TRACE_NAME = "tile_stats_kernel<"  # K1's kernel as the trace names it
+
+
+def trace_batch(run: dict, dev: torch.device, clock: Clock) -> dict:
+    """``QueryTracer.profile`` around one small-topic batch (the clustered
+    run's ``search_batch``): one trace file must appear under TRACE_DIR and,
+    on the card, name K1's kernel. The file is removed after the check."""
+    import shutil
+
+    from hybridsearch_tpu_torch.utils.tracing import QueryTracer
+
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    with QueryTracer(TRACE_DIR).profile() as log_dir:
+        run["searcher"].search_batch(run["batches"][0], top_k=TOP_K, log=False)
+        sync(dev)
+    seconds = time.perf_counter() - t
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"QueryTracer: {len(files)} trace files in {log_dir}")
+    path = os.path.join(log_dir, files[0])
+    size = os.path.getsize(path)
+    with open(path) as f:
+        names_k1 = K1_TRACE_NAME in f.read()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    if dev.type == "cuda" and not names_k1:
+        raise AssertionError(f"QueryTracer: the trace does not name K1 "
+                             f"({K1_TRACE_NAME!r})")
+    clock.phase("query tracer", (
+        f"one small-topic batch profiled into {log_dir} in {seconds:.2f} s: "
+        f"{files[0]}, {size} bytes, names K1's kernel: {names_k1} (removed)"))
+    return {"seconds": seconds, "bytes": size, "names_k1": names_k1}
+
+
 def serve_sparse(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
                  smi: str, hot_build_s: float) -> dict:
     """The source index of ``run``, not re-indexed, served through
@@ -2344,7 +2566,7 @@ def serve_sparse(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str
 
 
 def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
-              smi: str, before_serve=None) -> dict:
+              smi: str) -> dict:
     """"small-topic/ivf": the small-topic corpus indexed with
     ``layout="clustered"`` and ``ann="ivf"`` (sqrt(N) clusters, nprobe 8; the
     layout's k-means is the quantizer and the IVF adopts the dense buffer)
@@ -2354,8 +2576,8 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
     reference built from the same IVF top 2k. The IVF at full probe must
     equal ``DenseIndex.search``; recall@10 at nprobe 8 against it is a
     reading. The route runs none of the seven kernels (the JAX package's IVF
-    has no Pallas kernel); their counts are read all the same.
-    ``before_serve()``, if given, runs between the build and the batches."""
+    has no Pallas kernel); their counts are read all the same. Runs in
+    ``ivf_rank``, a process of its own."""
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
     label = "small-topic/ivf"
@@ -2372,8 +2594,9 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
         f"cluster's centroid), nprobe {ivf.nprobe}; the IVF holds the dense "
         f"snapshot's buffer ({snap.capacity} rows, {idx.dense.reserve_rows} "
         f"reserved): one corpus copy"))
-    if before_serve is not None:
-        before_serve()
+    # "ivf bf16" set-up: a float32 and a bfloat16 IVFIndex.build of the same
+    # rows (the dense snapshot's), seed and cluster count
+    bf16 = build_ivf_pair(snap.docs[:snap.n], built.config, ivf, dev)
     searcher = Searcher(indexer=idx, use_query_memory=False, config=built.config,
                         semantic_mode="scatter")
     warm = make_queries(sz["batch"])
@@ -2422,6 +2645,7 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
         _v, got = ivf.search(qv, TOP_K)
         _v, want = idx.dense.search(qv, TOP_K)
         recalls += [len(set(g) & set(w)) / TOP_K for g, w in zip(got, want)]
+        serve_ivf_pair(bf16, qv, want, snap.docs, dev)
     n_q = sum(len(qs) for qs in batches)
     qps, p50, p99, text = _latency_text(lat, n_q, sz, kind, smi)
     stats = {"index_timings_s": timings, "chunks": n_chunks, "chunk_cap": ivf._cap,
@@ -2432,6 +2656,7 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
              float(np.mean(recalls)), "qps": qps, "p50_ms": p50, "p99_ms": p99,
              "batch_ms": [x * 1e3 for x in lat], "repeat_equal": True}
     stats["ivf_search_peak_bytes"] = peak
+    stats["bf16"] = report_ivf_pair(bf16, float(np.mean(recalls)), clock, kind, smi)
     if dev.type == "cuda":
         stats["profile"] = profile_batch(searcher, batches[0])
         clock.phase("profile", f"{label}: " + stats["profile"])
@@ -2443,6 +2668,88 @@ def serve_ivf(sz: dict, dev: torch.device, seed: int, clock: Clock, kind: str,
         f"reference over the same IVF top {k2}; recall@{TOP_K} at nprobe "
         f"{ivf.nprobe} against exact search {np.mean(recalls):.4f} (a reading); IVF "
         f"search peak {peak} bytes at B={sz['batch']}, k={k2}; {text}"))
+    return stats
+
+
+BF16_TIE = 2.0 ** -8  # a unit row's bfloat16 rounding moves a score at most 2^-9
+
+
+def build_ivf_pair(rows: torch.Tensor, config, ivf, dev: torch.device) -> dict:
+    """"ivf bf16"'s two indexes: ``IVFIndex.build`` of ``rows`` in float32
+    and with ``storage_dtype=torch.bfloat16``, with the IVF run's cluster
+    count (the layout k-means'), nprobe and seed; each build timed."""
+    from hybridsearch_tpu_torch.index.ivf import IVFIndex
+
+    n = rows.shape[0]
+    clusters = config.index.ivf_clusters or max(2, int(np.sqrt(n)))
+    pair = {"clusters": clusters, "lat": {"float32": [], "bfloat16": []},
+            "recalls": {"float32": [], "bfloat16": []}, "rows": 0, "swaps": 0}
+    for name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        sync(dev)
+        t = time.perf_counter()
+        pair[name] = IVFIndex(dim=rows.shape[1], n_clusters=clusters, nprobe=ivf.nprobe,
+                              chunk_cap=config.index.ivf_chunk_cap, seed=ivf.seed,
+                              device=dev, storage_dtype=dtype).build(rows)
+        sync(dev)
+        pair[f"{name}_build_s"] = time.perf_counter() - t
+    return pair
+
+
+def serve_ivf_pair(pair: dict, qv: torch.Tensor, exact_ids: np.ndarray,
+                   rows: torch.Tensor, dev: torch.device) -> None:
+    """One batch through both indexes of ``build_ivf_pair`` (each search
+    timed): the bfloat16 index's ids must equal the float32 index's but
+    where the float32 scores (over ``rows``) of the two docs at a slot lie
+    within BF16_TIE; recall@TOP_K of each against ``exact_ids``."""
+    out = {}
+    for name in ("float32", "bfloat16"):
+        sync(dev)
+        t = time.perf_counter()
+        out[name] = pair[name].search(qv, TOP_K)
+        pair["lat"][name].append(time.perf_counter() - t)
+        pair["recalls"][name] += [len(set(g) & set(w)) / TOP_K
+                                  for g, w in zip(out[name][1], exact_ids)]
+    (fv, fi), (bv, bi) = out["float32"], out["bfloat16"]
+    qn = qv.float() / qv.float().norm(dim=1, keepdim=True)
+    for b, j in zip(*np.nonzero(bi != fi)):
+        score = float(qn[b] @ rows[int(bi[b][j])].float())
+        if abs(score - fv[b][j]) > BF16_TIE:
+            raise AssertionError(f"ivf bf16: query {b} slot {j}: doc {bi[b][j]} "
+                                 f"({score}) vs the float32 index's {fi[b][j]} "
+                                 f"({fv[b][j]}): no near-tie")
+    pair["rows"] += len(fi)
+    pair["swaps"] += int((bi != fi).sum())
+
+
+def report_ivf_pair(pair: dict, layout_recall: float, clock: Clock, kind: str,
+                    smi: str) -> dict:
+    """"ivf bf16"'s gate on the bytes and its line: the bfloat16 rows take
+    half the float32 rows' bytes; recall@TOP_K, build and batch times."""
+    f32, b16 = pair["float32"], pair["bfloat16"]
+    if b16._docs_perm.dtype != torch.bfloat16 or (
+            2 * b16._docs_perm.nbytes != f32._docs_perm.nbytes):
+        raise AssertionError(f"ivf bf16: docs_perm {b16._docs_perm.dtype}, "
+                             f"{b16._docs_perm.nbytes} bytes vs {f32._docs_perm.nbytes}")
+    stats = {"clusters": pair["clusters"], "nprobe": f32.nprobe,
+             "docs_perm_bytes": {"float32": f32._docs_perm.nbytes,
+                                 "bfloat16": b16._docs_perm.nbytes},
+             "rows_checked": pair["rows"], "id_swaps_within_tie": pair["swaps"]}
+    for name in ("float32", "bfloat16"):
+        stats[name] = {"build_s": pair[f"{name}_build_s"],
+                       f"recall@{TOP_K}": float(np.mean(pair["recalls"][name])),
+                       "batch_ms": [x * 1e3 for x in pair["lat"][name]]}
+    clock.phase("ivf bf16", (
+        f"IVFIndex.build of the small-topic rows, {pair['clusters']} clusters, nprobe "
+        f"{f32.nprobe}: float32 built in {stats['float32']['build_s']:.2f} s, bfloat16 "
+        f"in {stats['bfloat16']['build_s']:.2f} s (docs_perm "
+        f"{stats['docs_perm_bytes']['bfloat16']} bytes, half of "
+        f"{stats['docs_perm_bytes']['float32']}); on {pair['rows']} queries the ids "
+        f"equal the float32 index's but {pair['swaps']} slots inside 2^-8 "
+        f"near-ties; recall@{TOP_K} against exact search: bfloat16 "
+        f"{stats['bfloat16'][f'recall@{TOP_K}']:.4f}, float32 "
+        f"{stats['float32'][f'recall@{TOP_K}']:.4f} (the layout-adopting IVF "
+        f"{layout_recall:.4f}); batch p50 {np.median(stats['bfloat16']['batch_ms']):.2f}"
+        f" / {np.median(stats['float32']['batch_ms']):.2f} ms ({kind}; {smi})"))
     return stats
 
 
@@ -2477,6 +2784,180 @@ def _rehearse_rank(sz: dict) -> None:
 def _bare_rows(results):
     """search_batch rows without their contents: [(value, doc id), ...]."""
     return [[(v, i) for v, _c, i in row] for row in results]
+
+
+# "mesh routes": the four routes the mesh gained in this slice, inside the
+# mesh world after its checks: (a) DenseIndex.add past the capacity by
+# grow_extra rows, (b) 1% deleted and DenseIndex.compact, (c) a small
+# sharded Indexer grown past its capacity, exported to JSON and imported
+# on one device, (d) HybridBM25Pipeline.search on the mesh index
+MESH_ROUTE_SIZES = {
+    "card": dict(grow_extra=4096, small_docs=16384, small_add=1024, hb_queries=16,
+                 small_round=4096),
+    "cpu": dict(grow_extra=64, small_docs=1024, small_add=128, hb_queries=4,
+                small_round=256),
+}
+MESH_ROUTE_DELETE_SHARE = 0.01
+MESH_EXPORT = "small_export.json"  # route (c)'s file, under MESH_DIR
+MESH_ROUTE_SAMPLE = 4096  # moved and unmoved rows each read back bit for bit
+MESH_ROUTE_TOL = 1e-6  # (c)'s vectors and (d)'s values against one device's
+
+
+def mesh_grow_rows(n_rows: int, dim: int, seed: int) -> torch.Tensor:
+    """The rows route (a) adds, the same on every rank and in the parent."""
+    return torch.randn((n_rows, dim), generator=torch.Generator().manual_seed(seed + 11))
+
+
+def mesh_dead_rows(n: int, seed: int) -> np.ndarray:
+    """The rows route (b) tombstones: MESH_ROUTE_DELETE_SHARE of n."""
+    return np.random.default_rng(seed + 12).choice(
+        n, size=int(n * MESH_ROUTE_DELETE_SHARE), replace=False)
+
+
+def _rows_read_back(new_idx, old_idx, new_ids: np.ndarray, old_ids: np.ndarray) -> bool:
+    """Rows ``new_ids`` of ``new_idx`` equal rows ``old_ids`` of ``old_idx``
+    bit for bit (collective reads on a mesh)."""
+    return bool(np.array_equal(new_idx.get_vectors(new_ids), old_idx.get_vectors(old_ids)))
+
+
+def mesh_routes(idx, searcher, encoder, mesh, job: dict, queries, first_rows,
+                small_docs) -> dict:
+    """The "mesh routes" of one rank (see MESH_ROUTE_SIZES). (a) and (b) run
+    on a DenseIndex that adopts the mesh index's snapshot: copy on write
+    leaves the served index as it was, and after (a) the served searcher's
+    ``search_batch`` of ``queries`` (counted on its own) must give
+    ``first_rows`` again through the ladder. The grown index's own
+    ``search`` calls are counted too: a mesh DenseIndex searches by the
+    collective scan (``sharded_dense_topk``, as the JAX mesh does), which
+    launches no kernel. (c)'s export is imported on one device by the
+    parent (``mesh_export_single``). Returns what the parent holds to the
+    single device, each rank's rows moved, seconds and counts."""
+    import hashlib
+
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+    from hybridsearch_tpu_torch.pipelines import HybridBM25Pipeline
+
+    sizes = MESH_ROUTE_SIZES["cpu" if job["rehearsal"] else "card"]
+    dev = mesh.device
+    base = idx.dense
+    snap0 = base._snap
+    q = encoder.encode(queries)
+    out = {}
+    # (a) growth past the capacity
+    grown = DenseIndex(dim=base.dim, capacity_round=base.capacity_round, mesh=mesh,
+                       block_n=base.block_n)
+    grown._snap, grown.deleted_count = snap0, base.deleted_count
+    n0, cap0 = snap0.n, snap0.capacity
+    rows = mesh_grow_rows(cap0 - n0 + sizes["grow_extra"], base.dim, job["seed"])
+    sync(dev)
+    t = time.perf_counter()
+    grown.add(rows.to(dev))
+    sync(dev)
+    out["grow_s"], out["grow_moved"] = time.perf_counter() - t, grown.moved_rows
+    out["grow_capacity"] = (cap0, grown.capacity, grown.n_docs)
+    per0, per1 = cap0 // MESH_RANKS, grown.capacity // MESH_RANKS
+    moved = np.flatnonzero(np.arange(n0) // per0 != np.arange(n0) // per1)
+    rng = np.random.default_rng(job["seed"])
+    sample = np.union1d(  # rows that changed rank, and rows that did not
+        rng.choice(moved, size=min(MESH_ROUTE_SAMPLE, moved.size), replace=False),
+        rng.choice(n0, size=min(MESH_ROUTE_SAMPLE, n0), replace=False))
+    out["grow_rows_equal"] = _rows_read_back(grown, base, sample, sample)
+    out["grow_search_launches"] = {}
+    with counting(out["grow_search_launches"]):
+        out["grow_search"] = grown.search(q, TOP_K)
+    out["after_grow_launches"] = {}
+    with counting(out["after_grow_launches"]):
+        out["after_grow_equal"] = _bare_rows(searcher.search_batch(
+            queries, top_k=TOP_K, log=False)) == first_rows
+    # (b) 1% tombstoned, then compaction
+    grown.delete(mesh_dead_rows(grown.n_docs, job["seed"]))
+    sync(dev)
+    t = time.perf_counter()
+    mapping = grown.compact()
+    sync(dev)
+    out["compact_s"], out["compact_moved"] = time.perf_counter() - t, grown.moved_rows
+    out["compact_capacity"] = (grown.capacity, grown.n_docs, grown.deleted_count)
+    out["compact_mapping_sha"] = hashlib.sha256(mapping.tobytes()).hexdigest()
+    kept = sample[mapping[sample] >= 0]
+    out["compact_rows_equal"] = _rows_read_back(grown, base, mapping[kept], kept)
+    out["compact_search_launches"] = {}
+    with counting(out["compact_search_launches"]):
+        out["compact_search"] = grown.search(q, TOP_K)
+    out["served_index_kept"] = base._snap is snap0
+    del grown, rows
+    # (d) HybridBM25Pipeline on the mesh index
+    hb = HybridBM25Pipeline(encoder=encoder, mesh=mesh)
+    hb.indexer.close()
+    hb.indexer, hb.searcher = idx, searcher
+    hb_queries = list(queries[:sizes["hb_queries"]])
+    hb.search(hb_queries[0], top_k=TOP_K)  # warm-up
+    t = time.perf_counter()
+    out["hybrid_bm25"] = [[(v, i) for v, _c, i in hb.search(text, top_k=TOP_K).results]
+                          for text in hb_queries]
+    out["hybrid_bm25_s"], out["hybrid_bm25_queries"] = time.perf_counter() - t, hb_queries
+    out["hybrid_bm25_weights"] = (hb.semantic_weight, hb.bm25_weight)
+    # (c) a small sharded Indexer: an add past its capacity, the JSON export
+    # (rank 0 writes it)
+    cfg = EngineConfig()
+    cfg.index.dim, cfg.index.capacity_round = base.dim, sizes["small_round"]
+    first, more = small_docs[:sizes["small_docs"]], small_docs[sizes["small_docs"]:]
+    small = Indexer(db_path=":memory:", encoder=encoder, config=cfg, mesh=mesh)
+    small.index_documents(first)
+    cap_small = small.dense.capacity
+    t = time.perf_counter()
+    small.add_documents(more)
+    sync(dev)
+    out["small_add_s"], out["small_moved"] = time.perf_counter() - t, small.dense.moved_rows
+    out["small_capacity"] = (cap_small, small.dense.capacity, small.dense.n_docs)
+    path = os.path.join(job["dir"], MESH_EXPORT)
+    t = time.perf_counter()
+    small.export_json(path)
+    out["export_s"], out["export_bytes"] = time.perf_counter() - t, os.path.getsize(path)
+    out["small_contents_sha"] = hashlib.sha256("\n".join(small.contents).encode()).hexdigest()
+    out["small_doc_ids"] = small.doc_ids
+    small.close()
+    return out
+
+
+def mesh_export_single(world, sz: dict, dev: torch.device, seed: int,
+                       rehearsal: bool) -> dict:
+    """Route (c) on one device, in the parent while the ranks run: the same
+    steps as the ranks' small Indexer (its docs, config and encoder), then,
+    once rank 0's export appears (whole: ``export_json`` renames it into
+    place), ``import_json`` of it on one device. Returns the one device's
+    contents digest and ids beside what the import holds; {} if a rank
+    ended before the file appeared (``join`` then raises)."""
+    import hashlib
+
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.index.builder import Indexer
+
+    sizes = MESH_ROUTE_SIZES["cpu" if rehearsal else "card"]
+    docs = make_corpus(sz, "small-topic", seed)[0][:sizes["small_docs"] + sizes["small_add"]]
+    cfg = EngineConfig()
+    cfg.index.dim, cfg.index.capacity_round = sz["dim"], sizes["small_round"]
+    encoder = hashing_encoder(sz, dev)
+    one = Indexer(db_path=":memory:", encoder=encoder, config=cfg, device=dev)
+    one.index_documents(docs[:sizes["small_docs"]])
+    one.add_documents(docs[sizes["small_docs"]:])
+    path = os.path.join(MESH_DIR, MESH_EXPORT)
+    while not os.path.exists(path):
+        if not all(p.is_alive() for p in world.ctx.processes):
+            return {}
+        time.sleep(0.1)
+    t = time.perf_counter()
+    imp = Indexer(db_path=":memory:", encoder=encoder, config=cfg, device=dev)
+    imp.import_json(path)
+    import_s = time.perf_counter() - t
+    want = one.dense.get_vectors(list(range(one.dense.n_docs)))
+    got = imp.dense.get_vectors(list(range(imp.dense.n_docs)))
+    return {"contents_sha": hashlib.sha256("\n".join(one.contents).encode()).hexdigest(),
+            "documents_equal": imp.contents == one.contents, "doc_ids": one.doc_ids,
+            "capacity": one.dense.capacity, "import_s": import_s,
+            "vectors_max_err": float(np.abs(got - want).max()),
+            "vectors_bit_equal": bool(np.array_equal(got, want))}
 
 
 def mesh_rank(rank: int, world: int, job: dict) -> dict:
@@ -2518,6 +2999,8 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
                         mesh=mesh, db_path=db)
     idx = searcher.indexer
     out["index_timings_s"] = idx.index_documents(docs)["timings_s"]
+    sizes = MESH_ROUTE_SIZES["cpu" if job["rehearsal"] else "card"]
+    small_docs = docs[:sizes["small_docs"] + sizes["small_add"]]  # "mesh routes" (c)
     del docs
     t = time.perf_counter()
     ssp = idx.bm25.super_postings_sharded()
@@ -2595,6 +3078,9 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
                    for text in batches[0][:MESH_CHECK_QUERIES]]
     if dev.type == "cuda":
         out["peak_bytes"] = int(torch.cuda.max_memory_allocated(dev))
+    out["routes"] = mesh_routes(idx, searcher, encoder, mesh, job, batches[0],
+                                results[0], small_docs)
+    del small_docs
 
     t = time.perf_counter()
     save_dir = os.path.join(job["dir"], "saved")
@@ -2604,8 +3090,11 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
     loaded = Indexer.load(save_dir, encoder=encoder, db_path=db, mesh=mesh)
     out["load_s"] = time.perf_counter() - t
     ls = Searcher(indexer=loaded, use_query_memory=False, config=loaded.config)
-    out["loaded_equal"] = _bare_rows(ls.search_batch(batches[0], top_k=TOP_K,
-                                                     log=False)) == results[0]
+    # the ladder's kernels on the saved and loaded index
+    out["loaded_launches"] = {}
+    with counting(out["loaded_launches"]):
+        out["loaded_equal"] = _bare_rows(ls.search_batch(batches[0], top_k=TOP_K,
+                                                         log=False)) == results[0]
     del ls, loaded, searcher, idx
     out["train"] = dict(mesh_train_step(dev, job, train_pairs, rank), rank=rank)
     return out
@@ -2669,7 +3158,7 @@ def start_mesh(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple
     return (start(mesh_rank, MESH_RANKS, args=(job,), device=dev.type,
                   threads=REHEARSAL_THREADS if rehearsal else 2,
                   workdir=os.path.join(MESH_DIR, "world"), timeout_s=420),
-            time.perf_counter())
+            time.perf_counter(), seed, rehearsal)
 
 
 def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
@@ -2688,9 +3177,10 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
     import shutil
 
     label = "small-topic/mesh4"
-    world, t = started
+    world, t, seed, rehearsal = started
     t_join = time.perf_counter()
     try:
+        export = mesh_export_single(world, sz, dev, seed, rehearsal)
         outs = world.join()
     finally:
         saved_bytes = sum(os.path.getsize(os.path.join(r, f))
@@ -2762,6 +3252,7 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
         why = rows_differ([(v, None, i) for i, v in got], [(v, None, i) for i, v in want])
         if why is not None:
             raise AssertionError(f"{label}: BM25.search of {text!r}: {why}")
+    routes = check_mesh_routes(outs, single, q, export, seed, dev, clock, kind, smi)
     n_q = sum(len(qs) for qs in batches)
     lat = [x / 1e3 for x in o0["batch_ms"]]
     qps, p50, p99, text = _latency_text(lat, n_q, sz, kind, smi)
@@ -2812,8 +3303,270 @@ def finish_mesh(started: tuple, run: dict, sz: dict, dev: torch.device,
             "save_s": {o["rank"]: o["save_s"] for o in outs},
             "load_s": {o["rank"]: o["load_s"] for o in outs},
             "saved_bytes": saved_bytes, "spans": spans, "collectives_ms": coll,
-            "repeat_equal": True, "loaded_equal": True,
+            "repeat_equal": True, "loaded_equal": True, "mesh_routes": routes,
             "train": {"ranks": [o["train"] for o in outs]}}
+
+
+def _value_gap(got, want) -> float:
+    """The largest |got - want| over the slots of two top-k value arrays."""
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def _topk_within(gv, gi, wv, wi, tol: float) -> str:
+    """Why top-k arrays or tensors (values [B, k], ids [B, k]) differ from
+    others, or "": ``rows_differ`` with ``tol`` on each row (at 0, values
+    bit for bit and ids equal except between slots of one value)."""
+    gv, gi, wv, wi = (x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                      for x in (gv, gi, wv, wi))
+    for b in range(len(wv)):
+        why = rows_differ(list(zip(gv[b], gi[b], gi[b])), list(zip(wv[b], wi[b], wi[b])),
+                          tol)
+        if why is not None:
+            return f"row {b}: {why}"
+    return ""
+
+
+MESH_ROUTE_KEYS = ("grow_capacity", "grow_rows_equal", "grow_search", "compact_capacity",
+                   "compact_mapping_sha", "compact_rows_equal", "compact_search",
+                   "served_index_kept", "after_grow_equal", "hybrid_bm25",
+                   "hybrid_bm25_queries",
+                   "small_capacity", "small_contents_sha", "small_doc_ids")
+
+
+def check_mesh_routes(outs, single, q, export: dict, seed: int, dev: torch.device,
+                      clock: Clock, kind: str, smi: str) -> dict:
+    """"mesh routes" (``mesh_routes`` on each rank) held to one device: every
+    rank's answers equal; (a) the grown index's capacity passed the old
+    one, rows that changed rank and rows that did not read back bit for
+    bit, and its search of the first batch equals a single-device port
+    DenseIndex of the same rows plus the same added rows (ids; values bit
+    for bit); (b) after the same 1% tombstoned and compacted,
+    the same mapping (by digest), rows read back bit for bit, and search as
+    in (a); (c) the small Indexer grew past its capacity and its export
+    imported on one device holds the documents, ids and vectors (within
+    MESH_ROUTE_TOL) of the same steps on one device; (d) each
+    HybridBM25Pipeline row equals ``max_fusion_reference`` over the
+    single-device index (ids; values within MESH_ROUTE_TOL); K1, K3 and K4
+    launched on each rank in the served batch after (a) (equal to the first
+    batch) and in the loaded index's batch. (d)'s largest value gap is
+    printed."""
+    import hashlib
+
+    from hybridsearch_tpu_torch.index.dense_index import DenseIndex
+
+    label = "mesh routes"
+    _ranks_equal([dict({k: o["routes"][k] for k in MESH_ROUTE_KEYS}, rank=o["rank"])
+                  for o in outs], MESH_ROUTE_KEYS)
+    r0 = outs[0]["routes"]
+    for key in ("grow_rows_equal", "compact_rows_equal", "served_index_kept",
+                "after_grow_equal"):
+        if not r0[key]:
+            raise AssertionError(f"{label}: {key} does not hold")
+    cap0, cap1, n1 = r0["grow_capacity"]
+    if cap1 <= cap0 or r0["small_capacity"][1] <= r0["small_capacity"][0]:
+        raise AssertionError(f"{label}: no growth past the capacity: "
+                             f"{r0['grow_capacity']}, {r0['small_capacity']}")
+    for o in outs:
+        _require_launched(f"{label} rank {o['rank']} (the served batch after (a))",
+                          o["routes"]["after_grow_launches"], MESH_KERNELS, dev)
+        _require_launched(f"{label} rank {o['rank']} (the loaded index's batch)",
+                          o["loaded_launches"], MESH_KERNELS, dev)
+    ix = single.indexer
+    snap = ix.dense._snap
+    ref = DenseIndex(dim=ix.dense.dim, capacity_round=ix.dense.capacity_round,
+                     device=dev)
+    ref.load_snapshot(snap.docs, snap.bias, snap.n)  # shared: adds copy on write
+    ref.add(mesh_grow_rows(n1 - snap.n, ix.dense.dim, seed).to(dev))
+    why = _topk_within(*r0["grow_search"], *ref.search(q, TOP_K), 0.0)
+    if why:
+        raise AssertionError(f"{label}: search after the growth: {why}")
+    ref.delete(mesh_dead_rows(ref.n_docs, seed))
+    mapping = ref.compact()
+    if hashlib.sha256(mapping.tobytes()).hexdigest() != r0["compact_mapping_sha"]:
+        raise AssertionError(f"{label}: the compaction's mapping differs")
+    if r0["compact_capacity"][1:] != (ref.n_docs, 0):
+        raise AssertionError(f"{label}: compacted {r0['compact_capacity']}, one device "
+                             f"{ref.n_docs} rows")
+    why = _topk_within(*r0["compact_search"], *ref.search(q, TOP_K), 0.0)
+    if why:
+        raise AssertionError(f"{label}: search after the compaction: {why}")
+    del ref, mapping
+    one = {k: v for k, v in export.items() if k not in ("contents_sha", "doc_ids")}
+    if (not export or export["contents_sha"] != r0["small_contents_sha"]
+            or not export["documents_equal"] or export["doc_ids"] != r0["small_doc_ids"]
+            or export["vectors_max_err"] > MESH_ROUTE_TOL):
+        raise AssertionError(f"{label}: the export differs from one device: {one}")
+    sw, lw = r0["hybrid_bm25_weights"]
+    gap = 0.0  # (d)'s largest value gap to the reference
+    for text, row in zip(r0["hybrid_bm25_queries"], r0["hybrid_bm25"]):
+        vals, ids, _fused = max_fusion_reference(single, text, TOP_K, sw, lw)
+        why = _topk_within([[v for v, _i in row]], [[i for _v, i in row]], [vals], [ids],
+                           MESH_ROUTE_TOL)
+        if why:
+            raise AssertionError(f"{label}: HybridBM25Pipeline.search({text!r}): {why}")
+        gap = max(gap, _value_gap([v for v, _i in row], vals))
+    per_rank = {o["rank"]: {k: o["routes"][k] for k in (
+        "grow_moved", "grow_s", "compact_moved", "compact_s", "small_moved",
+        "small_add_s", "export_s", "hybrid_bm25_s")} for o in outs}
+    for rank, row in per_rank.items():
+        print(f"    rank {rank}: (a) rows received {row['grow_moved']} in "
+              f"{row['grow_s']:.3f} s; (b) {row['compact_moved']} in "
+              f"{row['compact_s']:.3f} s; (c) add {row['small_moved']} rows received "
+              f"in {row['small_add_s']:.3f} s, export {row['export_s']:.3f} s; (d) "
+              f"{len(r0['hybrid_bm25'])} queries {row['hybrid_bm25_s']:.3f} s",
+              flush=True)
+    clock.phase(label, (
+        f"(a) DenseIndex.add past the capacity {cap0} -> {cap1} ({n1} rows), moved "
+        f"and unmoved rows bit for bit, search = one device's (ids; values bit for "
+        f"bit), the served batch after it = the first batch; (b) 1% deleted, compact "
+        f"-> {r0['compact_capacity'][0]} capacity, the same mapping, search = one "
+        f"device's (the same); (c) a {r0['small_capacity'][2]}-doc Indexer grown "
+        f"{r0['small_capacity'][0]} -> {r0['small_capacity'][1]}, exported "
+        f"({r0['export_bytes']} bytes) and imported on one device in "
+        f"{one['import_s']:.2f} s: documents and ids equal, vectors within "
+        f"{one['vectors_max_err']:.2e} (bit for bit: {one['vectors_bit_equal']}); (d) "
+        f"{len(r0['hybrid_bm25'])} HybridBM25Pipeline rows = the max-fusion "
+        f"reference (values within {gap:.3e}; gate {MESH_ROUTE_TOL}); "
+        f"K1, K3, K4 launched on every rank in the served batch after (a) and in the "
+        f"loaded index's batch; the grown index's searches (the collective scan) "
+        f"launched {json.dumps(r0['grow_search_launches'])} and "
+        f"{json.dumps(r0['compact_search_launches'])} ({kind}; {smi})"))
+    return {"per_rank": per_rank, "grow_capacity": r0["grow_capacity"],
+            "compact_capacity": r0["compact_capacity"],
+            "small_capacity": r0["small_capacity"], "export_bytes": r0["export_bytes"],
+            "single": one,
+            "hybrid_bm25_queries": len(r0["hybrid_bm25"]), "hybrid_bm25_gap": gap,
+            "after_grow_launches": {o["rank"]: o["routes"]["after_grow_launches"]
+                                    for o in outs},
+            "grow_search_launches": {o["rank"]: o["routes"]["grow_search_launches"]
+                                     for o in outs},
+            "compact_search_launches": {o["rank"]: o["routes"]["compact_search_launches"]
+                                        for o in outs},
+            "loaded_launches": {o["rank"]: o["loaded_launches"] for o in outs}}
+
+
+LARGE_DIR = "chiprun_out/large"  # large-topic's store and saved index; removed after its run
+
+
+def large_rank(rank: int, world: int, job: dict) -> dict:
+    """large-topic's index built in a process of its own, beside the
+    parent's lifecycle run (prints nothing): the corpus drawn, indexed by
+    ``Indexer.index_documents`` as ``index_corpus`` indexes it (clustered
+    layout, the hashing encoder; the store a file under the job's dir) and
+    saved with ``Indexer.save`` for the parent to load. Returns the index
+    timings, the draw's and the save's seconds and the corpus generator's
+    state (the parent's query maker)."""
+    from hybridsearch_tpu_torch.config import EngineConfig
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    sz, dev = job["sz"], torch.device(job["device"])
+    if job["rehearsal"]:
+        _rehearse_rank(sz)
+    t = time.perf_counter()
+    docs, _queries = make_corpus(sz, "large-topic", job["seed"])
+    state = _CORPUS_CACHE[("large-topic", job["seed"], sz["n_docs"], sz["n_background"])][1]
+    draw_s = time.perf_counter() - t
+    cfg = EngineConfig()
+    cfg.index.layout, cfg.index.dim = "clustered", sz["dim"]
+    searcher = Searcher(config=cfg, use_query_memory=False, device=dev,
+                        encoder=hashing_encoder(sz, dev),
+                        db_path=os.path.join(job["dir"], "store.db"))
+    built = searcher.indexer.index_documents(docs)
+    t = time.perf_counter()
+    searcher.indexer.save(os.path.join(job["dir"], "index"))
+    save_s = time.perf_counter() - t
+    searcher.indexer.close()
+    return {"timings_s": built["timings_s"], "draw_s": draw_s, "save_s": save_s,
+            "docs": len(docs), "chars": sum(map(len, docs)), "state": state}
+
+
+def start_large(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple:
+    """Start ``large_rank`` (a world of one gloo rank) and return at once;
+    ``load_large`` collects it. Returns (world, start time)."""
+    from hybridsearch_tpu_torch.parallel.dryrun import start
+
+    shutil.rmtree(LARGE_DIR, ignore_errors=True)
+    os.makedirs(LARGE_DIR)
+    job = {"sz": sz, "seed": seed, "device": dev.type, "rehearsal": rehearsal,
+           "dir": os.path.abspath(LARGE_DIR)}
+    return (start(large_rank, 1, args=(job,), device=dev.type,
+                  threads=REHEARSAL_THREADS if rehearsal else 2,
+                  workdir=os.path.join(LARGE_DIR, "world"), timeout_s=420),
+            time.perf_counter())
+
+
+def load_large(started: tuple, sz: dict, dev: torch.device, clock: Clock,
+               sink: dict):
+    """large-topic's ``load`` for ``serve_corpus``: collect ``large_rank``
+    (built beside the lifecycle run), print its corpus and index phases,
+    ``Indexer.load`` its index and return (searcher, make_queries, index
+    timings). Puts the builder's wall, the parent's wait and the save and
+    load seconds in ``sink``."""
+    from hybridsearch_tpu_torch.index.builder import Indexer
+    from hybridsearch_tpu_torch.retrieval.searcher import Searcher
+
+    def load():
+        label = "large-topic"
+        world, t0 = started
+        t_join = time.perf_counter()
+        o = world.join()[0]
+        wall, wait_s = time.perf_counter() - t0, time.perf_counter() - t_join
+        clock.phase("corpus", f"{label}: {o['docs']} docs, {o['chars']} chars (drawn "
+                    f"in {o['draw_s']:.1f} s by the builder process)")
+        stages = ", ".join(f"{k} {v:.1f}" for k, v in o["timings_s"].items())
+        t = time.perf_counter()
+        idx = Indexer.load(os.path.join(LARGE_DIR, "index"), encoder=hashing_encoder(sz, dev),
+                           db_path=os.path.join(LARGE_DIR, "store.db"), device=dev)
+        load_s = time.perf_counter() - t
+        clock.phase("index_documents", (
+            f"{label}: {stages} (in a process of its own beside the lifecycle run: its "
+            f"wall {wall:.1f} s, waited for {wait_s:.1f} s); Indexer.save "
+            f"{o['save_s']:.1f} s there, Indexer.load {load_s:.1f} s here"))
+        sink.update(builder_wall_s=wall, wait_s=wait_s, save_s=o["save_s"], load_s=load_s)
+        return (Searcher(indexer=idx, use_query_memory=False, config=idx.config),
+                query_maker(sz, label, o["state"]), o["timings_s"])
+
+    return load
+
+
+def ivf_rank(rank: int, world: int, job: dict) -> dict:
+    """"small-topic/ivf" (``serve_ivf``, "ivf bf16" inside it) in a process
+    of its own beside the lifecycle run: returns its stats and the phase
+    lines it would have printed, which ``finish_ivf`` prints."""
+    sz, dev = job["sz"], torch.device(job["device"])
+    if job["rehearsal"]:
+        _rehearse_rank(sz)
+    clock = LineClock()
+    return {"stats": serve_ivf(sz, dev, job["seed"], clock, job["kind"], job["smi"]),
+            "lines": clock.lines}
+
+
+def start_ivf(sz: dict, dev: torch.device, seed: int, kind: str, smi: str,
+              rehearsal: bool) -> tuple:
+    """Start ``ivf_rank`` (a world of one gloo rank) and return at once;
+    ``finish_ivf`` collects it. Returns (world, start time)."""
+    from hybridsearch_tpu_torch.parallel.dryrun import start
+
+    job = {"sz": sz, "seed": seed, "device": dev.type, "rehearsal": rehearsal,
+           "kind": kind, "smi": smi}
+    return (start(ivf_rank, 1, args=(job,), device=dev.type,
+                  threads=REHEARSAL_THREADS if rehearsal else 2, timeout_s=420),
+            time.perf_counter())
+
+
+def finish_ivf(started: tuple, clock: Clock) -> dict:
+    """Collect ``ivf_rank``: print its phase lines, then the process's wall
+    and the parent's wait. Returns ``serve_ivf``'s stats."""
+    world, t0 = started
+    t = time.perf_counter()
+    o = world.join()[0]
+    wall, wait_s = time.perf_counter() - t0, time.perf_counter() - t
+    for name, detail in o["lines"]:
+        clock.phase(name, detail)
+    clock.phase("ivf world", f"small-topic/ivf built and served in a process of its "
+                f"own beside the lifecycle run: its wall {wall:.1f} s, waited for "
+                f"{wait_s:.1f} s")
+    return dict(o["stats"], process_wall_s=wall, wait_s=wait_s)
 
 
 def start_nccl_batch(sz: dict, dev: torch.device, seed: int, rehearsal: bool) -> tuple:
@@ -2834,7 +3587,7 @@ def finish_nccl_batch(started: tuple, regime: dict, clock: Clock) -> dict:
     """One batch on a mesh of one rank: regime 1's corpus through
     ``Searcher(mesh=)``, its exact collective program, every row against
     the plain exact fused reference over regime 1's single-device index
-    (the same corpus)."""
+    (the same corpus). The world starts before the lifecycle run."""
     world, t, _backend, n_docs = started
     o = world.join()[0]
     wall = time.perf_counter() - t
@@ -2848,7 +3601,7 @@ def finish_nccl_batch(started: tuple, regime: dict, clock: Clock) -> dict:
         f"{n_docs} docs through Searcher(mesh=) (the exact collective program; "
         f"the rank's first batch) in {o['ms']:.1f} ms, all {checked} rows match "
         f"the plain exact fused reference; the world's wall {wall:.1f} s (started "
-        f"before large-topic's build, which ran beside it)"))
+        f"before the lifecycle run, which ran beside it)"))
     return {"backend": o["backend"], "rows_checked": checked, "batch_ms": o["ms"],
             "world_s": wall}
 
@@ -2891,18 +3644,18 @@ def oneshot_record(run: dict) -> dict:
             "stats": run["stats"]}
 
 
-def rows_differ(got, want):
+def rows_differ(got, want, tol: float = EPS_NUM):
     """Why a served row differs from another, or None: values within
-    EPS_NUM, and ids equal except at a slot whose value another slot of the
-    wanted row matches within EPS_NUM (a near-tie)."""
+    ``tol``, and ids equal except at a slot whose value another slot of the
+    wanted row matches within ``tol`` (a near-tie)."""
     gv = np.array([v for v, _c, _i in got])
     wv = np.array([v for v, _c, _i in want])
     if len(gv) != len(wv):
         return f"{len(gv)} vs {len(wv)} results"
-    if len(gv) and np.abs(gv - wv).max() > EPS_NUM:
+    if len(gv) and np.abs(gv - wv).max() > tol:
         return f"values {gv} vs {wv}"
     for j, (g, w) in enumerate(zip(got, want)):
-        if g[2] != w[2] and (np.abs(wv - wv[j]) <= EPS_NUM).sum() < 2:
+        if g[2] != w[2] and (np.abs(wv - wv[j]) <= tol).sum() < 2:
             return f"slot {j}: doc {g[2]} vs {w[2]}"
     return None
 

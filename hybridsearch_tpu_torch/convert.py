@@ -6,7 +6,7 @@ chosen device. With them a test builds both packages on identical state:
 the ``HashingEncoder`` table and the semantic cache's LSH planes
 (``jax.random`` bits the port's generator cannot repeat), the dense
 snapshot, the BM25 CSR state, the supertile postings, the impact tier, and
-the clustered permutation of the corpus.
+the clustered permutation of the corpus, the int8 copy of a corpus.
 
 On a mesh the JAX package stacks every shard's arrays on a leading axis
 ([S, ...], read out as numpy); the ``sharded_*`` functions take those
@@ -166,14 +166,17 @@ def attach_sharded_super_postings(bm: BM25, ssp: ShardedSuperPostings) -> None:
 def sharded_ivf_index(centroids_s: np.ndarray, docs_perm_s: np.ndarray,
                       chunk_starts_s: np.ndarray, chunk_lens_s: np.ndarray,
                       perm_to_orig_s: np.ndarray, chunk_cap: int, n_docs: int,
-                      mesh, nprobe: int = 8) -> IVFIndex:
+                      mesh, nprobe: int = 8,
+                      storage_dtype: torch.dtype = torch.float32) -> IVFIndex:
     """IVFIndex on ``mesh`` holding this rank's chunks of a JAX sharded IVF
     (``[S, chunks_pad, D]`` centroids, ``[S, rows_pad, D]`` rows, ``[S,
-    chunks_pad]`` starts and lengths, ``[S, rows_pad]`` global doc ids)."""
+    chunks_pad]`` starts and lengths, ``[S, rows_pad]`` global doc ids);
+    ``storage_dtype`` as in ``ivf_index``."""
     r, dev = mesh.data_index, mesh.device
-    return IVFIndex(dim=docs_perm_s.shape[-1], nprobe=nprobe, mesh=mesh).load_arrays(
+    return IVFIndex(dim=docs_perm_s.shape[-1], nprobe=nprobe, mesh=mesh,
+                    storage_dtype=storage_dtype).load_arrays(
         torch.from_numpy(np.array(centroids_s[r], np.float32)),
-        torch.from_numpy(np.array(docs_perm_s[r], np.float32)).to(dev),
+        torch.from_numpy(np.array(docs_perm_s[r], np.float32)).to(dev, storage_dtype),
         *(torch.from_numpy(np.asarray(a[r], np.int64))
           for a in (chunk_starts_s, chunk_lens_s, perm_to_orig_s)),
         chunk_cap, n_docs)
@@ -240,18 +243,34 @@ def attach_impact_postings(bm: BM25, imp: ImpactPostings) -> None:
 def ivf_index(centroids_per_chunk: np.ndarray, docs_perm: np.ndarray,
               chunk_starts: np.ndarray, chunk_lens: np.ndarray,
               perm_to_orig: np.ndarray, chunk_cap: int, n_docs: int,
-              nprobe: int = 8, device: DeviceLike = None) -> IVFIndex:
+              nprobe: int = 8, device: DeviceLike = None,
+              storage_dtype: torch.dtype = torch.float32) -> IVFIndex:
     """IVFIndex holding a JAX ``IVFIndex``'s single-device arrays: the
     per-chunk centroids [n_chunks, D], the cluster-ordered rows [rows, D]
     (with at least ``chunk_cap`` rows past the last chunk), the chunks'
-    starts and lengths, each row's doc id (-1 pad) and the chunk width."""
+    starts and lengths, each row's doc id (-1 pad) and the chunk width.
+    The rows of a ``storage_dtype=jnp.bfloat16`` index come as float32
+    arrays (numpy has no bfloat16; the values are bfloat16-exact) and are
+    stored in ``storage_dtype`` again."""
     dev = resolve_device(device)
-    return IVFIndex(dim=docs_perm.shape[1], nprobe=nprobe, device=dev).load_arrays(
+    return IVFIndex(dim=docs_perm.shape[1], nprobe=nprobe, device=dev,
+                    storage_dtype=storage_dtype).load_arrays(
         torch.from_numpy(np.array(centroids_per_chunk, np.float32)),
-        torch.from_numpy(np.array(docs_perm)).to(dev),
+        torch.from_numpy(np.array(docs_perm, np.float32)).to(dev, storage_dtype),
         *(torch.from_numpy(np.asarray(a, np.int64))
           for a in (chunk_starts, chunk_lens, perm_to_orig)),
         chunk_cap, n_docs)
+
+
+def int8_corpus(d8: np.ndarray, scale: np.ndarray, tile_resid: np.ndarray,
+                device: DeviceLike = None):
+    """The JAX ``quantize_corpus_int8`` triple (d8 [N, D] int8, scale [N],
+    tile_resid [n_tiles]) as the port's tensors on the device, for
+    ``ops/dense.py`` ``int8_swept_topk``."""
+    dev = resolve_device(device)
+    return (torch.from_numpy(np.array(d8, np.int8)).to(dev),
+            torch.from_numpy(np.array(scale, np.float32)).to(dev),
+            torch.from_numpy(np.array(tile_resid, np.float32)).to(dev))
 
 
 def lsh_planes(planes: np.ndarray, device: DeviceLike = None) -> torch.Tensor:

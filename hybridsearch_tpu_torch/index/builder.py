@@ -36,8 +36,9 @@ k-means runs on rank 0 and its assignment is broadcast. Each rank opens its
 own store: give each one its own ``db_path`` (or ``":memory:"``).
 ``save`` writes the JAX package's mesh layout (no ``bm25.npz``: a sharded
 BM25 cannot be saved) and ``load(directory, mesh=)`` reads this rank's rows
-back and refits BM25 aligned; ``export_json`` would gather every row onto
-every rank and raises under a mesh.
+back and refits BM25 aligned; ``add_documents`` past the dense capacity
+grows it across the ranks (``DenseIndex.add``) and realigns BM25;
+``export_json`` has each rank format its own rows and rank 0 write the file.
 """
 
 from __future__ import annotations
@@ -358,16 +359,56 @@ class Indexer:
         return idx
 
     def export_json(self, path: str) -> None:
-        """Dump the docs, their ids and their (normalized) vectors as JSON."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "Indexer.export_json on a mesh gathers every dense row onto every "
-                "rank (the JAX package leaves it to XLA's partitioning); not "
-                "ported to the mesh")
-        vecs = self.dense.get_vectors(list(range(self.dense.n_docs)))
-        with open(path, "w") as f:
-            json.dump({"documents": self.contents, "doc_ids": self.doc_ids,
-                       "vectors": vecs.tolist()}, f)
+        """Dump the docs, their ids and their (normalized) vectors as JSON.
+        On a mesh (every rank calling it with the same ``path``) each rank
+        formats its own rows as JSON text, the texts are gathered to rank
+        0 (an all-gather of their bytes, which every rank joins), and rank
+        0 writes the file one device writes, byte for byte (under a
+        temporary name, then renamed, so the file appears whole); a barrier
+        holds every rank until it is written. Formatting the floats is most of
+        an export's time, so the ranks share it."""
+        if self.mesh is None:
+            with open(path, "w") as f:
+                json.dump({"documents": self.contents, "doc_ids": self.doc_ids,
+                           "vectors": self.dense.get_vectors(
+                               list(range(self.dense.n_docs))).tolist()}, f)
+            return
+        import torch.distributed as dist
+
+        rows = self._mesh_rows_json()
+        if self.mesh.data_index == 0:
+            # what json.dump writes for the same dict, its vectors' rows
+            # joined from every rank's text; renamed into place whole
+            with open(path + ".tmp", "w") as f:
+                f.write('{"documents": ' + json.dumps(self.contents)
+                        + ', "doc_ids": ' + json.dumps(self.doc_ids)
+                        + ', "vectors": [' + rows + "]}")
+            os.replace(path + ".tmp", path)
+        dist.barrier(group=self.mesh.data_group)
+
+    def _mesh_rows_json(self) -> str:
+        """On a mesh, the JSON text of every real dense row, the rows
+        separated as ``json.dumps`` separates a list's items (on rank 0;
+        the other ranks get an empty string): each rank formats its own
+        rows and one all-gather of the padded UTF-8 bytes brings them
+        together in rank order."""
+        from hybridsearch_tpu_torch.parallel.collectives import all_gather_cat
+
+        snap = self.dense._snap
+        lo, per = self.dense._rows(snap.capacity)
+        mine = snap.docs[:max(0, min(per, snap.n - lo))].cpu().numpy()
+        text = json.dumps(mine.tolist())[1:-1].encode()  # no outer brackets
+        dev = self.mesh.device if self.mesh.backend == "nccl" else torch.device("cpu")
+        sizes = all_gather_cat(torch.tensor([len(text)], device=dev), self.mesh, dim=0)
+        buf = torch.zeros(int(sizes.max()), dtype=torch.uint8)
+        if text:  # a rank past the last row has none
+            buf[:len(text)] = torch.frombuffer(bytearray(text), dtype=torch.uint8)
+        every = all_gather_cat(buf[None].to(dev), self.mesh, dim=0).cpu().numpy()
+        if self.mesh.data_index != 0:
+            return ""
+        pieces = [every[r, :int(size)].tobytes().decode()
+                  for r, size in enumerate(sizes.tolist()) if size]
+        return ", ".join(pieces)
 
     def import_json(self, path: str) -> int:
         """Replace the index with a JSON dump: its vectors are adopted when

@@ -17,10 +17,12 @@ stay global. Search is the collective ``sharded_dense_topk``, ``delete``
 tombstones this rank's rows, and ``save`` writes the JAX layout (one
 ``shard_{s:05d}.npy`` of ceil(n / shards) rows a shard), each rank writing
 its own rows into the files; ``load(path, mesh=)`` reads this rank's rows
-out of the files of any shard count. Growing a sharded capacity
-(``add`` past it) and ``compact`` move rows between shards, which the JAX
-package leaves to XLA's partitioning: both raise ``NotImplementedError``
-under a mesh.
+out of the files of any shard count. Growing a sharded capacity (``add``
+past it) and ``compact`` change which rank owns a row, which the JAX
+package leaves to XLA's partitioning: here each rank lays out its part of
+the new snapshot, keeps the rows it still owns and receives from their old
+owners only the rows that change rank (``parallel/collectives.py``
+``move_rows``); ``moved_rows`` says how many it received.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ class DenseIndex:
         self._snap = self._make_snapshot(
             torch.zeros((0, dim), dtype=torch.float32), None, 0)
         self.deleted_count = 0
+        self.moved_rows = 0  # rows this rank received in the last re-layout
 
     @property
     def n_docs(self) -> int:
@@ -173,8 +176,9 @@ class DenseIndex:
         """Append [M, D] raw embeddings (normalized here, on the device);
         returns their row ids. Rows past the old count get bias 0; a full
         buffer grows on the device to the next ``capacity_round``. On a
-        mesh (every rank adding the same vectors) each rank writes the new
-        rows it owns; growth past the capacity raises."""
+        mesh every rank adds the same vectors: growth lays the old rows out
+        over the new capacity's parts first (``_relayout``), then each rank
+        writes the new rows it owns."""
         v = (vectors if torch.is_tensor(vectors)
              else torch.from_numpy(np.asarray(vectors, dtype=np.float32)))
         if v.numel() == 0:
@@ -199,20 +203,41 @@ class DenseIndex:
             return np.arange(snap.n, n_new, dtype=np.int64)
 
     def _add_sharded(self, snap: _Snapshot, v: torch.Tensor, n_new: int) -> np.ndarray:
+        fresh = False  # the buffers are this call's own
         if n_new > snap.capacity:
-            raise NotImplementedError(
-                "DenseIndex.add past a sharded capacity: growing the capacity "
-                "moves rows between shards (the JAX package leaves it to XLA's "
-                "partitioning); not ported to the mesh yet")
+            new_cap = self._round_capacity(n_new)
+            src = np.full(new_cap, -1, dtype=np.int64)
+            src[:snap.n] = np.arange(snap.n)
+            snap = _Snapshot(*self._relayout(snap, src, new_cap), snap.n, new_cap)
+            fresh = True
         lo, rows = self._rows(snap.capacity)
         a, e = max(snap.n, lo), min(n_new, lo + rows)  # new rows of this rank
         docs, bias = snap.docs, snap.bias
         if a < e:
-            docs, bias = docs.clone(), bias.clone()  # copy-on-write
+            if not fresh:
+                docs, bias = docs.clone(), bias.clone()  # copy-on-write
             docs[a - lo:e - lo] = v[a - snap.n:e - snap.n]
             bias[a - lo:e - lo] = 0.0
         self._snap = _Snapshot(docs, bias, n_new, snap.capacity)
         return np.arange(snap.n, n_new, dtype=np.int64)
+
+    def _relayout(self, snap: _Snapshot, src: np.ndarray,
+                  new_cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's (docs, bias) of a new capacity ``new_cap`` whose
+        global row g holds old row ``src[g]`` with its bias (-1: a zero row
+        at -inf), the same ``src`` on every rank. Docs and bias travel
+        together as one [rows, D + 1] array, so each moving row is one
+        entry of one collective."""
+        from hybridsearch_tpu_torch.parallel.collectives import move_rows
+
+        shards = self._n_shards()
+        packed = torch.cat([snap.docs, snap.bias[:, None]], dim=1)
+        rows, self.moved_rows = move_rows(self.mesh, packed, snap.capacity // shards,
+                                          src, new_cap // shards)
+        lo, per = self._rows(new_cap)
+        bias = rows[:, self.dim].contiguous()
+        bias[torch.from_numpy(src[lo:lo + per] < 0).to(bias.device)] = NEG_INF_F32
+        return rows[:, :self.dim].contiguous(), bias
 
     def delete(self, row_ids) -> None:
         """Tombstone rows (score bias -> -inf). A row named twice, or already
@@ -239,14 +264,26 @@ class DenseIndex:
 
     def compact(self) -> np.ndarray:
         """Drop tombstoned rows; returns the old row -> new row mapping (-1
-        for a deleted row)."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "DenseIndex.compact on a mesh: dropping rows moves rows between "
-                "shards (the JAX package leaves it to XLA's partitioning); not "
-                "ported to the mesh yet")
+        for a deleted row). On a mesh every rank gathers the whole bias (4
+        bytes a row), so each computes the same mapping and returns it, and
+        the surviving rows move to their new owners (``_relayout``)."""
         with self._lock:
             snap = self._snap
+            if self.mesh is not None:
+                from hybridsearch_tpu_torch.parallel.collectives import all_gather_cat
+
+                keep = (all_gather_cat(snap.bias, self.mesh, dim=0)[:snap.n] == 0)
+                keep = keep.cpu().numpy()
+                n_alive = int(keep.sum())
+                mapping = np.full(snap.n, -1, dtype=np.int64)
+                mapping[keep] = np.arange(n_alive)
+                new_cap = self._round_capacity(n_alive)
+                src = np.full(new_cap, -1, dtype=np.int64)
+                src[:n_alive] = np.flatnonzero(keep)
+                self._snap = _Snapshot(*self._relayout(snap, src, new_cap), n_alive,
+                                       new_cap)
+                self.deleted_count = 0
+                return mapping
             alive = snap.bias[:snap.n] == 0
             keep = alive.cpu().numpy()
             mapping = np.full(snap.n, -1, dtype=np.int64)

@@ -6,9 +6,10 @@ Counterpart of ``hybridsearch_tpu/index/ivf.py`` on one device:
   - coarse quantizer: k-means centroids trained on the device
     (``kmeans_fit``, Lloyd iterations as matmuls), blocked over doc rows so
     peak memory is O(block * C), with per-block normalization in float32;
-  - storage: docs permuted into cluster order, so a cluster is one
-    contiguous row range; clusters larger than ``chunk_cap`` split into
-    chunks that share the parent centroid, so every probe has one width;
+  - storage: docs permuted into cluster order (float32, or bfloat16 with
+    ``storage_dtype``), so a cluster is one contiguous row range; clusters
+    larger than ``chunk_cap`` split into chunks that share the parent
+    centroid, so every probe has one width;
   - query: score the chunks' centroids, take the top ``nprobe`` chunks,
     score their rows, exact top-k within the probed set (``_ivf_search``).
 
@@ -193,10 +194,14 @@ def _chunkify(sorted_assign: np.ndarray, cap: int):
 
 
 class IVFIndex:
-    """Approximate inner-product index over L2-normalized embeddings, in
-    float32 (the port's dense index is float32; the JAX class's
-    ``storage_dtype`` has no counterpart). ``mesh`` shards the chunks over
-    the data axis."""
+    """Approximate inner-product index over L2-normalized embeddings.
+    ``mesh`` shards the chunks over the data axis. ``storage_dtype``
+    (float32 or bfloat16) is the dtype of the permuted rows a build stores:
+    bfloat16 halves their bytes. k-means runs on the float32 vectors
+    whatever it is, and a probe casts the stored rows to float32 before its
+    float32 product, so a bfloat16 index differs from a float32 one only by
+    the rounding of the stored rows. ``from_layout`` adopts the dense
+    buffer as it is (float32)."""
 
     def __init__(
         self,
@@ -207,6 +212,7 @@ class IVFIndex:
         seed: int = 0,
         device: DeviceLike = None,
         mesh=None,
+        storage_dtype: torch.dtype = torch.float32,
     ) -> None:
         self.dim = dim
         self.n_clusters = n_clusters
@@ -214,6 +220,7 @@ class IVFIndex:
         self.chunk_cap = chunk_cap
         self.seed = seed
         self.mesh = mesh
+        self.storage_dtype = storage_dtype
         self.device = mesh.device if mesh is not None else resolve_device(device)
         self.n_docs = 0
         self._built = False
@@ -252,8 +259,8 @@ class IVFIndex:
     def build(self, vectors, kmeans_iters: int = 10) -> "IVFIndex":
         """Build from [n, D] vectors (tensor or numpy) on the index's device:
         k-means, argmax assignment, docs permuted into cluster order (stable
-        within a cluster) and normalized into a buffer with ``chunk_cap``
-        spare rows."""
+        within a cluster), normalized in float32 and stored in
+        ``storage_dtype`` in a buffer with ``chunk_cap`` spare rows."""
         v = (vectors if torch.is_tensor(vectors)
              else torch.from_numpy(np.asarray(vectors, dtype=np.float32)))
         v = v.to(self.device)
@@ -266,7 +273,7 @@ class IVFIndex:
         centroids = kmeans_fit(v, C, seed=self.seed, iters=kmeans_iters)
         assign = kmeans_assign(v, centroids).cpu().numpy()
         order = np.argsort(assign, kind="stable")
-        docs_perm = torch.zeros((n + cap, dim), dtype=torch.float32,
+        docs_perm = torch.zeros((n + cap, dim), dtype=self.storage_dtype,
                                 device=self.device)
         docs_perm[:n] = l2_normalize(v[torch.from_numpy(order).to(self.device)].float())
         perm_to_orig = np.full(n + cap, -1, dtype=np.int64)
@@ -346,7 +353,7 @@ class IVFIndex:
         rows = (np.concatenate([order[starts[c]:starts[c] + lens[c]] for c in mine])
                 if len(mine) else np.zeros(0, np.int64))
         dev = self.device
-        docs = torch.zeros((rows_pad, dim), dtype=torch.float32, device=dev)
+        docs = torch.zeros((rows_pad, dim), dtype=self.storage_dtype, device=dev)
         docs[:len(rows)] = l2_normalize(v[torch.from_numpy(rows).to(dev)].float())
         orig = np.full(rows_pad, -1, dtype=np.int64)
         orig[:len(rows)] = rows

@@ -13,14 +13,21 @@ statistics, so the [B, N] score matrix is never materialized:
   - ``gather_tile_scores``: exact scores of every doc in chosen tiles;
   - ``scan_dense_topk``: exact top-k streamed over doc blocks, a running
     top-k merged with each block's product (each shard's top-k on a mesh,
-    parallel/collectives.py; no Pallas kernel backs it).
+    parallel/collectives.py; no Pallas kernel backs it);
+  - ``dense_topk``: the JAX package's dispatch between the last two;
+  - ``cosine_scores`` / ``pairwise_cosine``: full float32 cosine matrices;
+  - ``quantize_corpus_int8`` and ``int8_swept_topk``: exact-when-certified
+    top-k whose tile selection sweeps a per-doc-scaled int8 copy of the
+    corpus (int8 x int8 -> int32, ``torch._int_mm`` on the card), then
+    rescores the chosen tiles exactly.
 
 The sweep is kernel K1 (``ops/cuda_topk.py``) on the card, at the shapes the
 JAX package sent to its Pallas kernel; elsewhere it is K1's plain version.
 Pass 3's rescore of the chosen tiles is kernel K4 at tile grain
 (``ops/cuda_supertile.py`` ``tile_scores``) on the card; the JAX package
-and the CPU route gather the tiles and take an ``einsum``.
-``int8_swept_topk`` is still to port.
+and the CPU route gather the tiles and take an ``einsum``. The int8
+sweep's product has no Pallas kernel in the JAX package (a ``dot_general``);
+its pass 3 is ``gather_tile_scores``, so K4 at tile grain on the card.
 """
 
 from __future__ import annotations
@@ -51,6 +58,17 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
     """L2-normalize along ``dim`` (float32 norm), keeping x's dtype."""
     norm = x.float().square().sum(dim=dim, keepdim=True).sqrt()
     return (x / norm.clamp_min(eps)).to(x.dtype)
+
+
+def cosine_scores(queries: torch.Tensor, docs: torch.Tensor) -> torch.Tensor:
+    """Full [B, N] float32 cosine matrix of raw (not pre-normalized) rows."""
+    return l2_normalize(queries.float()) @ l2_normalize(docs.float()).T
+
+
+def pairwise_cosine(x: torch.Tensor) -> torch.Tensor:
+    """All-pairs [n, n] float32 cosine similarity, one product."""
+    xn = l2_normalize(x.float())
+    return xn @ xn.T
 
 
 def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -295,3 +313,192 @@ def scatter_topk_to_dense(values: torch.Tensor, indices: torch.Tensor,
     idx = indices.clamp(0, n - 1).long()
     vals = torch.where(indices >= 0, values.float(), 0.0)
     return out.scatter_add_(1, idx, vals)
+
+
+def dense_topk(
+    queries: torch.Tensor,
+    docs: torch.Tensor,
+    k: int,
+    block_n: int = 4096,
+    normalized: bool = True,
+    use_tiled: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k dense search with the JAX package's dispatch: the tiled
+    three-pass route (``tiled_dense_topk``: K1, then K4 at tile grain on the
+    card) from ``4 * block_n`` docs while k <= 512, else ``scan_dense_topk``
+    over blocks of ``min(block_n, N rounded up to 128)`` rows. The JAX
+    tiled route's own scan block (at least 65,536 rows) has no counterpart:
+    the port's sweep is one launch. ``normalized=False`` L2-normalizes both
+    sides first."""
+    N = docs.shape[0]
+    k_eff = min(k, N)
+    if not normalized:
+        queries = l2_normalize(queries.float())
+        docs = l2_normalize(docs.float())
+    if use_tiled is None:
+        use_tiled = N >= 4 * block_n and k_eff <= 512
+    if use_tiled:
+        return tiled_dense_topk(queries, docs, k_eff)
+    return scan_dense_topk(queries, docs, k_eff,
+                           block_n=min(block_n, -(-N // 128) * 128))
+
+
+def quantize_corpus_int8(
+    docs: torch.Tensor, tile: int = 128
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-doc symmetric int8 quantization of an L2-normalized corpus:
+    (d8 [N, D] int8, scale [N] float32, tile_resid [n_tiles] float32) with
+      d8_j = round(d_j / s_j * 127), s_j = max_i |d_j[i]| (half to even);
+      resid_j = ||d_j - d8_j * s_j / 127||_2, computed exactly here;
+      tile_resid[t] = the largest resid_j of tile t's docs.
+    The per-doc step s_j / 127 keeps the sweep's error interval (and so
+    ``int8_swept_topk``'s certificate slack) small."""
+    d = docs.float()
+    N = d.shape[0]
+    scale = d.abs().amax(dim=1).clamp_min(1e-12)
+    d8 = torch.round(d / scale[:, None] * 127.0).clamp(-127.0, 127.0)
+    resid = (d - d8 * (scale[:, None] / 127.0)).square().sum(dim=1).sqrt()
+    n_tiles = -(-N // tile)
+    resid = torch.cat([resid, resid.new_zeros(n_tiles * tile - N)])
+    return d8.to(torch.int8), scale, resid.view(n_tiles, tile).amax(dim=1)
+
+
+# torch._int_mm (cuBLASLt's int8 product) takes more than 16 rows and
+# depths and widths that are multiples of 8
+_INT_MM_MIN_ROWS = 32
+_INT_MM_ALIGN = 8
+
+
+def _int8_product(q8: torch.Tensor, d8: torch.Tensor) -> torch.Tensor:
+    """[B, n] int32 = q8 [B, D] int8 x d8 [n, D] int8 transposed, exact (the
+    sums fit int32 far below D = 2^17). On the card ``torch._int_mm`` with
+    the query rows padded to at least 32 and D to a multiple of 8 (zero
+    rows and columns add nothing); on the CPU an int32 product."""
+    if not q8.is_cuda:
+        return q8.int() @ d8.int().T
+    B, D = q8.shape
+    Bp = max(_INT_MM_MIN_ROWS, -(-B // _INT_MM_ALIGN) * _INT_MM_ALIGN)
+    pad_d = -D % _INT_MM_ALIGN
+    q8p = torch.nn.functional.pad(q8, (0, pad_d, 0, Bp - B))
+    if pad_d:
+        d8 = torch.nn.functional.pad(d8, (0, pad_d))
+    return torch._int_mm(q8p, d8.T)[:B]
+
+
+def _quantize_queries(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                                 torch.Tensor]:
+    """(q8 [B, D] int8, inv [B], rq [B]): the queries quantized as the corpus
+    is, each query's dequantization factor sq / 127^2 (times a doc's
+    scale) and its exact error rq = ||q - q8 * sq / 127||."""
+    sq = q.abs().amax(dim=1).clamp_min(1e-12)
+    q8f = torch.round(q / sq[:, None] * 127.0).clamp(-127.0, 127.0)
+    rq = (q - q8f * (sq[:, None] / 127.0)).square().sum(dim=1).sqrt()
+    return q8f.to(torch.int8), sq / (127.0 * 127.0), rq
+
+
+def _int8_tile_maxima(q8: torch.Tensor, inv: torch.Tensor, d8: torch.Tensor,
+                      d_scale: torch.Tensor, bias_p: Optional[torch.Tensor],
+                      n_valid: int, block_n: int, tile: int) -> torch.Tensor:
+    """Pass 1 of ``int8_swept_topk``: [B, n_tiles] per-tile maxima of the
+    dequantized int8 scores s32 * (inv * scale_j) of the row-padded ``d8``,
+    over blocks of ``block_n`` rows; rows at or past ``n_valid`` and rows
+    whose bias is below 0 (the 0 / -inf alive mask) are -inf."""
+    B = q8.shape[0]
+    Np = d8.shape[0]
+    blk = max(tile, (min(block_n, Np) // tile) * tile)
+    tile_hat = inv.new_empty((B, Np // tile))
+    for b0 in range(0, Np, blk):
+        b1 = min(b0 + blk, Np)
+        s = _int8_product(q8, d8[b0:b1]).float() * (inv[:, None] * d_scale[None, b0:b1])
+        dead = None
+        if b1 > n_valid:
+            dead = torch.arange(b0, b1, device=s.device) >= n_valid
+        if bias_p is not None:
+            dead_b = bias_p[b0:b1] < 0.0
+            dead = dead_b if dead is None else dead | dead_b
+        if dead is not None:
+            s = s.masked_fill(dead[None, :], NEG_INF)
+        tile_hat[:, b0 // tile:b1 // tile] = s.view(B, -1, tile).amax(dim=2)
+    return tile_hat
+
+
+def int8_swept_topk(
+    queries: torch.Tensor,
+    d8: torch.Tensor,
+    d_scale: torch.Tensor,
+    docs: torch.Tensor,
+    tile_resid: torch.Tensor,
+    k: int,
+    probe_tiles: Optional[int] = None,
+    block_n: int = 262144,
+    tile: int = 128,
+    bias: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact-when-certified top-k whose tile selection sweeps the int8 copy
+    (``quantize_corpus_int8``) of the corpus ``docs`` [N, D]; ``queries``
+    [B, D] L2-normalized. Returns (values [B, k'], ids [B, k'], covered [B]),
+    k' = min(k, N):
+
+      pass 1: the queries quantized alike (rq = ||q - q^||), the int8 x int8
+              -> int32 product over blocks of ``block_n`` docs, and each
+              tile's maximum of the dequantized scores s32 * (sq / 127^2 *
+              s_j) (dead and overhang rows -inf);
+      pass 2: tiles ranked by the sound bound tile_hat + rq + (1 + rq) *
+              tile_resid (|q.d - q^.d^| <= rq + (1 + rq) r_j for unit q, d),
+              ``k_gather = max(1, min(probe_tiles, n_tiles), ceil(k / tile))``
+              of them taken, and one more as the witness;
+      pass 3: every doc of the chosen tiles rescored exactly
+              (``gather_tile_scores``: K4 at tile grain on the card), so the
+              values are ``tiled_dense_topk``'s.
+
+    covered[b] is the certificate: the k-th value is at least the best
+    unchosen tile's bound (or every tile was chosen), so the row is exact.
+    Callers escalate ``probe_tiles`` on the rows left uncovered.
+    ``probe_tiles`` defaults to 4 * k. Ties go to the lower position, as
+    ``jax.lax.top_k`` breaks them."""
+    q = queries.float()
+    B = q.shape[0]
+    N = d8.shape[0]
+    n_tiles = -(-N // tile)
+    Np = n_tiles * tile
+    if Np != N:
+        d8 = torch.cat([d8, d8.new_zeros((Np - N, d8.shape[1]))])
+        d_scale = torch.cat([d_scale, d_scale.new_zeros(Np - N)])
+    bias_p = None
+    if bias is not None:
+        bias_p = torch.cat([bias.float(), bias.new_full((Np - N,), NEG_INF).float()])
+
+    # -- pass 1: the int8 sweep -> dequantized tile maxima
+    q8, inv, rq = _quantize_queries(q)
+    tile_hat = _int8_tile_maxima(q8, inv, d8, d_scale, bias_p, N, block_n, tile)
+
+    # -- pass 2: rank the tiles by their sound bounds
+    delta = rq[:, None] + (1.0 + rq)[:, None] * tile_resid.float()[None, :]
+    bounds = torch.where(torch.isfinite(tile_hat), tile_hat + delta, NEG_INF)
+    if probe_tiles is None:
+        probe_tiles = 4 * k
+    k_gather = max(1, min(probe_tiles, n_tiles), -(-min(k, N) // tile))
+    k_sel = min(k_gather + 1, n_tiles)  # + 1: the coverage witness
+    if n_tiles > 4096:
+        bvals, top_tiles = tiled_matrix_topk(bounds, k_sel)
+        top_tiles = top_tiles.clamp_min(0)
+    else:
+        bvals, top_tiles = stable_topk(bounds, k_sel)
+    if k_gather < k_sel:
+        next_bound = bvals[:, k_gather]
+        top_tiles = top_tiles[:, :k_gather]
+    else:
+        next_bound = q.new_full((B,), NEG_INF)
+
+    # -- pass 3: the chosen tiles rescored exactly
+    s3, gidx3 = gather_tile_scores(q, docs, top_tiles, bias, tile=tile)
+    k_eff = min(k, N)
+    if k_gather * tile > 4096:
+        vals, sel3 = tiled_matrix_topk(s3, k_eff)
+        sel3 = sel3.clamp_min(0)
+    else:
+        vals, sel3 = stable_topk(s3, k_eff)
+    idxs = torch.gather(gidx3, 1, sel3)
+    idxs = torch.where(torch.isfinite(vals), idxs, -1)
+    covered = (vals[:, k_eff - 1] >= next_bound) | ~torch.isfinite(next_bound)
+    return vals, idxs, covered

@@ -10,6 +10,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -23,11 +25,13 @@ def minmax_normalize(scores: torch.Tensor, dim: int = -1,
     return torch.where(rng > eps, (s - mn) / rng.clamp_min(eps), torch.ones_like(s))
 
 
-def max_normalize(scores: torch.Tensor, dim: int = -1,
-                  eps: float = 1e-12) -> torch.Tensor:
-    """Divide by the max (constant-zero input stays as it is)."""
+def max_normalize(scores: torch.Tensor, dim: int = -1, eps: float = 1e-12,
+                  mx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Divide by the max along ``dim``, or by ``mx`` where given (a global
+    max); constant-zero input stays as it is."""
     s = scores.float()
-    mx = s.amax(dim=dim, keepdim=True)
+    if mx is None:
+        mx = s.amax(dim=dim, keepdim=True)
     return torch.where(mx > eps, s / mx.clamp_min(eps), s)
 
 

@@ -84,6 +84,57 @@ def merge_topk(vals: torch.Tensor, ids: torch.Tensor, k: int,
     return mv, torch.gather(all_ids, 1, sel)
 
 
+# rows a rank sends in one all-gather of ``move_rows`` (about 25 MB a rank
+# at D = 384): bounds the gathered buffer at a few times that
+MOVE_CHUNK_ROWS = 16384
+
+
+def move_rows(mesh: Mesh, local: torch.Tensor, old_per: int, src: np.ndarray,
+              new_per: int) -> Tuple[torch.Tensor, int]:
+    """This rank's rows of a row-sharded array laid out anew: new global
+    row g takes old global row ``src[g]`` (-1: a zero row). Rank r held old
+    rows [r * old_per, (r + 1) * old_per) (``local``) and holds new rows
+    [r * new_per, (r + 1) * new_per). Every rank passes the same ``src``, so
+    each computes the whole plan alike. A row that keeps its rank is copied
+    in place; a row whose rank changes travels once: each rank's outgoing
+    rows, padded to the largest sender's count, go through all-gathers of
+    at most ``MOVE_CHUNK_ROWS`` rows (gloo has no all-to-all), and each
+    receiver takes its own. Returns (the [new_per, ...] rows, the rows this
+    rank received)."""
+    S, me = _shard(mesh)
+    dev = local.device
+    has = src >= 0
+    old_owner = np.where(has, src // old_per, -1)
+    new_owner = np.arange(len(src)) // new_per
+    moving = has & (old_owner != new_owner)
+    lo = me * new_per
+    out = local.new_zeros((new_per,) + tuple(local.shape[1:]))
+    stay = np.flatnonzero(old_owner[lo:lo + new_per] == me)
+    if stay.size:
+        out[torch.from_numpy(stay).to(dev)] = local[
+            torch.from_numpy(src[lo + stay] - me * old_per).to(dev)]
+    # each sender's outgoing rows, by new global row
+    sends = [np.flatnonzero(moving & (old_owner == r)) for r in range(S)]
+    most = max(len(rows) for rows in sends)
+    received = 0
+    for c0 in range(0, most, MOVE_CHUNK_ROWS):
+        width = min(MOVE_CHUNK_ROWS, most - c0)
+        buf = local.new_zeros((width,) + tuple(local.shape[1:]))
+        mine = sends[me][c0:c0 + width]
+        if mine.size:
+            buf[:mine.size] = local[torch.from_numpy(src[mine] - me * old_per).to(dev)]
+        every = all_gather_cat(buf[None], mesh, dim=0)  # [S, width, ...]
+        for r in range(S):
+            part = sends[r][c0:c0 + width]
+            take = np.flatnonzero(new_owner[part] == me)
+            if r == me or not take.size:
+                continue
+            out[torch.from_numpy(part[take] - lo).to(dev)] = every[
+                r, torch.from_numpy(take).to(dev)]
+            received += int(take.size)
+    return out, received
+
+
 def _local_bias(bias: Optional[torch.Tensor], per: int,
                 like: torch.Tensor) -> torch.Tensor:
     if bias is None:

@@ -25,7 +25,8 @@ impact hybrid (K1, K4, K6, K7) and ``Searcher.search_batch``.
 
 ``mesh`` (every rank building the same pipeline) reaches the Indexer, so
 the pipelines serve through the mesh's collective programs;
-HybridBM25Pipeline's [1, n] fusion raises there (not ported to the mesh).
+HybridBM25Pipeline's divide-by-max fusion runs there rank by rank, its two
+arm maxima in one all-reduce.
 """
 
 from __future__ import annotations
@@ -269,16 +270,13 @@ class HybridBM25Pipeline(BasePipeline):
 
     def search(self, query: str, top_k: int = 5) -> PipelineResult:
         ix = self.indexer
-        if ix.mesh is not None:
-            raise NotImplementedError(
-                "HybridBM25Pipeline.search on a mesh: its divide-by-max fusion of "
-                "two [1, n] arms is a single-device program the JAX package "
-                "leaves to XLA's partitioning; not ported to the mesh yet")
         snap = ix.dense._snap
         n = snap.n
         if n == 0:
             return self._finish([], query, {"pipeline": self.name})
         q_vec = ix.encoder.encode([query]).to(ix.device)
+        if ix.mesh is not None:
+            return self._mesh_search(query, q_vec, snap, top_k)
         bm25_state = ix.bm25._state
         if (n > HYBRID_BM25_SPARSE_MIN and bm25_state.postings is not None
                 and bm25_state.n_docs == n):
@@ -299,6 +297,39 @@ class HybridBM25Pipeline(BasePipeline):
             (float(fused_np[i]), ix.contents[int(i)], int(i))
             for i in order if np.isfinite(fused_np[i])
         ]
+        return self._finish(results, query, {"pipeline": self.name})
+
+    def _mesh_search(self, query: str, q_vec: torch.Tensor, snap,
+                     top_k: int) -> PipelineResult:
+        """The full divide-by-max fusion on a mesh (the sharded BM25 has no
+        impact tier, as in the JAX package): each rank scores its own rows
+        (the cosine arm over its dense part, ``BM25.shard_scores``), one
+        all-reduce MAX of both arms' maxima over the real rows (< n, dead
+        ones included, as the single device's max) normalizes them, the
+        tombstone bias is added after the fusion, and the rank-local top-k
+        merge by (value desc, doc id asc): ``np.argsort(-fused,
+        kind="stable")``'s order. Every rank returns the same rows."""
+        from hybridsearch_tpu_torch.ops.dense import l2_normalize, stable_topk
+        from hybridsearch_tpu_torch.parallel.collectives import all_reduce, merge_topk
+
+        ix = self.indexer
+        n = snap.n
+        lo, per = ix.dense._rows(snap.capacity)
+        sem = l2_normalize(q_vec.float()) @ snap.docs.T  # [1, per]
+        lex = ix.bm25.shard_scores([query], per)
+        pad = (torch.arange(per, device=sem.device) + lo) >= n
+        mx = all_reduce(torch.stack([sem.masked_fill(pad, float("-inf")).amax(),
+                                     lex.masked_fill(pad, float("-inf")).amax()]),
+                        "max", ix.mesh)
+        fused = (max_normalize(sem, mx=mx[0]) * self.semantic_weight
+                 + max_normalize(lex, mx=mx[1]) * self.bm25_weight) + snap.bias[None, :]
+        k = min(top_k, n)
+        vals, idx = stable_topk(fused, min(k, per))
+        vals, ids = merge_topk(vals, torch.where(torch.isfinite(vals), idx + lo, -1),
+                               k, ix.mesh)
+        results = [(float(v), ix.contents[int(i)], int(i))
+                   for v, i in zip(vals[0].cpu().numpy(), ids[0].cpu().numpy())
+                   if np.isfinite(v)]
         return self._finish(results, query, {"pipeline": self.name})
 
     def _impact_search(self, query: str, q_vec: torch.Tensor, snap,

@@ -5,12 +5,16 @@
   - Counters: named monotonic counters (e.g. uncertified supertile batches);
   - trace_span: context manager recording into a StageTimer and labelling
     the stage on a torch.profiler timeline (record_function) when a
-    profiling session is active.
+    profiling session is active;
+  - QueryTracer: a one-call profile (torch.profiler, CPU and CUDA activity)
+    written as a trace file under a directory.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
+import tempfile
 import threading
 import time
 from collections import deque
@@ -93,3 +97,28 @@ def trace_span(stage: str, timer: Optional[StageTimer] = None) -> Iterator[None]
             yield
     finally:
         timer.record(stage, time.perf_counter() - t0)
+
+
+class QueryTracer:
+    """One-call profiling into ``log_dir`` (by default ``hst_trace`` under
+    the temporary directory): ``profile()`` records host activity, and the
+    card's kernels too when CUDA is available, and on exit writes one
+    ``*.pt.trace.json`` file (Chrome trace format, which TensorBoard's
+    profiler plugin reads) there."""
+
+    def __init__(self, log_dir: Optional[str] = None) -> None:
+        self.log_dir = log_dir or os.path.join(tempfile.gettempdir(), "hst_trace")
+
+    @contextlib.contextmanager
+    def profile(self) -> Iterator[str]:
+        """Profile the body; yields the directory the trace goes to."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.log_dir, exist_ok=True)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(self.log_dir)):
+            yield self.log_dir

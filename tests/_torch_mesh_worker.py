@@ -264,16 +264,6 @@ def check_dense_index(mesh, inp):
     out["search_dead"] = idx.search(inp["q"], inp["k"])
     out["search_bias"] = idx.search(inp["q"], inp["k"], extra_bias=inp["extra_bias"])
     out["vectors"] = idx.get_vectors(inp["get"])
-    try:
-        idx.add(np.ones((idx.capacity, idx.dim), np.float32))
-        out["grow"] = None
-    except NotImplementedError as e:
-        out["grow"] = str(e)
-    try:
-        idx.compact()
-        out["compact"] = None
-    except NotImplementedError as e:
-        out["compact"] = str(e)
     idx.save(inp["save_dir"])
     loaded = DenseIndex.load(inp["save_dir"], capacity_round=inp["round"], mesh=mesh)
     out["loaded_search"] = loaded.search(inp["q"], inp["k"])
@@ -282,6 +272,31 @@ def check_dense_index(mesh, inp):
     out["loaded_deleted"] = loaded.deleted_count
     one = DenseIndex.load(inp["one_shard_dir"], capacity_round=inp["round"], mesh=mesh)
     out["one_shard_search"] = one.search(inp["q"], inp["k"])
+    out.update(_grow_and_compact(idx, inp))
+    return out
+
+
+def _grow_and_compact(idx, inp):
+    """Growth past the sharded capacity, then compaction twice (the second
+    after half the rows die, so the capacity shrinks): capacity, ids,
+    search rows and mappings, each rank's received rows apart."""
+    snap = idx._snap
+    before = snap.docs.clone()
+    out = {"grow_ids": idx.add(inp["grow"]), "grow_capacity": idx.capacity,
+           "local_grow_moved": idx.moved_rows,
+           "grow_search": idx.search(inp["q_grow"], inp["k"]),
+           "grow_vectors": idx.get_vectors(inp["grow_get"]),
+           # copy-on-write: the snapshot before the growth keeps its buffers
+           "grow_cow": bool(torch.equal(snap.docs, before))}
+    out["compact_mapping"] = idx.compact()
+    out.update(compact_capacity=idx.capacity, compact_deleted=idx.deleted_count,
+               local_compact_moved=idx.moved_rows,
+               compact_search=idx.search(inp["q_grow"], inp["k"]))
+    idx.delete(inp["dead2"])
+    out["shrink_mapping"] = idx.compact()
+    out.update(shrink_capacity=idx.capacity, shrink_n=idx.n_docs,
+               shrink_search=idx.search(inp["q_grow"], inp["k"]),
+               shrink_vectors=idx.get_vectors(list(range(idx.n_docs))))
     return out
 
 
@@ -319,6 +334,7 @@ def check_ivf(mesh, inp):
     carried = convert.sharded_ivf_index(*inp["arrays"], mesh=mesh, nprobe=6)
     out["carried"] = carried.search(inp["q"], 10)
     out["carried_full"] = carried.search(inp["q"], 10, nprobe=10**9)
+    out.update(_bf16_ivf(mesh, inp))
     try:
         own.from_layout(torch.zeros((8, inp["docs"].shape[1])), 4,
                         np.zeros((2, inp["docs"].shape[1]), np.float32), np.zeros(4))
@@ -328,10 +344,39 @@ def check_ivf(mesh, inp):
     return out
 
 
+def _bf16_ivf(mesh, inp):
+    """The sharded build with bfloat16 storage and the JAX k-means draws
+    injected (rank 0 fits, ``mesh_kmeans``), and a JAX bfloat16 sharded
+    build carried across; each rank's rows and ids apart."""
+    from hybridsearch_tpu_torch import convert
+    from hybridsearch_tpu_torch.index import ivf as ivf_mod
+
+    init, reseed = inp["draws"]
+    real = ivf_mod.kmeans_fit
+    ivf_mod.kmeans_fit = lambda v, k, seed=0, iters=10: real(
+        v, k, seed=seed, iters=iters, init_idx=torch.from_numpy(init),
+        reseed_idx=torch.from_numpy(reseed))
+    try:
+        b16 = ivf_mod.IVFIndex(dim=inp["docs"].shape[1], n_clusters=16, nprobe=6,
+                               mesh=mesh, storage_dtype=torch.bfloat16)
+        b16.build(inp["docs"])
+    finally:
+        ivf_mod.kmeans_fit = real
+    carried = convert.sharded_ivf_index(*inp["arrays_b16"], mesh=mesh, nprobe=6,
+                                        storage_dtype=torch.bfloat16)
+    return {"b16_dtypes": (str(b16._docs_perm.dtype), str(carried._docs_perm.dtype)),
+            "local_b16_rows": b16._docs_perm.float().numpy(),
+            "local_b16_ids": b16._perm_to_orig.numpy(),
+            "b16": b16.search(inp["q"], 10),
+            "b16_full": b16.search(inp["q"], 10, nprobe=10**9),
+            "b16_carried": carried.search(inp["q"], 10)}
+
+
 def check_indexer(mesh, inp):
     """Indexer on the mesh: build, serve, tombstone, save, load back (every
-    rank its own store), and a single-device save loaded onto the mesh;
-    the routes that raise."""
+    rank its own store), a single-device save loaded onto the mesh, adds
+    within and past the dense capacity, the JSON export imported back onto
+    the mesh, and HybridBM25Pipeline before and after a delete."""
     from hybridsearch_tpu_torch.config import EngineConfig
     from hybridsearch_tpu_torch.index.builder import Indexer
     from hybridsearch_tpu_torch.pipelines import create_pipeline
@@ -363,21 +408,30 @@ def check_indexer(mesh, inp):
     out["single_saved"] = _rows(js.search_batch(inp["queries"], top_k=5, log=False))
     ix.add_documents(inp["more"])
     out["added"] = _rows(s.search_batch(inp["queries"], top_k=5, log=False))
-    try:
-        ix.export_json(os.path.join(inp["dir"], "dump.json"))
-        out["export"] = None
-    except NotImplementedError as e:
-        out["export"] = str(e)
+    # past the dense capacity: the rows grow across the ranks, BM25 refits
+    cap = ix.dense.capacity
+    ix.add_documents(inp["grow_docs"])
+    out["grown"] = _rows(s.search_batch(inp["queries"], top_k=5, log=False))
+    out["grown_capacity"] = (cap, ix.dense.capacity)
+    out["grown_aligned"] = (ix.bm25.sharded.docs_per_shard * ix.bm25.sharded.n_shards
+                            == ix.dense.capacity)
+    ix.export_json(inp["dump"])  # rank 0 writes it
+    mx = Indexer(db_path=os.path.join(inp["dir"], f"import_{mesh.data_index}.db"),
+                 encoder=_encoder(inp["table"], mesh), config=cfg, mesh=mesh)
+    out["imported_n"] = mx.import_json(inp["dump"])
+    out["imported_vectors"] = mx.dense.get_vectors(list(range(mx.dense.n_docs)))
+    out["imported_rows"] = _rows(Searcher(indexer=mx, use_query_memory=False,
+                                          config=cfg).search_batch(inp["queries"],
+                                                                   top_k=5, log=False))
     basic = create_pipeline("basic", encoder=_encoder(inp["table"], mesh), mesh=mesh)
     basic.index(inp["docs"])
     out["basic"] = _rows([basic.search(inp["queries"][0], top_k=3).results])
     hb = create_pipeline("hybrid_bm25", encoder=_encoder(inp["table"], mesh), mesh=mesh)
     hb.index(inp["docs"])
-    try:
-        hb.search(inp["queries"][0])
-        out["hybrid_bm25"] = None
-    except NotImplementedError as e:
-        out["hybrid_bm25"] = str(e)
+    out["hybrid_bm25"] = _rows([hb.search(q, top_k=5).results for q in inp["queries"]])
+    hb.indexer.delete_documents(inp["dead"])
+    out["hybrid_bm25_dead"] = _rows([hb.search(q, top_k=5).results
+                                     for q in inp["queries"]])
     return out
 
 

@@ -4,7 +4,9 @@ the CPU (plain versions): the tile ladder on a clustered index
 clustered index (both gates ``0``: K1, K4, K6, K7), the one-call supertile
 entry (K2, K3), ``hybrid_sparse_topk`` with hot-term tables (K1, K4) and
 the IVF index (scatter mode). Each batch served twice on the card is equal
-bit for bit.
+bit for bit. Then the int8 sweep (``int8_swept_topk``: ``torch._int_mm``
+with a small batch padded, K4 at tile grain in pass 3) and the bfloat16
+IVF against the CPU.
 
 Run on a machine with an NVIDIA Hopper card:
 
@@ -226,3 +228,103 @@ def test_gpu_ivf_scatter_mode_matches_the_cpu_and_repeats(monkeypatch):
     v, i = ivf.search(q, 10, nprobe=10**9)
     ev, ei = gpu.indexer.dense.search(q, 10)
     np.testing.assert_allclose(v, ev, rtol=EPS, atol=EPS)
+
+
+# -- the int8 sweep and the bfloat16 IVF ----------------------------------------------
+
+def _unit_rows(n, d, seed, clusters=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, d), generator=g)
+    if clusters:  # in cluster order, as the clustered layout keeps them
+        cents = torch.randn((clusters, d), generator=g) * 3
+        x = cents[torch.randint(0, clusters, (n,), generator=g).sort().values] + x
+    return x / x.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("B,D", [(1, 384), (5, 384), (16, 384), (17, 384), (40, 100)])
+def test_gpu_int8_product_pads_small_batches(B, D):
+    """``torch._int_mm`` takes more than 16 rows and depths that are
+    multiples of 8: the padded product equals the exact int32 product."""
+    _need_card()
+    from hybridsearch_tpu_torch.ops.dense import _int8_product
+
+    g = torch.Generator().manual_seed(B * 1000 + D)
+    q8 = torch.randint(-127, 128, (B, D), generator=g, dtype=torch.int8)
+    d8 = torch.randint(-127, 128, (1024, D), generator=g, dtype=torch.int8)
+    got = _int8_product(q8.cuda(), d8.cuda())
+    assert got.dtype == torch.int32 and got.shape == (B, 1024)
+    assert torch.equal(got.cpu(), q8.int() @ d8.int().T)
+
+
+def test_gpu_int8_swept_topk_matches_the_cpu_and_the_exact_topk():
+    """The sweep on the card (``torch._int_mm``, K4 at tile grain in pass
+    3) against the same call on the CPU: the certificates differ on at most
+    2 rows (float order at the margin), ids are equal and values within
+    1e-5 on rows both certify; certified rows, and every row with every
+    tile probed, equal the card's exact ``tiled_dense_topk`` (K1, K4) bit
+    for bit; K4 launched."""
+    _need_card()
+    from hybridsearch_tpu_torch.ops import cuda_supertile
+    from hybridsearch_tpu_torch.ops.dense import (
+        int8_swept_topk,
+        quantize_corpus_int8,
+        tiled_dense_topk,
+    )
+
+    docs = _unit_rows(N_DOCS, 384, 1, clusters=64)
+    q = docs[::N_DOCS // 48] + _unit_rows(48, 384, 2)  # near docs of every cluster
+    q = q / q.norm(dim=1, keepdim=True)
+    bias = torch.zeros(N_DOCS)
+    bias[torch.randperm(N_DOCS, generator=torch.Generator().manual_seed(3))[:500]] = -np.inf
+    d8c, scc, resc = quantize_corpus_int8(docs)
+    cpu = int8_swept_topk(q, d8c, scc, docs, resc, 10, bias=bias)
+    d_g, q_g, b_g = docs.cuda(), q.cuda(), bias.cuda()
+    d8, sc, res = quantize_corpus_int8(d_g)
+    cuda_supertile.super_scores_dedup.launches = 0
+    gv, gi, gc = int8_swept_topk(q_g, d8, sc, d_g, res, 10, bias=b_g)
+    assert cuda_supertile.super_scores_dedup.launches > 0
+    assert gc.any()
+    both = (gc.cpu() & cpu[2]).numpy()
+    assert both.sum() >= int(gc.sum()) - 2
+    np.testing.assert_allclose(gv.cpu().numpy()[both], cpu[0].numpy()[both],
+                               rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(gi.cpu().numpy()[both], cpu[1].numpy()[both])
+    ev, ei = tiled_dense_topk(q_g, d_g, 10, bias=b_g)
+    assert torch.equal(gv[gc], ev[gc]) and torch.equal(gi[gc], ei[gc])
+    # every tile probed (the last rung of an escalation): all rows certified
+    fv, fi, fc = int8_swept_topk(q_g[:4], d8, sc, d_g, res, 10,
+                                 probe_tiles=N_DOCS // 128, bias=b_g)
+    assert bool(fc.all()) and torch.equal(fv, ev[:4]) and torch.equal(fi, ei[:4])
+
+
+def test_gpu_bf16_ivf_matches_the_cpu_and_the_f32_index():
+    """A bfloat16 IVF built on the card: its rows are bfloat16 (half the
+    bytes of the float32 build of the same vectors and seed, whose
+    centroids and chunks it shares), the same arrays carried to the CPU
+    serve the same rows, and its ids equal the float32 index's but where
+    the two docs at a slot have float32 scores within 2^-8."""
+    _need_card()
+    from hybridsearch_tpu_torch.index.ivf import IVFIndex
+
+    docs = _unit_rows(N_DOCS, 384, 4, clusters=96)
+    q = _unit_rows(64, 384, 5)
+    f32 = IVFIndex(dim=384, n_clusters=128, nprobe=8, device="cuda").build(docs)
+    b16 = IVFIndex(dim=384, n_clusters=128, nprobe=8, device="cuda",
+                   storage_dtype=torch.bfloat16).build(docs)
+    assert b16._docs_perm.dtype == torch.bfloat16
+    assert b16._docs_perm.nbytes * 2 == f32._docs_perm.nbytes
+    assert torch.equal(b16._chunk_starts, f32._chunk_starts)
+    assert torch.equal(b16._docs_perm, f32._docs_perm.to(torch.bfloat16))
+    cpu = IVFIndex(dim=384, nprobe=8, device="cpu").load_arrays(
+        b16._centroids.cpu(), b16._docs_perm.cpu(), b16._chunk_starts.cpu(),
+        b16._chunk_lens.cpu(), b16._perm_to_orig.cpu(), b16._cap, b16.n_docs)
+    bv, bi = b16.search(q, 10)
+    cv, ci = cpu.search(q, 10)
+    np.testing.assert_allclose(bv, cv, rtol=0, atol=1e-5)
+    for b, j in zip(*np.nonzero(bi != ci)):
+        assert (np.abs(cv[b] - cv[b][j]) <= 1e-5).sum() > 1, (b, j)
+    fv, fi = f32.search(q, 10)
+    np.testing.assert_allclose(bv, fv, rtol=0, atol=2.0 ** -8)
+    s = (q @ docs.T).numpy()  # float32 scores of every doc
+    for b, j in zip(*np.nonzero(bi != fi)):
+        assert abs(s[b, bi[b, j]] - fv[b, j]) <= 2.0 ** -8, (b, j)

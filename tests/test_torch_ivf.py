@@ -177,6 +177,89 @@ def test_ivf_search_before_build_and_small_buffer_raise():
             np.sort(rng.integers(0, 4, 100)))
 
 
+# -- bfloat16 storage ---------------------------------------------------------------
+
+def _inject_ivf_draws(monkeypatch, n, k):
+    """The JAX k-means draws, into the port's IVFIndex.build."""
+    from hybridsearch_tpu_torch.index import ivf as ivf_mod
+
+    init, reseed = _jax_kmeans_draws(n, k)
+    monkeypatch.setattr(ivf_mod, "kmeans_fit", lambda vec, kk, seed=0, iters=10: kmeans_fit(
+        vec, kk, seed=seed, iters=iters, init_idx=torch.from_numpy(init),
+        reseed_idx=torch.from_numpy(reseed)))
+
+
+@pytest.mark.parametrize("nprobe", [2, 10**9])
+def test_bf16_ivf_build_matches_jax(monkeypatch, nprobe):
+    """``storage_dtype=bfloat16`` on both sides, the JAX k-means draws
+    injected: the same chunk table and row order, rows in bfloat16 equal
+    to JAX's but where the two packages' float32 normalizations round to
+    neighbouring bfloat16 values, and the same search results."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(7)
+    docs = _clustered(rng)
+    j = JIVF(dim=64, n_clusters=32, nprobe=8, storage_dtype=jnp.bfloat16).build(docs)
+    _inject_ivf_draws(monkeypatch, len(docs), 32)
+    t = IVFIndex(dim=64, n_clusters=32, nprobe=8, device=CPU,
+                 storage_dtype=torch.bfloat16).build(docs)
+    assert t._docs_perm.dtype == torch.bfloat16
+    for name in ("_chunk_starts", "_chunk_lens", "_perm_to_orig"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)))
+    got = t._docs_perm.float().numpy()
+    want = np.asarray(j._docs_perm, np.float32)
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)
+    assert (got != want).mean() < 0.01
+    qs = docs[rng.integers(0, len(docs), 16)] + 0.05 * rng.standard_normal(
+        (16, 64)).astype(np.float32)
+    _same_topk(*t.search(qs, 10, nprobe=nprobe), *j.search(qs, 10, nprobe=nprobe))
+
+
+def test_bf16_ivf_is_the_f32_ivf_rounded():
+    """One seed, the same vectors: a bfloat16 build has the float32 build's
+    centroids and chunks (k-means runs on the float32 vectors), its rows are
+    the float32 rows rounded (half the bytes), and each probe scores them
+    in float32: ids equal the float32 index's but where the two docs at a
+    slot have float32 scores within 2^-8 (a unit row's bfloat16 rounding
+    moves a score at most 2^-9)."""
+    rng = np.random.default_rng(8)
+    docs = _clustered(rng, n_clusters=12, per=60)
+    f32 = IVFIndex(dim=64, n_clusters=16, nprobe=4, device=CPU).build(docs)
+    b16 = IVFIndex(dim=64, n_clusters=16, nprobe=4, device=CPU,
+                   storage_dtype=torch.bfloat16).build(docs)
+    assert torch.equal(b16._centroids, f32._centroids)
+    assert torch.equal(b16._chunk_starts, f32._chunk_starts)
+    assert torch.equal(b16._docs_perm, f32._docs_perm.to(torch.bfloat16))
+    assert (b16._docs_perm.element_size() * 2 == f32._docs_perm.element_size())
+    qs = docs[rng.integers(0, len(docs), 16)] + 0.05 * rng.standard_normal(
+        (16, 64)).astype(np.float32)
+    fv, fi = f32.search(qs, 10)
+    bv, bi = b16.search(qs, 10)
+    np.testing.assert_allclose(bv, fv, rtol=0, atol=2.0 ** -8)
+    qn = qs / np.linalg.norm(qs, axis=1, keepdims=True)
+    dn = docs / np.linalg.norm(docs, axis=1, keepdims=True)
+    for b, j in zip(*np.nonzero(bi != fi)):  # the two docs' float32 scores
+        assert abs(qn[b] @ dn[bi[b, j]] - fv[b, j]) <= 2.0 ** -8, (b, j)
+
+
+def test_converted_bf16_ivf_searches_like_jax():
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(9)
+    docs = _clustered(rng)
+    j = JIVF(dim=64, n_clusters=32, nprobe=8, storage_dtype=jnp.bfloat16).build(docs)
+    t = convert.ivf_index(np.asarray(j._centroids), np.asarray(j._docs_perm, np.float32),
+                          np.asarray(j._chunk_starts), np.asarray(j._chunk_lens),
+                          np.asarray(j._perm_to_orig), j._cap, j.n_docs, nprobe=8,
+                          device=CPU, storage_dtype=torch.bfloat16)
+    assert t._docs_perm.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t._docs_perm.float().numpy(),
+                                  np.asarray(j._docs_perm, np.float32))
+    qs = docs[:12] + 0.05 * rng.standard_normal((12, 64)).astype(np.float32)
+    _same_topk(*t.search(qs, 10), *j.search(qs, 10))
+
+
 # -- the Indexer's IVF build and scatter mode ------------------------------------------
 
 def _texts(rng, n, n_vocab=120, topics=6):

@@ -1,12 +1,14 @@
 """The port's indexes on a mesh against the JAX package's, on the CPU:
 ``DenseIndex`` (build, add, tombstones at shard edges, n not a multiple of
 the shards' rows, save at 4 shards and load at 4, a 1-shard save loaded at
-4), ``BM25`` (sharded fit, search, scores, a saved single-device state
-loaded onto the mesh, adds), the sharded ``IVFIndex`` (its own build at
-full probe, a JAX build carried across), the ``Indexer`` (build, delete,
-save / load on the mesh, a JAX single-device save loaded onto it, adds)
-and the routes that raise ``NotImplementedError`` on a mesh; then a world
-of one rank, the degenerate mesh, against the single device.
+4, growth past the sharded capacity and compaction, which move rows
+between ranks), ``BM25`` (sharded fit, search, scores, a saved
+single-device state loaded onto the mesh, adds), the sharded ``IVFIndex``
+(its own build at full probe, a JAX build carried across, bfloat16
+storage), the ``Indexer`` (build, delete, save / load on the mesh, a JAX
+single-device save loaded onto it, adds within and past the capacity, the
+JSON export) and ``HybridBM25Pipeline`` on the mesh; then a world of one
+rank, the degenerate mesh, against the single device.
 
 The port runs in one spawned world of 4 gloo ranks for the 4-rank checks
 and one of 1 rank (tests/_torch_mesh_worker.py); the JAX side runs here
@@ -15,10 +17,12 @@ the same answer.
 
 Tolerances: scores rtol=1e-4, atol=1e-5; ids exact except inside a
 near-tie of eps_num=1e-4; a saved manifest and bias byte for byte, saved
-rows rtol=1e-5, atol=1e-6 (the packages normalize in another float
-order); a save loaded back bit for bit.
+and exported rows rtol=1e-5, atol=1e-6 (the packages normalize in another
+float order); a save loaded back bit for bit; bfloat16 rows within one
+bfloat16 step (2^-7 relative) of JAX's.
 """
 
+import json
 import os
 
 import jax
@@ -33,14 +37,23 @@ from hybridsearch_tpu.index.ivf import IVFIndex as JIVF
 from hybridsearch_tpu.index.sparse_index import BM25 as JBM25
 from hybridsearch_tpu.models.encoder import HashingEncoder as JEnc
 from hybridsearch_tpu.parallel.mesh import build_mesh as jbuild_mesh
+from hybridsearch_tpu.pipelines import create_pipeline as jcreate_pipeline
 from hybridsearch_tpu.retrieval.searcher import Searcher as JSearcher
+from hybridsearch_tpu_torch import convert
+from hybridsearch_tpu_torch.config import EngineConfig as TConfig
+from hybridsearch_tpu_torch.index.builder import Indexer as TIndexer
+from hybridsearch_tpu_torch.index.dense_index import DenseIndex as TDense
 from hybridsearch_tpu_torch.parallel.dryrun import launch
+from hybridsearch_tpu_torch.pipelines import create_pipeline as tcreate_pipeline
 
 S = 4
 EPS = 1e-4
 QUERIES = ["machine learning artificial intelligence", "cooking pasta",
            "stock market quarter", "neural networks brains"]
 MORE = ["pasta with tomato sauce and basil", "a quarter of machine learning"]
+# enough docs to pass the Indexer's dense capacity on the mesh
+GROW_DOCS = [f"note {i} on {w} and the quarter" for i, w in enumerate(
+    ["pasta", "neural networks", "machine learning", "stock market"] * 5)]
 
 
 def _same_topk(got_v, got_i, want_v, want_i):
@@ -84,7 +97,33 @@ def _jax_dense(jmesh, inp, save_dir=None):
     out["capacity"] = idx.capacity
     if save_dir:
         idx.save(save_dir)
+    return _grow_and_compact(idx, inp, out)
+
+
+def _grow_and_compact(idx, inp, out):
+    """Growth past the capacity, compaction, half the rows tombstoned and
+    compaction again (the worker's ``_grow_and_compact``)."""
+    out["grow_ids"] = idx.add(inp["grow"])
+    out.update(grow_capacity=idx.capacity, grow_search=idx.search(inp["q_grow"], inp["k"]),
+               grow_vectors=idx.get_vectors(inp["grow_get"]))
+    out["compact_mapping"] = idx.compact()
+    out.update(compact_capacity=idx.capacity,
+               compact_search=idx.search(inp["q_grow"], inp["k"]))
+    idx.delete(inp["dead2"])
+    out["shrink_mapping"] = idx.compact()
+    out.update(shrink_capacity=idx.capacity, shrink_n=idx.n_docs,
+               shrink_search=idx.search(inp["q_grow"], inp["k"]),
+               shrink_vectors=idx.get_vectors(list(range(idx.n_docs))))
     return out
+
+
+def _port_dense_single(inp):
+    """The same mutations on the port's single-device index."""
+    idx = TDense(dim=inp["vecs"].shape[1], capacity_round=inp["round"], device="cpu")
+    idx.build(inp["vecs"])
+    idx.add(inp["new"])
+    idx.delete(inp["dead"])
+    return _grow_and_compact(idx, inp, {})
 
 
 @pytest.fixture(scope="module")
@@ -118,6 +157,13 @@ def world(jmesh, demo_docs, tmp_path_factory):
     eb = np.where(np.random.default_rng(7).random(305) < 0.5, 0.0, -np.inf)
     eb[[78, 81, 123]] = 0.05
     dense["extra_bias"] = eb.astype(np.float32)
+    # 40 rows take the 305 past the capacity of 320 (80 a shard -> 88);
+    # then half of the 345 rows die, so the compaction shrinks the capacity
+    dense.update(grow=rng.standard_normal((40, 64)).astype(np.float32),
+                 q_grow=np.concatenate([vecs[[7, 123, 299]],
+                                        rng.standard_normal((3, 64)).astype(np.float32)]),
+                 grow_get=[0, 79, 80, 87, 88, 175, 176, 319, 320, 344],
+                 dead2=np.arange(0, 341, 2))
     single_npz = str(tmp / "single_bm25.npz")
     JBM25().fit(demo_docs).save(single_npz)
     bm25 = {"docs": list(demo_docs), "queries": QUERIES + ["zzz nothing"],
@@ -126,10 +172,10 @@ def world(jmesh, demo_docs, tmp_path_factory):
     jivf = JIVF(dim=64, n_clusters=16, nprobe=6, mesh=jmesh).build(docs_ivf)
     q_ivf = docs_ivf[np.random.default_rng(2).integers(0, len(docs_ivf), 8)] + \
         0.05 * np.random.default_rng(3).standard_normal((8, 64)).astype(np.float32)
-    ivf = {"docs": docs_ivf, "q": q_ivf,
-           "arrays": (np.asarray(jivf._centroids), np.asarray(jivf._docs_perm),
-                      np.asarray(jivf._chunk_starts), np.asarray(jivf._chunk_lens),
-                      np.asarray(jivf._perm_to_orig), jivf._cap, jivf.n_docs)}
+    jb16 = JIVF(dim=64, n_clusters=16, nprobe=6, mesh=jmesh,
+                storage_dtype=jax.numpy.bfloat16).build(docs_ivf)
+    ivf = {"docs": docs_ivf, "q": q_ivf, "draws": _jax_kmeans_draws(len(docs_ivf), 16),
+           "arrays": _ivf_arrays(jivf), "arrays_b16": _ivf_arrays(jb16)}
     table = np.asarray(JEnc(dim=128).table)
     single_db = str(tmp / "single.db")
     cfg = JConfig()
@@ -140,7 +186,8 @@ def world(jmesh, demo_docs, tmp_path_factory):
     jix.close()
     indexer = {"table": table, "round": 8, "docs": list(demo_docs),
                "queries": QUERIES, "dead": [1, 3], "more": MORE, "dir": str(tmp),
-               "single_dir": str(tmp / "single_index"), "single_db": single_db}
+               "single_dir": str(tmp / "single_index"), "single_db": single_db,
+               "grow_docs": GROW_DOCS, "dump": str(tmp / "mesh_dump.json")}
     inputs = {"dense_index": dense, "bm25": bm25, "ivf": ivf, "indexer": indexer}
     four = launch(worker.run_checks, S, args=("index", inputs),
                   workdir=str(tmp / "world4"), timeout_s=240)
@@ -148,7 +195,23 @@ def world(jmesh, demo_docs, tmp_path_factory):
                                   "queries": QUERIES}}
     one = launch(worker.run_checks, 1, args=("index", one_in),
                  workdir=str(tmp / "world1"), timeout_s=240)
-    return inputs, jivf, four, one
+    return inputs, (jivf, jb16), four, one
+
+
+def _ivf_arrays(j):
+    return (np.asarray(j._centroids), np.asarray(j._docs_perm, np.float32),
+            np.asarray(j._chunk_starts), np.asarray(j._chunk_lens),
+            np.asarray(j._perm_to_orig), j._cap, j.n_docs)
+
+
+def _jax_kmeans_draws(n, k, seed=0, iters=10):
+    """The rows jax.random draws inside the JAX kmeans_fit (the initial
+    centroids, then [iters, k] re-seeds of empty clusters)."""
+    key = jax.random.PRNGKey(seed)
+    init = np.array(jax.random.choice(key, n, (k,), replace=False))
+    reseed = np.stack([np.array(jax.random.randint(kk, (k,), 0, n))
+                       for kk in jax.random.split(key, iters)])
+    return init, reseed
 
 
 def _ranks(results, name):
@@ -164,7 +227,7 @@ def _assert_equal(a, b):
     if isinstance(a, dict):
         assert a.keys() == b.keys()
         for key in a:
-            if key != "local_rows":
+            if not key.startswith("local_"):  # a rank's own part
                 _assert_equal(a[key], b[key])
     elif isinstance(a, (list, tuple)):
         assert len(a) == len(b)
@@ -287,7 +350,7 @@ def test_ivf_sharded_matches_jax_and_exact(world, jmesh):
     JAX sharded build carried across serves what the JAX one serves at the
     default probe (each rank probing ceil(6 / 4) chunks) and at full
     probe; from_layout refuses a mesh."""
-    inputs, jivf, four, _one = world
+    inputs, (jivf, _jb16), four, _one = world
     got = _ranks(four, "ivf")[0]
     inp = inputs["ivf"]
     qn = inp["q"] / np.linalg.norm(inp["q"], axis=1, keepdims=True)
@@ -330,20 +393,154 @@ def test_indexer_on_mesh_build_save_load(world, demo_docs):
     _same_rows(got["added"], _jrows(js.search_batch(QUERIES, top_k=5, log=False)))
 
 
-@pytest.mark.parametrize("route", ["grow", "compact", "export", "hybrid_bm25"])
-def test_unported_mesh_routes_raise(world, route):
-    """The routes the JAX package serves on a mesh only through XLA's
-    partitioning raise NotImplementedError and name themselves: growing a
-    sharded capacity, compacting, the JSON export (every row onto every
-    rank) and HybridBM25Pipeline's [1, n] fusion."""
-    _inputs, _jivf, four, _one = world
-    dense = _ranks(four, "dense_index")[0]
-    ix = _ranks(four, "indexer")[0]
-    msg = {"grow": dense["grow"], "compact": dense["compact"],
-           "export": ix["export"], "hybrid_bm25": ix["hybrid_bm25"]}[route]
-    name = {"grow": "DenseIndex.add", "compact": "DenseIndex.compact",
-            "export": "Indexer.export_json", "hybrid_bm25": "HybridBM25Pipeline"}[route]
-    assert msg is not None and name in msg and "mesh" in msg
+@pytest.mark.parametrize("step", ["grow", "compact", "shrink"])
+def test_dense_growth_and_compaction_on_mesh(world, jdense, step):
+    """Growth past the sharded capacity (320 -> 352 at 88 rows a shard),
+    compaction (tombstones at shard edges) and, with half the rows dead, a
+    compaction that shrinks the capacity: every rank's capacity, ids,
+    mappings and rows equal the JAX mesh index's and the port's
+    single-device index's; rows changed rank (each rank received some in
+    the growth), and the snapshot before the growth kept its buffers."""
+    inputs, _jivf, four, _one = world
+    inp = inputs["dense_index"]
+    got = _ranks(four, "dense_index")[0]
+    want, single = jdense[0], _port_dense_single(inp)
+    assert got[f"{step}_capacity"] == want[f"{step}_capacity"]
+    _same_topk(*got[f"{step}_search"], *want[f"{step}_search"])
+    _same_topk(*got[f"{step}_search"], *single[f"{step}_search"])
+    if step == "grow":
+        assert got["grow_capacity"] == 352 and got["grow_cow"]
+        np.testing.assert_array_equal(got["grow_ids"], np.arange(305, 345))
+        np.testing.assert_array_equal(got["grow_ids"], want["grow_ids"])
+        # rank r takes rows [88 r, 88 (r + 1)): 8 r + 8 of them from rank r + 1
+        assert [r["dense_index"]["local_grow_moved"] for r in four] == [8, 16, 24, 0]
+        for other in (want, single):
+            np.testing.assert_allclose(got["grow_vectors"], other["grow_vectors"],
+                                       rtol=1e-5, atol=1e-6)
+    else:
+        for other in (want, single):
+            np.testing.assert_array_equal(got[f"{step}_mapping"], other[f"{step}_mapping"])
+        assert got.get("compact_deleted", 0) == 0
+    if step == "shrink":
+        assert got["shrink_capacity"] == 192 < got["compact_capacity"] == 352
+        assert got["shrink_n"] == single["shrink_n"] == 170
+        np.testing.assert_allclose(got["shrink_vectors"], single["shrink_vectors"],
+                                   rtol=0, atol=0)
+
+
+def _jax_indexer_steps(jmesh, inp, path):
+    """The Indexer steps of the worker's ``check_indexer`` on a JAX mesh,
+    then its export; returns the dense capacity before and after the add
+    past it."""
+    cfg = JConfig()
+    cfg.index.capacity_round = inp["round"]
+    jix = JIndexer(db_path=":memory:", encoder=JEnc(dim=128), config=cfg, mesh=jmesh)
+    jix.index_documents(inp["docs"])
+    jix.delete_documents(inp["dead"])
+    jix.add_documents(inp["more"])
+    cap = jix.dense.capacity
+    jix.add_documents(inp["grow_docs"])
+    jix.export_json(path)
+    return cap, jix.dense.capacity
+
+
+def test_indexer_add_past_capacity_and_export_on_mesh(world, jmesh, tmp_path):
+    """``add_documents`` past the dense capacity grows the mesh's rows and
+    realigns BM25 (rows as the JAX single-device searcher serves them), and
+    ``export_json`` writes the file the JAX mesh Indexer and the port's
+    single-device Indexer write after the same steps (documents and ids
+    equal, vectors within 1e-6); imported back onto the mesh and onto one
+    device it holds the same rows."""
+    inputs, _jivf, four, _one = world
+    inp = inputs["indexer"]
+    got = _ranks(four, "indexer")[0]
+    cap_before, cap_after = got["grown_capacity"]
+    assert cap_after > cap_before and got["grown_aligned"]
+    cfg = JConfig()
+    cfg.index.capacity_round = 8
+    js = JSearcher(encoder=JEnc(dim=128), use_query_memory=False, config=cfg)
+    js.indexer.index_documents(inp["docs"])
+    js.indexer.delete_documents(inp["dead"])
+    js.indexer.add_documents(inp["more"] + inp["grow_docs"])
+    _same_rows(got["grown"], _jrows(js.search_batch(QUERIES, top_k=5, log=False)))
+    assert _jax_indexer_steps(jmesh, inp, str(tmp_path / "jax.json")) == (cap_before,
+                                                                          cap_after)
+    tcfg = TConfig()
+    tcfg.index.capacity_round = 8
+    tix = TIndexer(db_path=":memory:", config=tcfg, device="cpu",
+                   encoder=convert.hashing_encoder(inp["table"], device="cpu"))
+    tix.index_documents(inp["docs"])
+    tix.delete_documents(inp["dead"])
+    tix.add_documents(inp["more"] + inp["grow_docs"])
+    tix.export_json(str(tmp_path / "single.json"))
+    with open(inp["dump"]) as f:
+        text = f.read()
+    mesh_dump = json.loads(text)
+    assert text == json.dumps(mesh_dump)  # json.dump's own text, byte for byte
+    for other in ("jax.json", "single.json"):
+        with open(tmp_path / other) as f:
+            want = json.load(f)
+        assert mesh_dump["documents"] == want["documents"]
+        assert mesh_dump["doc_ids"] == want["doc_ids"]
+        np.testing.assert_allclose(np.asarray(mesh_dump["vectors"]),
+                                   np.asarray(want["vectors"]), rtol=1e-5, atol=1e-6)
+    vecs = np.asarray(mesh_dump["vectors"], np.float32)
+    assert got["imported_n"] == len(vecs) == len(inp["docs"]) + len(MORE) + len(GROW_DOCS)
+    np.testing.assert_allclose(got["imported_vectors"], vecs, rtol=1e-6, atol=1e-7)
+    one = TIndexer(db_path=":memory:", encoder=convert.hashing_encoder(inp["table"],
+                                                                       device="cpu"),
+                   device="cpu")
+    assert one.import_json(inp["dump"]) == len(vecs)
+    np.testing.assert_allclose(one.dense.get_vectors(list(range(one.dense.n_docs))), vecs, rtol=1e-6, atol=1e-7)
+    assert one.contents == mesh_dump["documents"]
+
+
+@pytest.mark.parametrize("dead", [False, True])
+def test_hybrid_bm25_on_mesh(world, jmesh, demo_docs, dead):
+    """``HybridBM25Pipeline.search`` on the mesh: the divide-by-max fusion
+    rank by rank with one all-reduce of both arms' maxima, equal to the
+    port's single-device pipeline and, with no tombstone, to the JAX
+    pipeline on a 4-device mesh (ids, values within 1e-5). With tombstones
+    the maxima still count the dead rows, as the single device's do (the
+    JAX mesh's scatter arm zeroes a dead row's cosine instead)."""
+    inputs, _jivf, four, _one = world
+    inp = inputs["indexer"]
+    got = _ranks(four, "indexer")[0]["hybrid_bm25_dead" if dead else "hybrid_bm25"]
+    single = tcreate_pipeline("hybrid_bm25", device="cpu",
+                              encoder=convert.hashing_encoder(inp["table"], device="cpu"))
+    single.index(demo_docs)
+    if dead:
+        single.indexer.delete_documents(inp["dead"])
+    want = _jrows([single.search(q, top_k=5).results for q in QUERIES])
+    _same_rows(got, want)
+    assert all(len(row) == 5 for row in got)
+    if not dead:
+        jp = jcreate_pipeline("hybrid_bm25", encoder=JEnc(dim=128), mesh=jmesh)
+        jp.index(demo_docs)
+        # two queries: each JAX mesh search compiles anew (3-4 s)
+        _same_rows(got[:2], _jrows([jp.search(q, top_k=5).results for q in QUERIES[:2]]))
+    else:
+        assert not set(inp["dead"]) & {i for row in got for _v, i in row}
+
+
+def test_bf16_ivf_sharded_matches_jax(world):
+    """Sharded bfloat16 storage: the port's own build (the JAX k-means
+    draws injected) holds on every rank the JAX bfloat16 build's ids and
+    its rows within one bfloat16 step, and serves what the JAX build
+    serves; so does the JAX build carried across."""
+    inputs, (_jivf, jb16), four, _one = world
+    outs = _ranks(four, "ivf")
+    got = outs[0]
+    assert got["b16_dtypes"] == ("torch.bfloat16", "torch.bfloat16")
+    rows_s = np.asarray(jb16._docs_perm, np.float32)
+    ids_s = np.asarray(jb16._perm_to_orig)
+    for r, o in enumerate(outs):
+        np.testing.assert_array_equal(o["local_b16_ids"], ids_s[r])
+        np.testing.assert_allclose(o["local_b16_rows"], rows_s[r], rtol=2.0 ** -7, atol=0)
+    q = inputs["ivf"]["q"]
+    _same_topk(*got["b16"], *jb16.search(q, 10))
+    _same_topk(*got["b16_full"], *jb16.search(q, 10, nprobe=10**9))
+    _same_topk(*got["b16_carried"], *jb16.search(q, 10))
 
 
 def test_pipelines_take_the_mesh(world):
