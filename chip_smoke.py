@@ -3027,8 +3027,7 @@ def mesh_rank(rank: int, world: int, job: dict) -> dict:
         exact_calls[-1] += 1
         return real_exact(*a, **kw)
 
-    GLOBAL_TIMER._samples.clear()
-    GLOBAL_TIMER._counts.clear()
+    GLOBAL_TIMER.reset()
     launches, lat, results, fallbacks = {}, [], [], []
     collectives.sharded_supertile_topk = ladder_rung
     collectives.sharded_hybrid_topk = exact_program
@@ -5585,8 +5584,7 @@ def mesh_train_step(mesh_dev: torch.device, job: dict, texts, rank: int) -> dict
     tr.loss_and_grads(batch)
     sync(mesh_dev)
     warm_ms = (time.perf_counter() - t) * 1e3
-    GLOBAL_TIMER._samples.clear()
-    GLOBAL_TIMER._counts.clear()
+    GLOBAL_TIMER.reset()
     sync(mesh_dev)
     t = time.perf_counter()
     loss = float(tr.loss_and_grads(batch))

@@ -80,6 +80,10 @@ SCORE_CHUNK = 1024
 # (K2, rescore) sum the same float32 products in different orders, so they
 # can disagree by ~D * eps_f32; certify only past that noise floor.
 EPS_NUM = 1e-4
+# The certificate's clauses, in the bit order of a rung's failing-clause
+# mask (``hybrid_supertile_topk_rung(return_clauses=True)``): bit i set =
+# clause i fails for the row.
+CERT_CLAUSES = ("complete", "cert_norm", "ovf", "tau", "lex_min_zero")
 
 
 class SuperPostings(NamedTuple):
@@ -550,7 +554,8 @@ def hybrid_supertile_topk_rung(
     n_alive: Optional[int] = None,
     scores_dedup: bool = False,
     place_fused: bool = False,
-) -> HybridTopK:
+    return_clauses: bool = False,
+):
     """Steps 3-4 at probe budget ``s_probe`` from a shared prefix: exact
     resident scores, fusion, float32 finalist rescore and the per-query
     certificate. ``q`` [B, D] L2-normalized float32; ``docs`` [N, D].
@@ -558,9 +563,13 @@ def hybrid_supertile_topk_rung(
     supertile when B*S % 8 == 0 (else K2); ``place_fused``: K5 instead of
     staged windows + K3. Either gives the same bits as the default. Equal
     to ``hybrid_supertile_topk`` at the same s_probe (the prefix's
-    candidates restrict to the rung's top S)."""
-    return _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe,
-                       norm, n_alive, scores_dedup, place_fused)[0]
+    candidates restrict to the rung's top S). With ``return_clauses``
+    returns (HybridTopK, [B] uint8 mask of the failing certificate
+    clauses, bits in ``CERT_CLAUSES`` order, left on the device)."""
+    out, _probes, clauses = _super_rung(
+        q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm, n_alive,
+        scores_dedup, place_fused, return_clauses)
+    return (out, clauses) if return_clauses else out
 
 
 def hybrid_supertile_topk(
@@ -588,14 +597,15 @@ def hybrid_supertile_topk(
     ``block_n`` has no counterpart here."""
     prefix = super_prefix(q, docs, sp, enc, bias=bias, w_s=w_s, w_l=w_l,
                           norm=norm, s_max=s_probe)
-    out, probes = _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias,
-                              s_probe, norm, n_alive, scores_dedup, place_fused)
+    out, probes, _ = _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias,
+                                 s_probe, norm, n_alive, scores_dedup, place_fused)
     return (out, probes) if return_probes else out
 
 
 def _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm,
-                n_alive, scores_dedup, place_fused):
-    """(HybridTopK, probed supertiles [B, S] ascending) of one rung."""
+                n_alive, scores_dedup, place_fused, clauses=False):
+    """(HybridTopK, probed supertiles [B, S] ascending, the failing-clause
+    mask [B] uint8 or None unless ``clauses``) of one rung."""
     B, Dm = q.shape
     N = docs.shape[0]
     dev = q.device
@@ -691,11 +701,18 @@ def _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm,
     cert_norm = (L_res >= max_un + EPS_NUM) | (max_un <= 0.0)
     bound_f = w_s * nsem(ssem) + w_l * nlex(slex, L_res.clamp_min(1e-12))
     tau = torch.where(probed, NEG_INF, bound_f).amax(dim=1)
+    tau_ok = (kth >= tau + EPS_NUM) | ~torch.isfinite(tau)
     complete = torch.from_numpy(np.asarray(enc.complete)).to(dev)
-    exact = (complete & cert_norm & ~ovf
-             & ((kth >= tau + EPS_NUM) | ~torch.isfinite(tau)))
+    exact = complete & cert_norm & ~ovf & tau_ok
+    lex_min_zero = None
     if norm == "minmax":
         lex_min_zero = torch.from_numpy(
             np.asarray(enc.full_touched) < n_alive).to(dev)
         exact = exact & lex_min_zero
-    return HybridTopK(values=vals, indices=idxs, exact=exact), sup_s
+    mask = None
+    if clauses:  # in CERT_CLAUSES order; no lex_min_zero clause under "max"
+        lmz = torch.ones_like(complete) if lex_min_zero is None else lex_min_zero
+        ok = torch.stack([complete, cert_norm, ~ovf, tau_ok, lmz], dim=1)
+        bits = torch.arange(len(CERT_CLAUSES), dtype=torch.uint8, device=dev)
+        mask = ((~ok).to(torch.uint8) << bits).sum(dim=1, dtype=torch.uint8)
+    return HybridTopK(values=vals, indices=idxs, exact=exact), sup_s, mask

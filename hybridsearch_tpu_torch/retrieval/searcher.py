@@ -49,6 +49,20 @@ its rank alone, through the same collective fusion
 always the scatter of the top 2k (the JAX package's ``mesh_fallback``,
 warned once and counted in ``semantic_exactness_downgrade`` when it
 replaces the exact arm).
+
+Tracing (``utils/tracing.py``; host clock, no added device wait): the span
+``search_batch`` holds the whole call, ``search.format`` the copy of the
+top-k to the host and the rows; ``ladder.setup`` the queries' L2
+normalization ahead of a ladder; each ladder records ``ladder.encode``
+(each lexical query encode), ``ladder.prefix`` (the supertile prefix),
+then a rung at a time ``ladder.rung`` (issuing its device work),
+``ladder.merge`` (its rows to the host) and ``ladder.escalate`` (the stop
+tests and the next rung's rows). At its return each ladder counts
+``ladder_batches``, ``ladder_rungs``, ``ladder_rows`` and
+``ladder_rows_certified``; each supertile rung counts, over the real rows
+it ran, the rows failing each certificate clause
+(``supertile_rows_failing_<clause>``, ``ops/supertile.py``
+``CERT_CLAUSES``).
 """
 
 from __future__ import annotations
@@ -142,17 +156,34 @@ class _LadderState:
         self.exact: Optional[np.ndarray] = None
         self.rows: Optional[np.ndarray] = None  # rows the last rung ran
 
-    def merge(self, values, indices, exact) -> None:
-        rv = values.cpu().numpy()
-        ri = indices.cpu().numpy()
-        re_ = exact.cpu().numpy()
-        if self.rows is None:
-            self.values, self.indices, self.exact = rv.copy(), ri.copy(), re_.copy()
-        else:
-            m = len(self.rows)
-            self.values[self.rows] = rv[:m]
-            self.indices[self.rows] = ri[:m]
-            self.exact[self.rows] = re_[:m]
+    def merge(self, values, indices, exact, *per_row) -> List[np.ndarray]:
+        """Take a rung's rows into the full batch (span ``ladder.merge``).
+        Returns ``per_row`` (more [rows] tensors of the rung) on the host,
+        copied after the wait the values' copy makes and cut to the rows
+        the rung ran (its pad rows left out)."""
+        with trace_span("ladder.merge"):
+            rv = values.cpu().numpy()
+            ri = indices.cpu().numpy()
+            re_ = exact.cpu().numpy()
+            m = self.batch if self.rows is None else len(self.rows)
+            extra = [t.cpu().numpy()[:m] for t in per_row]
+            if self.rows is None:
+                self.values, self.indices, self.exact = rv.copy(), ri.copy(), re_.copy()
+            else:
+                self.values[self.rows] = rv[:m]
+                self.indices[self.rows] = ri[:m]
+                self.exact[self.rows] = re_[:m]
+            return extra
+
+    def finish(self, rungs: int) -> Tuple["_LadderState", int]:
+        """Count the ladder's batch, its rungs, rows and certified rows (none
+        when no rung ran); returns what a ladder returns, (self, rungs)."""
+        if rungs:
+            GLOBAL_COUNTERS.inc("ladder_batches")
+            GLOBAL_COUNTERS.inc("ladder_rungs", rungs)
+            GLOBAL_COUNTERS.inc("ladder_rows", self.batch)
+            GLOBAL_COUNTERS.inc("ladder_rows_certified", int(self.exact.sum()))
+        return self, rungs
 
     def next_rows(self) -> Optional[np.ndarray]:
         """Uncertified rows to escalate, or None to re-run the full batch
@@ -192,6 +223,7 @@ def supertile_ladder(
     merged _LadderState (full-batch coordinates) and the number of rungs
     run."""
     from hybridsearch_tpu_torch.ops.supertile import (
+        CERT_CLAUSES,
         hybrid_supertile_topk_rung,
         super_prefix,
     )
@@ -202,43 +234,50 @@ def supertile_ladder(
     n_alive = n if n_alive is None else n_alive
     certifiable = enc_s.complete & (enc_s.full_touched < n_alive)
     st = _LadderState(B)
-    pfx = super_prefix(q, docs, sp, enc_s, bias=bias, w_s=sw, w_l=lw,
-                       s_max=ladder[-1])
+    with trace_span("ladder.prefix"):
+        pfx = super_prefix(q, docs, sp, enc_s, bias=bias, w_s=sw, w_l=lw,
+                           s_max=ladder[-1])
     cur_q, cur_enc, cur_pfx = q, enc_s, pfx
     prev_fails = None
     rungs = 0
     for s_probe in ladder:
-        res = hybrid_supertile_topk_rung(
-            cur_q, docs, sp, cur_enc, cur_pfx, k, sw, lw, bias=bias,
-            s_probe=s_probe, n_alive=n_alive, scores_dedup=scores_dedup,
-            place_fused=place_fused)
+        with trace_span("ladder.rung"):
+            res, clauses = hybrid_supertile_topk_rung(
+                cur_q, docs, sp, cur_enc, cur_pfx, k, sw, lw, bias=bias,
+                s_probe=s_probe, n_alive=n_alive, scores_dedup=scores_dedup,
+                place_fused=place_fused, return_clauses=True)
         rungs += 1
-        st.merge(res.values, res.indices, res.exact)
-        fails = int((~st.exact).sum())
-        if fails == 0:
-            break
-        # serving contract: stop once the uncertified tail is within tol;
-        # those queries are served best-effort like a ladder exhaustion
-        if fails <= uncertified_tol * B:
-            break
-        # term-complete AND lexical-min-provably-0 rows are the only ones a
-        # deeper probe can certify
-        if not np.logical_and(~st.exact, certifiable).any():
-            break
-        if s_probe * sp.super_docs >= n:
-            break  # this rung already probed every supertile
-        if prev_fails is not None and fails >= prev_fails:
-            break  # no progress: the bounds are not tightening
-        prev_fails = fails
-        fi = st.next_rows()
-        if fi is not None:
-            fp = st.padded(fi)
-            cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
-            cur_enc = _subset_batch_rows(enc_s, fp, B)
-            cur_pfx = _subset_batch_rows(pfx, fp, B)
-        else:
-            cur_q, cur_enc, cur_pfx = q, enc_s, pfx
-    return st, rungs
+        mask, = st.merge(res.values, res.indices, res.exact, clauses)
+        with trace_span("ladder.escalate"):
+            for bit, name in enumerate(CERT_CLAUSES):
+                GLOBAL_COUNTERS.inc(f"supertile_rows_failing_{name}",
+                                    int(np.count_nonzero(mask & (1 << bit))))
+            fails = int((~st.exact).sum())
+            if fails == 0:
+                break
+            # serving contract: stop once the uncertified tail is within
+            # tol; those queries are served best-effort like a ladder
+            # exhaustion
+            if fails <= uncertified_tol * B:
+                break
+            # term-complete AND lexical-min-provably-0 rows are the only
+            # ones a deeper probe can certify
+            if not np.logical_and(~st.exact, certifiable).any():
+                break
+            if s_probe * sp.super_docs >= n:
+                break  # this rung already probed every supertile
+            if prev_fails is not None and fails >= prev_fails:
+                break  # no progress: the bounds are not tightening
+            prev_fails = fails
+            fi = st.next_rows()
+            if fi is not None:
+                fp = st.padded(fi)
+                cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+                cur_enc = _subset_batch_rows(enc_s, fp, B)
+                cur_pfx = _subset_batch_rows(pfx, fp, B)
+            else:
+                cur_q, cur_enc, cur_pfx = q, enc_s, pfx
+    return st.finish(rungs)
 
 
 def _fuse_and_topk(sem: torch.Tensor, lex: torch.Tensor, w_s: float, w_l: float,
@@ -337,6 +376,12 @@ class Searcher:
         log: bool = True,
     ) -> List[List[SearchResult]]:
         """Batched hybrid search over one consistent index snapshot."""
+        with trace_span("search_batch"):
+            return self._search_batch(queries, top_k, semantic_weight,
+                                      lexical_weight, use_learned_weights, log)
+
+    def _search_batch(self, queries, top_k, semantic_weight, lexical_weight,
+                      use_learned_weights, log) -> List[List[SearchResult]]:
         t0 = time.perf_counter()
         sw, lw = self.resolve_weights(semantic_weight, lexical_weight,
                                       use_learned_weights)
@@ -401,26 +446,27 @@ class Searcher:
                 lex = self._lexical_scores(queries, n, snap)
             with trace_span("fuse_topk"):
                 vals, idxs = _fuse_and_topk(sem, lex, sw, lw, snap.bias[:n], k)
-        vals_np = np.asarray(vals.cpu().numpy() if torch.is_tensor(vals) else vals)
-        idxs_np = np.asarray(idxs.cpu().numpy() if torch.is_tensor(idxs) else idxs)
-        latency_ms = (time.perf_counter() - t0) * 1e3
-        results: List[List[SearchResult]] = []
-        contents = self.indexer.contents
-        for b, query in enumerate(queries):
-            row = [
-                (float(vals_np[b, j]), contents[int(idxs_np[b, j])],
-                 int(idxs_np[b, j]))
-                for j in range(k)
-                if 0 <= int(idxs_np[b, j]) < len(contents)
-                # top_k > alive count surfaces tombstoned rows at -inf
-                and np.isfinite(vals_np[b, j])
-            ]
-            results.append(row)
-            if log and self.query_memory is not None:
-                self.last_query_id = self.query_memory.log_query(
-                    query, sw, lw, top_score=row[0][0] if row else None,
-                    n_results=len(row), latency_ms=latency_ms)
-        return results
+        with trace_span("search.format"):
+            vals_np = np.asarray(vals.cpu().numpy() if torch.is_tensor(vals) else vals)
+            idxs_np = np.asarray(idxs.cpu().numpy() if torch.is_tensor(idxs) else idxs)
+            latency_ms = (time.perf_counter() - t0) * 1e3
+            results: List[List[SearchResult]] = []
+            contents = self.indexer.contents
+            for b, query in enumerate(queries):
+                row = [
+                    (float(vals_np[b, j]), contents[int(idxs_np[b, j])],
+                     int(idxs_np[b, j]))
+                    for j in range(k)
+                    if 0 <= int(idxs_np[b, j]) < len(contents)
+                    # top_k > alive count surfaces tombstoned rows at -inf
+                    and np.isfinite(vals_np[b, j])
+                ]
+                results.append(row)
+                if log and self.query_memory is not None:
+                    self.last_query_id = self.query_memory.log_query(
+                        query, sw, lw, top_score=row[0][0] if row else None,
+                        n_results=len(row), latency_ms=latency_ms)
+            return results
 
     def _semantic_scores(self, q_vecs: torch.Tensor, top_k: int,
                          snap) -> torch.Tensor:
@@ -555,40 +601,50 @@ class Searcher:
         from hybridsearch_tpu_torch.ops.supertile import encode_super_queries_sharded
         from hybridsearch_tpu_torch.parallel.collectives import sharded_supertile_topk
 
-        term_lists = [bm25_state.vocab.encode(extract_tokens(q)) for q in queries]
-        enc_s = encode_super_queries_sharded(ssp, term_lists)
-        q = l2_normalize(q_vecs.float())
-        n_alive = snap.n - self.indexer.dense.deleted_count
-        certifiable = enc_s.complete & (enc_s.full_touched < n_alive)
+        with trace_span("ladder.encode"):
+            term_lists = [bm25_state.vocab.encode(extract_tokens(q)) for q in queries]
+            enc_s = encode_super_queries_sharded(ssp, term_lists)
+        with trace_span("ladder.setup"):
+            q = l2_normalize(q_vecs.float())
+            n_alive = snap.n - self.indexer.dense.deleted_count
+            certifiable = enc_s.complete & (enc_s.full_touched < n_alive)
         ns_local = ssp.sup_max.shape[-1]
         B = q.shape[0]
         st = _LadderState(B)
         cur_q, cur_enc = q, enc_s
         prev_fails = None
+        rungs = 0
         for s_probe in _SUPER_LADDER:
-            res = sharded_supertile_topk(
-                self.indexer.mesh, cur_q, snap.docs, ssp.sup_max, ssp.sup_pos,
-                ssp.ids_rows, ssp.ws_rows, cur_enc, k, sw, lw,
-                s_probe=min(s_probe, ns_local), valid_n=snap.n, n_alive=n_alive,
-                bias_local=snap.bias, super_tiles=ssp.super_tiles)
+            with trace_span("ladder.rung"):
+                res = sharded_supertile_topk(
+                    self.indexer.mesh, cur_q, snap.docs, ssp.sup_max, ssp.sup_pos,
+                    ssp.ids_rows, ssp.ws_rows, cur_enc, k, sw, lw,
+                    s_probe=min(s_probe, ns_local), valid_n=snap.n,
+                    n_alive=n_alive, bias_local=snap.bias,
+                    super_tiles=ssp.super_tiles)
+            rungs += 1
             st.merge(*res)
-            if st.exact.all():
-                return st.values, st.indices
-            if not np.logical_and(~st.exact, certifiable).any():
-                break
-            if s_probe >= ns_local:
-                break
-            fails = int((~st.exact).sum())
-            if prev_fails is not None and fails >= prev_fails:
-                break  # no progress: deeper rungs are not certifying more
-            prev_fails = fails
-            fi = st.next_rows()  # compacted escalation
-            if fi is not None:
-                fp = st.padded(fi)
-                cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
-                cur_enc = _subset_batch_rows(enc_s, fp, B)
-            else:
-                cur_q, cur_enc = q, enc_s
+            with trace_span("ladder.escalate"):
+                if st.exact.all():
+                    break
+                if not np.logical_and(~st.exact, certifiable).any():
+                    break
+                if s_probe >= ns_local:
+                    break
+                fails = int((~st.exact).sum())
+                if prev_fails is not None and fails >= prev_fails:
+                    break  # no progress: deeper rungs are not certifying more
+                prev_fails = fails
+                fi = st.next_rows()  # compacted escalation
+                if fi is not None:
+                    fp = st.padded(fi)
+                    cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+                    cur_enc = _subset_batch_rows(enc_s, fp, B)
+                else:
+                    cur_q, cur_enc = q, enc_s
+        st.finish(rungs)
+        if st.exact.all():
+            return st.values, st.indices
         GLOBAL_COUNTERS.inc("hybrid_sharded_uncertified")
         return None
 
@@ -597,12 +653,14 @@ class Searcher:
         (``HST_SUPER_HYBRID=0``) the tile ladder, else (``HST_TILE_HYBRID=0``
         too) the impact ladder; on any other layout the impact ladder. An
         uncertified result is served best-effort (near-exact) with a
-        one-time warning and a counter."""
-        q = l2_normalize(q_vecs.float())
-        n_alive = snap.n - self.indexer.dense.deleted_count
+        one-time warning; the ladders count their rows and certified rows."""
+        with trace_span("ladder.setup"):
+            q = l2_normalize(q_vecs.float())
+            n_alive = snap.n - self.indexer.dense.deleted_count
         clustered = self.indexer.config.index.layout == "clustered"
         if clustered and os.environ.get("HST_SUPER_HYBRID", "1") != "0":
-            sp, enc_s = bm25.encode_queries_super(list(queries))
+            with trace_span("ladder.encode"):
+                sp, enc_s = bm25.encode_queries_super(list(queries))
             if sp is not None:
                 perf = self.config.perf
                 st, _rungs = supertile_ladder(
@@ -617,8 +675,9 @@ class Searcher:
                                       "the best-effort top-k")
                 return st.values, st.indices
         if clustered and os.environ.get("HST_TILE_HYBRID", "1") != "0":
-            imp, enc = bm25.encode_queries_impact(list(queries),
-                                                  p_depth=_TILE_P_DEPTH)
+            with trace_span("ladder.encode"):
+                imp, enc = bm25.encode_queries_impact(list(queries),
+                                                      p_depth=_TILE_P_DEPTH)
             if imp is not None:
                 st, _rungs = tile_ladder(q, snap, imp, enc, k, sw, lw, n_alive)
                 if not st.exact.all():
@@ -661,27 +720,29 @@ def tile_ladder(q: torch.Tensor, snap, imp, enc, k: int, sw: float, lw: float,
     for kt in _TILE_LADDER:
         if rungs and (kt - 1) * 128 >= snap.n:
             break  # the previous rung already probed every tile
-        res = hybrid_tile_topk(cur_q, snap.docs, imp, cur_enc, k, sw, lw,
-                               bias=snap.bias, kt=kt, p_depth=_TILE_P_DEPTH,
-                               n_alive=n_alive)
+        with trace_span("ladder.rung"):
+            res = hybrid_tile_topk(cur_q, snap.docs, imp, cur_enc, k, sw, lw,
+                                   bias=snap.bias, kt=kt, p_depth=_TILE_P_DEPTH,
+                                   n_alive=n_alive)
         rungs += 1
         st.merge(res.values, res.indices, res.exact)
-        if st.exact.all():
-            break
-        if not np.logical_and(~st.exact, cc).any():
-            break  # deeper probes cannot certify the failures
-        fails = int((~st.exact).sum())
-        if prev_fails is not None and fails >= prev_fails:
-            break  # no progress: the bounds are not tightening
-        prev_fails = fails
-        fi = st.next_rows()  # compacted escalation
-        if fi is not None:
-            fp = st.padded(fi)
-            cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
-            cur_enc = _subset_batch_rows(enc, fp, B)
-        else:
-            cur_q, cur_enc = q, enc
-    return st, rungs
+        with trace_span("ladder.escalate"):
+            if st.exact.all():
+                break
+            if not np.logical_and(~st.exact, cc).any():
+                break  # deeper probes cannot certify the failures
+            fails = int((~st.exact).sum())
+            if prev_fails is not None and fails >= prev_fails:
+                break  # no progress: the bounds are not tightening
+            prev_fails = fails
+            fi = st.next_rows()  # compacted escalation
+            if fi is not None:
+                fp = st.padded(fi)
+                cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+                cur_enc = _subset_batch_rows(enc, fp, B)
+            else:
+                cur_q, cur_enc = q, enc
+    return st.finish(rungs)
 
 
 def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
@@ -702,44 +763,48 @@ def impact_ladder(q: torch.Tensor, queries: Sequence[str], snap, bm25, k: int,
     rungs = 0
     prev_fails = None
     for kd, cp, pd in _IMPACT_LADDER:
-        imp, enc = bm25.encode_queries_impact(cur_queries, p_depth=pd)
+        with trace_span("ladder.encode"):
+            imp, enc = bm25.encode_queries_impact(cur_queries, p_depth=pd)
         if imp is None:
             break
         # enc.full_postings comes from the same snapshot as imp and enc
-        res = hybrid_impact_topk(cur_q, snap.docs, imp, enc, k, sw, lw,
-                                 bias=snap.bias, k_dense=kd, c_per_term=cp,
-                                 p_depth=pd, n_alive=n_alive,
-                                 kd_tiles=kd_tiles if rungs == 0 else None)
+        with trace_span("ladder.rung"):
+            res = hybrid_impact_topk(cur_q, snap.docs, imp, enc, k, sw, lw,
+                                     bias=snap.bias, k_dense=kd, c_per_term=cp,
+                                     p_depth=pd, n_alive=n_alive,
+                                     kd_tiles=kd_tiles if rungs == 0 else None)
         rungs += 1
         st.merge(res.values, res.indices, res.exact)
-        if st.exact.all():
-            break
-        # escalation helps queries whose terms a deeper prune depth can fully
-        # cover, and margin-certifiable ones (every truncated term bisected:
-        # deeper rungs shrink the tail slack). The rung's enc covers its own
-        # (possibly compacted) rows: scatter to full-batch coordinates.
-        ci = enc.certifiable_deeper
-        if enc.corrected_complete is not None:
-            ci = ci | enc.corrected_complete
-        can_improve = np.zeros(B, bool)
-        if st.rows is None:
-            can_improve[:] = np.asarray(ci)[:B]
-        else:
-            can_improve[st.rows] = np.asarray(ci)[:len(st.rows)]
-        if not np.logical_and(~st.exact, can_improve).any():
-            break
-        fails = int((~st.exact).sum())
-        if prev_fails is not None and fails >= prev_fails:
-            break  # no progress: deeper rungs are not certifying more
-        prev_fails = fails
-        fi = st.next_rows()  # compacted escalation
-        if fi is not None:
-            fp = st.padded(fi)
-            cur_queries = [queries[i] for i in fp]
-            cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
-        else:
-            cur_queries, cur_q = list(queries), q
-    return st, rungs
+        with trace_span("ladder.escalate"):
+            if st.exact.all():
+                break
+            # escalation helps queries whose terms a deeper prune depth can
+            # fully cover, and margin-certifiable ones (every truncated term
+            # bisected: deeper rungs shrink the tail slack). The rung's enc
+            # covers its own (possibly compacted) rows: scatter to
+            # full-batch coordinates.
+            ci = enc.certifiable_deeper
+            if enc.corrected_complete is not None:
+                ci = ci | enc.corrected_complete
+            can_improve = np.zeros(B, bool)
+            if st.rows is None:
+                can_improve[:] = np.asarray(ci)[:B]
+            else:
+                can_improve[st.rows] = np.asarray(ci)[:len(st.rows)]
+            if not np.logical_and(~st.exact, can_improve).any():
+                break
+            fails = int((~st.exact).sum())
+            if prev_fails is not None and fails >= prev_fails:
+                break  # no progress: deeper rungs are not certifying more
+            prev_fails = fails
+            fi = st.next_rows()  # compacted escalation
+            if fi is not None:
+                fp = st.padded(fi)
+                cur_queries = [queries[i] for i in fp]
+                cur_q = q.index_select(0, torch.from_numpy(fp).to(q.device))
+            else:
+                cur_queries, cur_q = list(queries), q
+    return st.finish(rungs)
 
 
 def _scatter_local(values: torch.Tensor, indices: torch.Tensor, lo: int,
@@ -755,9 +820,14 @@ def _scatter_local(values: torch.Tensor, indices: torch.Tensor, lo: int,
     return out[:, :per]
 
 
+_uncertified_warned = False
+
+
 def _warn_uncertified(message: str) -> None:
-    """Count an uncertified batch; warn the first time."""
-    if GLOBAL_COUNTERS.inc("hybrid_sparse_uncertified") == 1:
+    """Warn the first time a ladder serves an uncertified batch."""
+    global _uncertified_warned
+    if not _uncertified_warned:
+        _uncertified_warned = True
         import warnings
 
         warnings.warn(message, RuntimeWarning)

@@ -1,8 +1,9 @@
 """Tracing and per-stage query-path metrics.
 
-  - StageTimer: lock-protected rolling latency/QPS counters per named stage
-    (encode, hybrid_sparse, hybrid_fused, ...), surfaced through stats;
-  - Counters: named monotonic counters (e.g. uncertified supertile batches);
+  - StageTimer: lock-protected rolling latency/rate statistics per named
+    stage (search_batch, encode, hybrid_sparse, ladder.rung, ...) over the
+    window of time their last samples cover, surfaced through stats;
+  - Counters: named monotonic counters (e.g. the ladders' certified rows);
   - trace_span: context manager recording into a StageTimer and labelling
     the stage on a torch.profiler timeline (record_function) when a
     profiling session is active;
@@ -24,34 +25,52 @@ import numpy as np
 
 
 class StageTimer:
-    """Rolling per-stage latency stats (window of the last `window` samples)."""
+    """Rolling per-stage latency stats over the last ``window`` samples of
+    each stage. ``_samples[stage]`` holds their seconds, ``_ends[stage]``
+    their end times on ``time.perf_counter``."""
 
     def __init__(self, window: int = 1024) -> None:
         self.window = window
         self._samples: Dict[str, deque] = {}
+        self._ends: Dict[str, deque] = {}
         self._counts: Dict[str, int] = {}
         self._lock = threading.Lock()
-        self._started = time.time()
 
     def record(self, stage: str, seconds: float) -> None:
+        end = time.perf_counter()
         with self._lock:
-            dq = self._samples.setdefault(stage, deque(maxlen=self.window))
-            dq.append(seconds)
+            self._samples.setdefault(stage, deque(maxlen=self.window)).append(seconds)
+            self._ends.setdefault(stage, deque(maxlen=self.window)).append(end)
             self._counts[stage] = self._counts.get(stage, 0) + 1
 
+    def reset(self) -> None:
+        """Forget every sample and count."""
+        with self._lock:
+            self._samples.clear()
+            self._ends.clear()
+            self._counts.clear()
+
     def stats(self) -> Dict[str, Dict[str, float]]:
+        """Per stage: ``count`` (every sample since construction or
+        ``reset``), and over the kept samples: ``samples``, ``window_s``
+        (from the start of the oldest to this call, so idle time since the
+        newest counts), the percentiles, the mean and ``rate_per_s``
+        (samples / window_s)."""
+        now = time.perf_counter()
         with self._lock:
             out: Dict[str, Dict[str, float]] = {}
-            elapsed = max(time.time() - self._started, 1e-9)
             for stage, dq in self._samples.items():
                 arr = np.asarray(dq, dtype=np.float64) * 1e3
+                window_s = max(now - (self._ends[stage][0] - dq[0]), 1e-9)
                 out[stage] = {
                     "count": self._counts[stage],
+                    "samples": len(dq),
+                    "window_s": window_s,
                     "p50_ms": float(np.percentile(arr, 50)),
                     "p95_ms": float(np.percentile(arr, 95)),
                     "p99_ms": float(np.percentile(arr, 99)),
                     "mean_ms": float(arr.mean()),
-                    "rate_per_s": self._counts[stage] / elapsed,
+                    "rate_per_s": len(dq) / window_s,
                 }
             return out
 
@@ -87,7 +106,7 @@ GLOBAL_COUNTERS = Counters()
 @contextlib.contextmanager
 def trace_span(stage: str, timer: Optional[StageTimer] = None) -> Iterator[None]:
     """Time a stage (host clock; device work queued inside the span is not
-    waited for) and label it on a torch.profiler trace."""
+    waited for) and label it on a torch.profiler trace (record_function)."""
     import torch
 
     timer = timer or GLOBAL_TIMER

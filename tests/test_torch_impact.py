@@ -789,12 +789,14 @@ def test_search_batch_uncertified_counter_increments(source_pair, monkeypatch):
     _js, ts, _queries = source_pair
     monkeypatch.setattr(tsm, "SPARSE_HYBRID_MIN_DOCS", 100)
     monkeypatch.setattr(tsm, "_IMPACT_LADDER", ((10, 1, 256),))
-    before = GLOBAL_COUNTERS.get("hybrid_sparse_uncertified")
+    rows, certified = (GLOBAL_COUNTERS.get(n) for n in ("ladder_rows",
+                                                        "ladder_rows_certified"))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         res = ts.search_batch(["w3 w9 w27", "common w5", "z1t1 w2", "w8"],
                               top_k=5, log=False)
-    assert GLOBAL_COUNTERS.get("hybrid_sparse_uncertified") > before
+    assert GLOBAL_COUNTERS.get("ladder_rows") - rows == 4
+    assert GLOBAL_COUNTERS.get("ladder_rows_certified") - certified < 4
     assert all(len(r) == 5 for r in res)
 
 
