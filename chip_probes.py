@@ -6,6 +6,7 @@
     python3 chip_probes.py --only k5k7  # K5's and K7's designs
     python3 chip_probes.py --only k7    # K7's alone
     python3 chip_probes.py --only k6    # K6's designs and its wrapper's host time
+    python3 chip_probes.py --only k5cell  # K5 at the clustered cell's shapes
 
 K1 (``csrc/tile_stats.cu``): every configuration of the kernel worth
 trying -- (query block BQ, queries a thread TN, blocks an SM, ring stages)
@@ -43,6 +44,17 @@ slots, at S = 2, 4, 8, 16), each held bit-equal to the first design
 the scatter compiled out (the loads and the store alone) and with the
 loads of all but the first stages compiled out (the scatter of stale
 stages and the store).
+
+With ``--only k5cell`` the same configurations run on windows shaped as
+the clustered benchmark cell's (``quora-clustered.dup-b256``): B = 256
+questions at t_pad = 32 slots, every slot capped at 16,384 (the batch's
+widest), one or two head words a query with windows of 4,900 to 16,000
+entries in every supertile, 3 to 10 narrow words and the other slots
+empty, at S = 2, 4, 8, 16 (512 to 4,096 rows). There the shipped launcher
+is also held bit-equal to the staged windows + K3 and timed against them
+(``window_entries`` + ``place_windows``, CUDA events, host work
+included), and against its byte bound (8 bytes a window entry read, the
+bounds, and 64 KB stored a row, at 3.35 TB/s).
 
 K7 (``csrc/impact_rescore.cu``): configurations (threads a block, blocks
 an SM its registers must allow, entries a thread a segment, segments held
@@ -117,6 +129,12 @@ K5_CONFIGS = [(256, 2, 4, 1024, 0, 1), (256, 2, 2, 2048, 0, 0), (256, 2, 2, 2048
               (384, 2, 2, 2048, 0, 1), (256, 2, 2, 2048, 1, 1), (256, 1, 2, 2048, 0, 2),
               (512, 2, 2, 2048, 0, 1)]
 K5_PROBES = (2, 4, 8, 16)
+# K5 at the clustered cell's shapes: head words' shares of a supertile's
+# docs (windows of about 16,000, 13,100, 9,000 and 4,900 entries), narrow
+# words, and the query slots (t_pad)
+K5_CELL_HEAD = (0.98, 0.8, 0.55, 0.3)
+K5_CELL_NARROW = 4000
+K5_CELL_SLOTS = 32
 # K7: (threads, blocks an SM the registers must allow, entries a thread a
 # group, a one-column group's adds fused with its lookups); (T, p, C) of
 # the ladder's rungs, the margin call and T = 32
@@ -465,7 +483,52 @@ def k5_windows(sp, S: int, dev):
     return lo, hi, base, wcaps
 
 
-def probe_k5(lib) -> list:
+def k5_cell_csr(dev):
+    """A CSR shaped as the clustered cell's: 32 supertiles of 16,384 docs,
+    the K5_CELL_HEAD head words in that share of every supertile's docs
+    and K5_CELL_NARROW narrow words of 52 to 5,243 postings (0.01-1% of
+    the docs, a few to 164 a supertile)."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    N = 524_288
+    rng = np.random.default_rng(22)
+    d_l = [np.flatnonzero(rng.random(N) < f) for f in K5_CELL_HEAD]
+    d_l += [np.unique(rng.integers(0, N, int(rng.uniform(1e-4, 1e-2) * N)))
+            for _ in range(K5_CELL_NARROW)]
+    t_a = np.concatenate([np.full(len(d), t) for t, d in enumerate(d_l)])
+    d_a = np.concatenate(d_l)
+    w_a = (rng.random(len(t_a)) * 8 + 0.01).astype(np.float32)
+    return st.build_super_postings(t_a, d_a, w_a, N, len(d_l), dev)
+
+
+def k5_cell_windows(sp, S: int, dev):
+    """Window bounds of B = 256 queries probing S of the 32 supertiles, as
+    the clustered cell's batches give them: slot 0 a head word, slot 1 a
+    second head word for half the queries, then 3 to 10 narrow words, the
+    other slots of K5_CELL_SLOTS empty; every cap 16,384. int64 bounds."""
+    from hybridsearch_tpu_torch.ops import supertile as st
+
+    B, n_head = 256, len(K5_CELL_HEAD)
+    V = n_head + K5_CELL_NARROW
+    rng = np.random.default_rng(222 + S)
+    term_ids = np.full((B, K5_CELL_SLOTS), V)
+    for b in range(B):
+        heads = rng.choice(n_head, 1 + int(rng.random() < 0.5), replace=False)
+        narrow = n_head + rng.choice(K5_CELL_NARROW, int(rng.integers(3, 11)),
+                                     replace=False)
+        row = np.concatenate([np.sort(heads), narrow])
+        term_ids[b, :len(row)] = row
+    sup_s = np.sort(np.stack([rng.permutation(32)[:S] for _ in range(B)]), axis=1)
+    wcaps = (16384,) * K5_CELL_SLOTS
+    lo, hi, base, _ovf = st._flat_windows(sp.sup_pos, torch.from_numpy(term_ids).to(dev),
+                                          torch.from_numpy(sup_s).to(dev), sp.super_docs,
+                                          wcaps)
+    return lo, hi, base, wcaps
+
+
+def probe_k5(lib, cell: bool = False) -> list:
+    """K5's configurations on the levers path's windows, or (``cell``) on
+    the clustered cell's, with the staged route beside it there."""
     from hybridsearch_tpu_torch.ops import cuda_supertile as cs
 
     P_, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -473,9 +536,9 @@ def probe_k5(lib) -> list:
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows_out = []
-    sp = k5_csr(dev)
+    sp = k5_cell_csr(dev) if cell else k5_csr(dev)
     for S in K5_PROBES:
-        lo, hi, base, wcaps = k5_windows(sp, S, dev)
+        lo, hi, base, wcaps = (k5_cell_windows if cell else k5_windows)(sp, S, dev)
         BS, T = lo.shape
         R = sp.super_tiles * 128
         n_read = int((torch.minimum(hi, (lo // 128 + torch.tensor(
@@ -493,6 +556,9 @@ def probe_k5(lib) -> list:
                "v1_ms": events_ms(v1), "v1_device_ms": graph_ms(v1),
                "shipped_ms": events_ms(shipped), "shipped_device_ms": graph_ms(shipped),
                "configs": []}
+        row["shipped_bound_pct"] = 100.0 * bound_ms / row["shipped_device_ms"]
+        if cell:
+            k5_staged(cs, sp, lo, hi, base, wcaps, want, row)
         slot_rows = (ctypes.c_int * T)(*cs._slot_rows(wcaps))
         for cfg in K5_CONFIGS:
             t, per_sm, st_, e, _atomic, store = cfg
@@ -505,10 +571,35 @@ def probe_k5(lib) -> list:
         print(f"  K5 S={S} B*S={BS}: v1 {row['v1_ms']:.4f} ms (device "
               f"{row['v1_device_ms']:.4f}), shipped wrapper {row['shipped_ms']:.4f} ms "
               f"(device {row['shipped_device_ms']:.4f}), bound {bound_ms:.4f} ms "
-              f"({n_read} window entries)", flush=True)
+              f"({n_read} window entries; {row['shipped_bound_pct']:.1f}% of it)",
+              flush=True)
         rows_out.append(row)
         del want
     return rows_out
+
+
+def k5_staged(cs, sp, lo, hi, base, wcaps, want, row) -> None:
+    """The staged route on K5's inputs: ``window_entries`` + K3, held
+    bit-equal to K5's first design (``want``) and timed whole (CUDA events
+    around calls, host work included), and K3 alone on its staged windows
+    (device, graph replays); the staged entries a row into ``row``."""
+    def staged():
+        l, w = cs.window_entries(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps)
+        return cs.place_windows(l, w, sp.super_tiles)
+
+    if not torch.equal(staged(), want):
+        raise AssertionError(f"K5 differs from the staged windows + K3 at rows="
+                             f"{lo.shape[0]}")
+    l, w = cs.window_entries(lo, hi, base, sp.ids_rows, sp.ws_rows, wcaps)
+    row.update(staged_entries_a_row=l.shape[1], staged_ms=events_ms(staged, reps=3),
+               k3_device_ms=graph_ms(lambda: cs.place_windows(l, w, sp.super_tiles),
+                                     reps=3),
+               shipped_equal_to_staged=True)
+    del l, w
+    torch.cuda.empty_cache()
+    print(f"  K5 rows={lo.shape[0]}: staged windows + K3 {row['staged_ms']:.4f} ms "
+          f"({row['staged_entries_a_row']} staged entries a row; K3 alone device "
+          f"{row['k3_device_ms']:.4f} ms); K5 bit-equal to them True", flush=True)
 
 
 def _probe_k5_one(lib, cfg, grid, S, BS, T, R, lo, hi, base, sp, slot_rows, e, want, sig,
@@ -1113,9 +1204,9 @@ def probe_k3(lib) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("ss", "k5k7", "k7", "k6"),
-                    help="probe the scoring body alone, K5 and K7 alone, K7 alone, or "
-                    "K6 alone")
+    ap.add_argument("--only", choices=("ss", "k5k7", "k7", "k6", "k5cell"),
+                    help="probe the scoring body alone, K5 and K7 alone, K7 alone, "
+                    "K6 alone, or K5 at the clustered cell's shapes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_probes: no CUDA card (torch.cuda.is_available() is false)",
@@ -1132,6 +1223,12 @@ def main(argv=None) -> int:
         for line in regs:
             print("  " + line, flush=True)
         out = {"device": smi, "k6": probe_k6(lib6), "k6_registers": regs}
+        print(smi, flush=True)
+        print(json.dumps(out), flush=True)
+        return 0
+    if args.only == "k5cell":
+        lib5, _lib7, regs = build_k5k7(work)
+        out = {"device": smi, "k5_cell": probe_k5(lib5, cell=True)}
         print(smi, flush=True)
         print(json.dumps(out), flush=True)
         return 0

@@ -12,7 +12,9 @@ topic-correlated corpus of 524,288 docs (BEIR Quora's 522,931 rounded up to
 (clustered layout, 384-wide hashing encoder, float32), and 8 batches of 256
 queries go through ``Searcher.search_batch`` after one warm-up batch. That
 route is the supertile ladder: the stats sweep (K1, tile_stats), resident
-scores (K2, super_scores) and resident placement (K3, place_windows). The
+scores (K2, super_scores) and resident placement, here on its yardstick
+route (``cfg.perf.place_fused = False``: staged windows, then K3,
+place_windows; the default places with K5 on the card). The
 run fails unless each kernel launched during the timed batches, the batches
 reached the ladder's last rung, and every certified query matches a plain
 exact fused reference computed on the card. Each kernel is then timed on
@@ -20,11 +22,11 @@ the main path's own inputs (K2 at every probe count the ladder gave it).
 The P1 check re-runs the clustered build's k-means on the same embeddings
 and requires the same centroids, bit for bit, and the same permutation.
 
-The same index is then served again, not re-indexed, with the two perf
-levers on (``cfg.perf.scores_dedup`` and ``cfg.perf.place_fused``): the
+The same index is then served again, not re-indexed, with both perf
+levers set True (``cfg.perf.scores_dedup`` and ``cfg.perf.place_fused``): the
 rungs score pairs sorted by supertile (K4, super_scores_dedup) and place
 the lexical windows straight from the CSR (K5, place_fused). Its certified
-flags, ids and values must equal the default run's bit for bit; K4 and K5
+flags, ids and values must equal the first run's bit for bit; K4 and K5
 are timed at every rung beside K2 and the window gather + K3 on the same
 work; K4 is held bit-equal to K2 and its whole route (pair sort, group
 table, kernel) is timed against K2 at every rung.
@@ -37,7 +39,8 @@ through ``search_batch`` on the same batches, every certified row against
 the exact reference and the first batch served twice bit for bit; one
 batch of ``hybrid_impact_topk(kd_tiles=128)`` (the first rung the searcher
 takes at 1M docs) beside the same rung without the budget; and one batch
-of the one-call ``hybrid_supertile_topk`` at s_probe 2 and 16 (K1-K3),
+of the one-call ``hybrid_supertile_topk`` at s_probe 2 and 16 (K1-K3,
+``place_fused=False``),
 equal bit for bit to ``super_prefix`` + one rung. The route kernels'
 launches of each run are counted, all seven of them.
 
@@ -1911,6 +1914,8 @@ def serve_corpus(corpus: str, layout: str, sz: dict, dev: torch.device, seed: in
     label = corpus if layout == "clustered" else f"{corpus}/{layout}"
     searcher, make_queries, timings = index_corpus(corpus, layout, sz, dev, seed,
                                                    clock, label, load=load)
+    if layout == "clustered":  # the staged windows + K3: PATHS["clustered"]
+        searcher.config.perf.place_fused = False
     if before_serve is not None:
         before_serve()
     warm = make_queries(sz["batch"])
@@ -2053,16 +2058,18 @@ def serve_levers(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str
     """The small-topic clustered index of ``run``, not re-indexed, served
     again with ``perf.scores_dedup = perf.place_fused = True``: the same
     warm-up and timed batches. Its certified flags, ids and values must
-    equal the default run's bit for bit (and serve_batches holds every
+    equal the first run's (K2, staged windows + K3) bit for bit (and
+    serve_batches holds every
     certified row against the exact reference)."""
     perf = run["searcher"].config.perf
+    saved = perf.scores_dedup, perf.place_fused
     perf.scores_dedup = perf.place_fused = True
     try:
         lev = serve_batches(run["searcher"], "small-topic/levers", "clustered/levers",
                             run["warm"], run["batches"], sz, dev, clock, kind, smi,
                             main_path=True)
     finally:
-        perf.scores_dedup = perf.place_fused = None
+        perf.scores_dedup, perf.place_fused = saved
     if not np.array_equal(lev["exact"], run["exact"]):
         raise AssertionError("the levers run certifies other rows than the default")
     if lev["results"] != run["results"]:
@@ -2278,8 +2285,9 @@ def serve_kd_tiles(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: s
 def serve_one_call(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: str,
                    smi: str) -> dict:
     """One batch of the clustered index through the one-call
-    ``hybrid_supertile_topk`` at each s_probe of ONE_CALL_PROBES: K1-K3
-    counted, equal bit for bit to ``super_prefix(s_max=s_probe)`` + one
+    ``hybrid_supertile_topk`` at each s_probe of ONE_CALL_PROBES on the
+    staged windows (``place_fused=False``): K1-K3 counted, equal bit for
+    bit to ``super_prefix(s_max=s_probe)`` + one
     ``hybrid_supertile_topk_rung``, served twice bit for bit, certified
     rows against the exact reference."""
     from hybridsearch_tpu_torch.ops.dense import l2_normalize
@@ -2299,7 +2307,8 @@ def serve_one_call(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: s
         def call():
             return st.hybrid_supertile_topk(q, snap.docs, sp, enc, TOP_K, sw, lw,
                                             bias=snap.bias, s_probe=s_probe,
-                                            n_alive=n_alive, return_probes=True)
+                                            n_alive=n_alive, return_probes=True,
+                                            place_fused=False)
 
         launches: dict = {}
         with counting(launches):
@@ -2310,7 +2319,7 @@ def serve_one_call(run: dict, sz: dict, dev: torch.device, clock: Clock, kind: s
                               s_max=s_probe)
         rung = st.hybrid_supertile_topk_rung(q, snap.docs, sp, enc, pfx, TOP_K, sw, lw,
                                              bias=snap.bias, s_probe=s_probe,
-                                             n_alive=n_alive)
+                                             n_alive=n_alive, place_fused=False)
         if not _same_tensors(res, rung):
             raise AssertionError(f"{label} s_probe={s_probe}: not equal to prefix + "
                                  "rung bit for bit")

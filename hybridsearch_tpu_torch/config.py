@@ -114,16 +114,20 @@ class IndexConfig:
 class PerfConfig:
     """Serving-kernel levers of the supertile ladder, under the JAX
     package's key names, so a JAX-written config selects the same route.
-    None means off, as the JAX package with its env gate unset; the port
-    reads no environment variable for them.
+    The port reads no environment variable for them.
 
       * ``scores_dedup``: resident scores from pairs sorted by supertile
         before the launch (kernel K4 ``super_scores_dedup``) instead of
-        K2's in-launch pair sort, when B*S % 8 == 0;
+        K2's in-launch pair sort, when B*S % 8 == 0. None means off, as the
+        JAX package with its env gate unset;
       * ``place_fused``: resident lexical buffers read straight from the
         CSR (kernel K5 ``place_fused``) instead of staged windows + K3.
+        None means the card's route: K5 where the corpus is on the card
+        and K5's plan fits a supertile's buffer, else the staged windows;
+        True forces K5 (an error where no plan fits), False forces the
+        staged windows + K3.
 
-    Both give the default route's results bit for bit. The JAX package's
+    Every choice gives the same results bit for bit. The JAX package's
     other five keys (``dedup_mxu``, ``pallas_tpb``, ``tile_stats_sub``,
     ``place_tlhs``, ``place_skip``) pick among TPU compiler layouts and
     block shapes of one result; the card's kernels have no such choices,

@@ -20,7 +20,12 @@
 // entry and writing 64 KB per row, i.e. bytes-bound, the store more than
 // half of it; the adds are negligible. Against the two-step path (window
 // gather + K3) it drops the staged [B*S, T*E] ids and weights, written once
-// and read once in device memory, and the gather's launches.
+// and read once in device memory, and the gather's launches. At the
+// clustered serving path's shapes (T = 32 slots all capped at 16,384, one
+// or two head-word windows of 4,900-16,000 entries a row, most slots
+// empty or a few entries; chip_probes.py --only k5cell) it runs at 48-69%
+// of that bound from 512 to 4,096 rows, where the staged windows + K3 take
+// 17-119 ms.
 //
 // Sum order, in both designs below: a slot's window holds each doc at most
 // once (a term's postings are unique per doc), so within a slot no two adds
@@ -42,7 +47,9 @@
 // descriptor into shared memory a barrier before the block reads it. The
 // barrier at the top of each stage closes the previous one, which keeps the
 // slot order; since no two adds of a stage hit one cell, they are plain
-// shared-memory adds, not atomics (a fifth faster, chip_probes.py). A
+// shared-memory adds, not atomics (a fifth faster, chip_probes.py). The
+// adds walk only the stage's part of the window (5-9% faster at the
+// serving path's shapes, where most slots' one stage holds a few entries). A
 // finished row leaves by one bulk copy (TMA; kStore 1), the buffer zeroed
 // once the copy has read it. On an H100 (chip_probes.py --only k5k7,
 // PERF.md), on windows as skewed as the path's (a Zipf background word's
@@ -251,9 +258,12 @@ template <int kT, bool kAtomic, typename IdxT>
 __device__ __forceinline__ void scatter(const Params<IdxT>& P, const Stage& d,
                                         const int* stage, float* buf) {
   const float* sw = reinterpret_cast<const float*>(stage + P.entries);
-  for (int i = threadIdx.x; i < P.entries; i += kT) {
+  // only the stage's part of the window: a narrow slot's one stage holds a
+  // few entries, not `entries`
+  const int n = static_cast<int>(min(static_cast<long long>(P.entries), d.end - d.s0));
+  for (int i = threadIdx.x; i < n; i += kT) {
     const long long p = d.s0 + i;
-    if (p < d.lo || p >= d.end) continue;
+    if (p < d.lo) continue;
     const float wv = sw[i];
     const long long lv = stage[i] - d.base;
     if (wv != 0.f && lv >= 0 && lv < P.r_len) {

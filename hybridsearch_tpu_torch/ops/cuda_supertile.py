@@ -25,9 +25,10 @@ Counterpart of ``hybridsearch_tpu/ops/pallas_supertile.py``:
 ``place_fused_v1`` launch the kernels' first designs, which the redesigns
 must equal bit for bit (CUDA tensors only; no served path calls them).
 Each other wrapper launches its kernel for CUDA tensors and runs its plain
-version only for CPU tensors. K4 and K5 serve the ladder when
-``EngineConfig.perf.scores_dedup`` / ``perf.place_fused`` are set; K4 at
-tile grain serves pass 3 always.
+version only for CPU tensors. K5 serves the ladder's rungs on the card
+unless ``EngineConfig.perf.place_fused`` is False (then the staged
+windows and K3 do); K4 serves them when ``perf.scores_dedup`` is set, and
+at tile grain serves pass 3 always.
 """
 
 from __future__ import annotations
@@ -57,7 +58,9 @@ PLACE_CHUNK = 1024
 SMEM_BLOCK, SMEM_SM, SMEM_RESERVED = 232448, 233472, 1024
 # K5's plan (place_fused_plan): threads a block, blocks an SM, ring stages
 # and window entries a stage. Measured on an H100 at the levers path's
-# shapes (chip_probes.py --only k5k7).
+# shapes (chip_probes.py --only k5k7) and at the clustered serving path's
+# (--only k5cell), the fastest of the probed plans at both but one: a block
+# a row at 512 rows, by 3%.
 PLACE_FUSED_THREADS, PLACE_FUSED_BLOCKS = 256, 2
 PLACE_FUSED_STAGES, PLACE_FUSED_ENTRIES = 3, 2048
 # shared memory beside the buffer and the ring: the slot rows (32 ints) and

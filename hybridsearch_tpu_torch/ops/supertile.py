@@ -20,19 +20,22 @@ few supertiles of 128 tiles = 16384 docs:
           3. EVERY doc of a probed supertile is scored exactly: semantic
              scores by kernel K2 (ops/cuda_supertile.py super_scores),
              lexical scores by placing each query term's CSR window inside
-             the supertile into a [128, 128] buffer (kernel K3,
-             place_windows);
+             the supertile into a [128, 128] buffer (kernel K5,
+             place_fused, reading the windows in place; or the windows
+             staged and kernel K3, place_windows);
           4. certificate: the k-th fused result beats every unprobed
              supertile's joint bound under the final normalizers (by the
              eps_num margin), and the resident lexical max dominates every
              unprobed supertile's lexical bound.
 
 ``exact`` is True only when the result provably equals full-corpus
-min-max fusion. The rung's two opt-in levers (``EngineConfig.perf``, the
-JAX module's ``HST_SCORES_DEDUP`` and ``HST_PLACE_FUSED``) swap step 3's
-kernels for K4 (``super_scores_dedup``, the (query, probe) pairs sorted
-by supertile) and K5 (``place_fused``, the windows read inside the
-kernel); both give the same bits as K2 and K3. ``save_super_postings`` /
+min-max fusion. On the card step 3's placement is K5 (``place_fused``,
+each slot's window read inside the kernel, no staged arrays) wherever its
+plan fits a supertile's buffer; ``place_fused=False`` keeps the staged
+windows + K3. The rung's opt-in lever ``scores_dedup``
+(``EngineConfig.perf``, the JAX module's ``HST_SCORES_DEDUP``) swaps K2
+for K4 (``super_scores_dedup``, the (query, probe) pairs sorted by
+supertile). Every route gives the same bits. ``save_super_postings`` /
 ``load_super_postings`` keep the build-time structures as the JAX
 package's ``.npy`` files. On a mesh each rank builds its own shard's
 structures (``build_super_postings_sharded``, local doc ids) for the
@@ -41,6 +44,7 @@ collective program of ``parallel/collectives.py``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 from typing import NamedTuple, Optional, Sequence
@@ -52,6 +56,7 @@ from hybridsearch_tpu_torch.ops.cuda_supertile import (
     PLACE_CHUNK,
     ROW,
     place_fused,
+    place_fused_plan,
     place_windows,
     super_scores,
     super_scores_dedup,
@@ -66,6 +71,7 @@ from hybridsearch_tpu_torch.ops.dense import (
 )
 from hybridsearch_tpu_torch.ops.hybrid import NEG_INF, HybridTopK
 from hybridsearch_tpu_torch.utils.device import DeviceLike, resolve_device
+from hybridsearch_tpu_torch.utils.tracing import GLOBAL_COUNTERS
 
 TILE = 128
 
@@ -409,8 +415,11 @@ def _flat_windows(sup_pos, term_ids, sup_s, sd, wcaps):
     S = sup_s.shape[1]
     lo, hi = _window_bounds(sup_pos, term_ids, sup_s)  # [B, T, S]
     ovf = torch.zeros(B, dtype=torch.bool, device=lo.device)
-    for j, wc in enumerate(wcaps):
-        ovf = ovf | ((hi[:, j] - lo[:, j]) > wc).any(dim=1)
+    j = 0
+    for wc, run in itertools.groupby(wcaps):  # one compare a run of equal caps
+        n = len(list(run))
+        ovf |= ((hi[:, j:j + n] - lo[:, j:j + n]) > wc).flatten(1).any(dim=1)
+        j += n
     return (lo.transpose(1, 2).reshape(B * S, T),
             hi.transpose(1, 2).reshape(B * S, T),
             (sup_s * sd).reshape(B * S), ovf)
@@ -438,6 +447,20 @@ def _place_windows_fused(sup_pos, ids_rows, ws_rows, term_ids, sup_s, sd,
     lo, hi, base, ovf = _flat_windows(sup_pos, term_ids, sup_s, sd, wcaps)
     return place_fused(lo, hi, base, ids_rows, ws_rows, wcaps, super_tiles,
                        TILE), ovf
+
+
+def place_route(place_fused: Optional[bool], docs: torch.Tensor,
+                super_tiles: int) -> bool:
+    """Whether a rung places its resident lexical scores with K5 (True) or
+    with staged windows + K3 (False). ``place_fused`` None, the default:
+    K5 where ``docs`` is on the card and K5's plan fits a supertile's
+    buffer, else the staged windows (which ``place_fused_plain`` runs on a
+    CPU anyway). True forces K5 (its wrapper raises where no plan fits);
+    False forces the staged windows."""
+    if place_fused is not None:
+        return bool(place_fused)
+    # the plan's fit depends on the buffer and the ring, not on the SM count
+    return _on_card(docs) and place_fused_plan(super_tiles * TILE, 1) is not None
 
 
 def dedup_pairs(sup_s: torch.Tensor, group: int = 8):
@@ -553,15 +576,16 @@ def hybrid_supertile_topk_rung(
     norm: str = "minmax",
     n_alive: Optional[int] = None,
     scores_dedup: bool = False,
-    place_fused: bool = False,
+    place_fused: Optional[bool] = None,
     return_clauses: bool = False,
 ):
     """Steps 3-4 at probe budget ``s_probe`` from a shared prefix: exact
     resident scores, fusion, float32 finalist rescore and the per-query
     certificate. ``q`` [B, D] L2-normalized float32; ``docs`` [N, D].
     ``scores_dedup``: on the card's score route, K4 on pairs sorted by
-    supertile when B*S % 8 == 0 (else K2); ``place_fused``: K5 instead of
-    staged windows + K3. Either gives the same bits as the default. Equal
+    supertile when B*S % 8 == 0 (else K2); ``place_fused``: the placement
+    route as ``place_route`` resolves it (None: K5 on the card, True: K5,
+    False: staged windows + K3). Every route gives the same bits. Equal
     to ``hybrid_supertile_topk`` at the same s_probe (the prefix's
     candidates restrict to the rung's top S). With ``return_clauses``
     returns (HybridTopK, [B] uint8 mask of the failing certificate
@@ -586,15 +610,15 @@ def hybrid_supertile_topk(
     n_alive: Optional[int] = None,
     return_probes: bool = False,
     scores_dedup: bool = False,
-    place_fused: bool = False,
+    place_fused: Optional[bool] = None,
 ):
     """The supertile hybrid in one call: ``super_prefix`` at s_max =
     ``s_probe`` and one rung. Same fused semantics and HybridTopK contract
     as ``hybrid_impact_topk``; ``exact`` is sound a query. With
     ``return_probes`` returns (HybridTopK, probed supertile ids [B, S],
-    ascending). ``scores_dedup`` / ``place_fused`` pick the rung's K4 / K5
-    routes as in ``hybrid_supertile_topk_rung``. The JAX function's
-    ``block_n`` has no counterpart here."""
+    ascending). ``scores_dedup`` / ``place_fused`` pick the rung's score
+    and placement routes as in ``hybrid_supertile_topk_rung``. The JAX
+    function's ``block_n`` has no counterpart here."""
     prefix = super_prefix(q, docs, sp, enc, bias=bias, w_s=w_s, w_l=w_l,
                           norm=norm, s_max=s_probe)
     out, probes, _ = _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias,
@@ -605,7 +629,9 @@ def hybrid_supertile_topk(
 def _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm,
                 n_alive, scores_dedup, place_fused, clauses=False):
     """(HybridTopK, probed supertiles [B, S] ascending, the failing-clause
-    mask [B] uint8 or None unless ``clauses``) of one rung."""
+    mask [B] uint8 or None unless ``clauses``) of one rung. Counts the
+    rung under its placement route (``supertile_rung_place_fused`` or
+    ``supertile_rung_place_staged``)."""
     B, Dm = q.shape
     N = docs.shape[0]
     dev = q.device
@@ -645,7 +671,10 @@ def _super_rung(q, docs, sp, enc, prefix, k, w_s, w_l, bias, s_probe, norm,
     alive = torch.isfinite(s_res)
 
     # -- resident lexical scores ------------------------------------------
-    if place_fused:
+    fused_route = place_route(place_fused, docs, super_tiles)
+    GLOBAL_COUNTERS.inc("supertile_rung_place_fused" if fused_route
+                        else "supertile_rung_place_staged")
+    if fused_route:
         lex4, ovf = _place_windows_fused(sp.sup_pos, sp.ids_rows, sp.ws_rows,
                                          enc.term_ids, sup_s, sd, wcaps,
                                          super_tiles)  # K5

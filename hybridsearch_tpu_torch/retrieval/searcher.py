@@ -214,14 +214,15 @@ def supertile_ladder(
     ladder: Optional[Tuple[int, ...]] = None,
     uncertified_tol: float = 0.005,
     scores_dedup: bool = False,
-    place_fused: bool = False,
+    place_fused: Optional[bool] = None,
 ) -> Tuple[_LadderState, int]:
     """The supertile serving ladder: one prefix (stats sweep + bound
     selection), then probe-budget rungs that escalate only the uncertified
     tail, compacted to a pow2 bucket. ``scores_dedup`` and ``place_fused``
-    (``EngineConfig.perf``) pick the rungs' K4 / K5 routes. Returns the
-    merged _LadderState (full-batch coordinates) and the number of rungs
-    run."""
+    (``EngineConfig.perf``) pick the rungs' score and placement routes
+    (``ops/supertile.py`` ``place_route``: None places with K5 on the
+    card). Returns the merged _LadderState (full-batch coordinates) and
+    the number of rungs run."""
     from hybridsearch_tpu_torch.ops.supertile import (
         CERT_CLAUSES,
         hybrid_supertile_topk_rung,
@@ -668,7 +669,7 @@ class Searcher:
                     n_alive=n_alive, valid_n=snap.n,
                     uncertified_tol=self.indexer.config.serving.uncertified_tol,
                     scores_dedup=bool(perf.scores_dedup),
-                    place_fused=bool(perf.place_fused))
+                    place_fused=perf.place_fused)
                 if not st.exact.all():
                     _warn_uncertified("supertile hybrid certificate did not "
                                       "close after probe escalation; serving "

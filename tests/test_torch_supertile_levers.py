@@ -230,12 +230,13 @@ def test_rung_with_both_levers_matches_jax(levers_on, n_q, s_probe, scores_kerne
     assert levers_on == {scores_kernel: 1, "place_fused": 1}
     _same_topk(tr.values.numpy(), tr.indices.numpy(), jr.values, jr.indices)
     np.testing.assert_array_equal(tr.exact.numpy(), np.asarray(jr.exact))
-    # and bit for bit the rung without the levers
+    # and bit for bit the rung on K2 and the staged windows + K3 (the
+    # yardstick route: the default places with K5 on the card)
     levers_on.clear()
     base = tst.hybrid_supertile_topk_rung(torch.from_numpy(q), torch.from_numpy(docs),
                                           tsp, tenc, tp, 5, 0.7, 0.3,
                                           bias=torch.from_numpy(bias), s_probe=s_probe,
-                                          n_alive=n - 50)
+                                          n_alive=n - 50, place_fused=False)
     assert levers_on == {"super_scores": 1, "place_windows": 1}
     for a, b in zip(tr, base):
         assert torch.equal(a, b)
