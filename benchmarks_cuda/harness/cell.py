@@ -2,29 +2,40 @@
 
 A cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration and a traffic mix; everything about them is read from their
-files, found by name:
+files, found by name (``harness/kinds.py`` finds the Python ones):
 
 - ``configs/<file>``, as ``BENCHMARK.json`` gives it: the deployment (the
   corpus the generator draws, the index layout, the encoder, BM25, fusion);
+- ``encoders/<encoder.kind>.py``: the configuration's encoder kind:
+  ``draw(cfg, dev)``, its weights, drawn once on the device from the
+  configuration's own seed; ``program(cfg, weights, dev)``, the port's
+  encoder over them, for ``Searcher(encoder=)``; ``Embedder(cfg, weights,
+  precision)``, the plain reference's ``embed(texts)``;
 - ``traffic/<traffic>.json``: the queries and the batch (one closed-loop
   caller; a key the harness does not read is refused);
+- ``queries/<queries.kind>.py``: the mix's query kind, ``draw(corpus,
+  spec, rng, B)``, one batch;
 - ``limits/<workload>.json``: each number the check compares, with its
   limit as ``{"max": x}`` or ``{"min": x}``;
 - ``metrics/<metric>.py``: a reader a metric, ``read(run)`` returning the
   value or None, with the program functions it taps in ``TAPS``.
 
-Set-up: draw the corpus and the hashing table, build the index with
+A kind that has no file is refused before anything is drawn.
+
+Set-up: draw the corpus and the encoder's weights, build the index with
 ``Indexer.index_documents``, serve the warm-up batches, then freeze the
 set-up's objects out of the garbage collector's scans. The window: one
 caller, each batch of queries through ``Searcher.search_batch`` as soon as
 the last returned, until ``seconds`` have passed (or, traced,
 ``trace_batches`` batches under ``torch.profiler``). After it: the peak
-device memory, the import check, the program freed, then the plain
-reference on every batch of the window (each kept as arrays when it
-returned). Every served row is held to its band (``judge``); the rows
-that the program's own certificate marks exact are held to the reference's
-scores and ranks as well; the certified and the exact share of the rows
-have floors; every row counts toward ``exact_share``.
+device memory, the import check, the program freed (the weights are what
+the program and the reference share), then the plain reference on every
+batch of the window (each kept as arrays when it returned), and the import
+check again, since the encoder kind's reference embedder and the readers
+run after the window. Every served row is held to its band (``judge``);
+the rows that the program's own certificate marks exact are held to the
+reference's scores and ranks as well; the certified and the exact share of
+the rows have floors; every row counts toward ``exact_share``.
 
 ``control="tf32"`` puts the reference with TF32 dense products in the
 program's place: the program still serves each batch (its certificate
@@ -35,9 +46,7 @@ before they are kept. No measured run does this.
 from __future__ import annotations
 
 import gc
-import importlib.util
 import json
-import math
 import sys
 import time
 from pathlib import Path
@@ -46,6 +55,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from harness import kinds
 from harness import trace as trace_mod
 from harness.corpus import QueryStream, make_corpus
 from harness.reference import Params, Reference, judge, served_arrays
@@ -61,6 +71,14 @@ def forbidden_modules() -> List[str]:
     """Top-level names of loaded modules, compared whole, that a run may
     not load."""
     return sorted({m.split(".")[0] for m in list(sys.modules)} & set(FORBIDDEN))
+
+
+def refuse_forbidden(when: str) -> None:
+    """Ends the run, with no result, where a module it may not load is
+    loaded."""
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"modules that may not load were loaded {when}: {found}")
 
 
 class Bench:
@@ -100,12 +118,11 @@ class Bench:
                 if "workloads" not in m or workload in m["workloads"]]
 
     def reader(self, name: str):
-        path = self.dir / "metrics" / f"{name}.py"
-        mod_name = "bench_metric_" + "".join(c if c.isalnum() else "_" for c in name)
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod
+        return kinds.load(self.dir / "metrics", name)
+
+    def kind(self, family: str, name: str):
+        """``encoders/<name>.py`` or ``queries/<name>.py``."""
+        return kinds.load(self.dir / family, name)
 
 
 class Run:
@@ -175,21 +192,8 @@ class _Spans:
         del self.timer.record
 
 
-def draw_table(cfg: dict, dev: torch.device) -> torch.Tensor:
-    """The hashing encoder's [n_buckets, dim] table, N(0, 1/dim), drawn on
-    the device from the configuration's ``table_seed`` (the same in every
-    run, as a deployment's weights are): handed to the program and to the
-    reference alike."""
-    enc = cfg["encoder"]
-    g = torch.Generator(device=dev)
-    g.manual_seed(int(enc["table_seed"]))
-    return torch.randn((enc["n_buckets"], enc["dim"]), generator=g, device=dev,
-                       dtype=torch.float32) / math.sqrt(enc["dim"])
-
-
-def _program(cfg: dict, table: torch.Tensor, dev: torch.device):
+def _program(cfg: dict, encoder, dev: torch.device):
     from hybridsearch_tpu_torch.config import EngineConfig
-    from hybridsearch_tpu_torch.models.encoder import HashingEncoder
     from hybridsearch_tpu_torch.retrieval.searcher import Searcher
 
     ec = EngineConfig()
@@ -199,18 +203,12 @@ def _program(cfg: dict, table: torch.Tensor, dev: torch.device):
     ec.bm25.k1, ec.bm25.b = cfg["bm25"]["k1"], cfg["bm25"]["b"]
     ec.fusion.semantic_weight = cfg["fusion"]["semantic_weight"]
     ec.fusion.lexical_weight = cfg["fusion"]["lexical_weight"]
-    e = cfg["encoder"]
-    enc = HashingEncoder(dim=e["dim"], n_buckets=e["n_buckets"],
-                         bigram_weight=e["bigram_weight"], max_tokens=e["max_tokens"],
-                         device=dev)
-    enc.table = table
-    return Searcher(config=ec, encoder=enc, use_query_memory=False, device=dev)
+    return Searcher(config=ec, encoder=encoder, use_query_memory=False, device=dev)
 
 
 def reference_params(cfg: dict) -> Params:
-    e, b, f = cfg["encoder"], cfg["bm25"], cfg["fusion"]
-    return Params(e["n_buckets"], e["bigram_weight"], e["max_tokens"], b["k1"], b["b"],
-                  f["semantic_weight"], f["lexical_weight"])
+    b, f = cfg["bm25"], cfg["fusion"]
+    return Params(b["k1"], b["b"], f["semantic_weight"], f["lexical_weight"])
 
 
 def _sync(dev: torch.device) -> None:
@@ -231,6 +229,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
         bench.limits(workload)
     kind = "per_layer" if traced else "end_to_end"
     readers = {m["name"]: (m, bench.reader(m["name"])) for m in bench.metrics(workload, kind)}
+    encoder = bench.kind("encoders", cfg["encoder"]["kind"])
+    queries = bench.kind("queries", tr["queries"]["kind"])
     B, k = tr["batch"], tr["top_k"]
 
     marks = {"imports": time.perf_counter() - t0}
@@ -238,12 +238,12 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
     index_of: Dict[str, int] = {}
     for i, text in enumerate(corpus.texts):
         index_of.setdefault(text, i)
-    table = draw_table(cfg, dev)
+    weights = encoder.draw(cfg, dev)
     marks["draw"] = time.perf_counter() - t0
-    searcher = _program(cfg, table, dev)
+    searcher = _program(cfg, encoder.program(cfg, weights, dev), dev)
     built = searcher.indexer.index_documents(corpus.texts)
     marks["index"] = time.perf_counter() - t0
-    stream = QueryStream(corpus, tr["queries"], B, seed, tr["pool_batches"])
+    stream = QueryStream(corpus, tr["queries"], B, seed, tr["pool_batches"], queries.draw)
     for _ in range(tr["warmup_batches"]):
         searcher.search_batch(stream.warmup().texts, top_k=k, log=False)
     _sync(dev)
@@ -256,7 +256,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
           f"index stages (s): {json.dumps(built['timings_s'])}", file=log, flush=True)
 
     ctl = None if control is None else Reference(
-        corpus.texts, table, reference_params(cfg), precision=control)
+        corpus.texts, encoder.Embedder(cfg, weights, control), reference_params(cfg),
+        precision=control)
     served: List = []
     tap = trace_mod.Tap()
     prof = None
@@ -308,9 +309,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
           f"of {certified.size} rows; rungs mean {np.mean(ladders.rungs or [0]):.3f}, "
           f"counts {np.bincount(ladders.rungs or [0]).tolist()}", file=log, flush=True)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"modules that may not load were loaded: {found}")
+    refuse_forbidden("by the window's close")
     if traced:
         run.profile = trace_mod.read_profile(prof)
         p = run.profile
@@ -329,7 +328,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
         torch.cuda.empty_cache()
 
     t_ref = time.perf_counter()
-    ref = Reference(corpus.texts, table, reference_params(cfg))
+    ref = Reference(corpus.texts, encoder.Embedder(cfg, weights), reference_params(cfg))
     gap_s = gap_r = gap_b = 0.0
     failed = no_cert = 0
     for i, batch in enumerate(served):
@@ -373,6 +372,7 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float, traced: boo
                             "idle_gaps": run.profile.idle_gaps}
     out["checks"] = {name: {"value": v, "limit": x, "bound": kind}
                      for name, v in checks.items() for kind, x in limits[name].items()}
+    refuse_forbidden("by the reference or the metric readers")
     return out
 
 

@@ -1,6 +1,10 @@
-"""The one generator: a corpus from a configuration's ``corpus`` block and
-query batches from a traffic mix's ``queries`` block, both drawn from the
-configuration's fixed seed; the run's seed orders the batches.
+"""The corpus generator, and the stream of query batches over a corpus.
+
+A corpus comes from a configuration's ``corpus`` block; query batches from
+a traffic mix's ``queries`` block, whose ``kind`` names the file that draws
+one batch: ``queries/<kind>.py`` with ``draw(corpus, spec, rng, B)``
+returning a ``QueryBatch`` (``harness/kinds.py`` finds it). Both are drawn
+from the configuration's fixed seed; the run's seed orders the batches.
 
 A corpus is a set of questions grouped into duplicate clusters (the shape
 of BEIR Quora, where a query's relevant documents are the questions it
@@ -24,10 +28,8 @@ length with common words:
 - the documents are shuffled, so a cluster's questions do not sit side by
   side in the input order.
 
-Queries (a traffic mix's ``queries.kind``, ``"paraphrase"``, the one kind):
-another question of a uniformly drawn cluster, of ``words_mean`` words,
-keeping each core word with probability ``keep``; the cluster's documents
-are its relevant ones.
+A query kind draws with ``lengths``, ``questions`` and ``texts_of`` as the
+corpus does, or with its own code.
 
 Every run serves the same work in another order: the corpus (in one input
 order), the query pool (``pool_batches`` batches of the mix, each batch's
@@ -47,7 +49,7 @@ fixed stream a purpose.
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, NamedTuple, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence
 
 import numpy as np
 
@@ -88,8 +90,8 @@ def _draw(rng: np.random.Generator, cdf: np.ndarray, size) -> np.ndarray:
                       len(cdf) - 1).astype(np.int64)
 
 
-def _lengths(rng: np.random.Generator, count: int, mean: float, lo: int, hi: int,
-             dispersion: float) -> np.ndarray:
+def lengths(rng: np.random.Generator, count: int, mean: float, lo: int, hi: int,
+            dispersion: float) -> np.ndarray:
     """``lo`` plus a negative binomial of mean ``mean - lo``, cut at ``hi``."""
     m = mean - lo
     p = dispersion / (dispersion + m)
@@ -128,8 +130,8 @@ def texts_of(voc: Vocabulary, ids: np.ndarray, lens: np.ndarray) -> List[str]:
             zip(starts.tolist(), ends.tolist(), lens.tolist())]
 
 
-def _questions(rng: np.random.Generator, voc: Vocabulary, core: np.ndarray,
-               lens: np.ndarray, head_share: float, keep: float) -> np.ndarray:
+def questions(rng: np.random.Generator, voc: Vocabulary, core: np.ndarray,
+              lens: np.ndarray, head_share: float, keep: float) -> np.ndarray:
     """[count, max(lens)] word ids: per row the first n of its ``core``
     row (each kept with probability ``keep``, else another content word)
     in core order, with common words placed among them (-1 past the row's
@@ -194,13 +196,13 @@ def make_corpus(spec: Dict) -> Corpus:
                                                  (n_clusters, k_core))],
         _draw(rng, voc.content_cdf, (n_clusters, k_core)))
     doc_cluster = np.repeat(np.arange(n_clusters), cs)
-    lens = _lengths(rng, n_docs, spec["words_mean"], spec["min_words"],
-                    spec["max_words"], spec["length_dispersion"])
+    lens = lengths(rng, n_docs, spec["words_mean"], spec["min_words"],
+                   spec["max_words"], spec["length_dispersion"])
     texts: List[str] = []
     for lo in range(0, n_docs, _CHUNK):
         hi = min(lo + _CHUNK, n_docs)
-        ids = _questions(rng, voc, core[doc_cluster[lo:hi]], lens[lo:hi],
-                         spec["head_share"], spec["keep"])
+        ids = questions(rng, voc, core[doc_cluster[lo:hi]], lens[lo:hi],
+                        spec["head_share"], spec["keep"])
         texts.extend(texts_of(voc, ids, lens[lo:hi]))
     order = rng.permutation(n_docs)
     return Corpus([texts[i] for i in order.tolist()], doc_cluster[order], cs, topic,
@@ -209,20 +211,20 @@ def make_corpus(spec: Dict) -> Corpus:
 
 class QueryBatch(NamedTuple):
     texts: List[str]
-    cluster: np.ndarray  # [B] cluster each query paraphrases
+    cluster: np.ndarray  # [B] cluster each query was drawn from (its relevant documents)
 
 
 class QueryStream:
     """Batches of a traffic mix's queries over one corpus: ``warmup()``
     draws from its own stream; ``batch(i)`` is the window's i-th batch, one
     of the pool's ``pool_batches`` fixed batches, served in the order the
-    run's seed shuffles them (shuffled again each time the pool runs out)."""
+    run's seed shuffles them (shuffled again each time the pool runs out).
+    ``draw`` is the query kind's (``queries/<kind>.py``), one batch."""
 
     def __init__(self, corpus: Corpus, spec: Dict, batch: int, seed: int,
-                 pool_batches: int):
-        if spec["kind"] != "paraphrase":
-            raise ValueError(f"unknown query kind {spec['kind']!r}")
+                 pool_batches: int, draw: Callable[..., QueryBatch]):
         self.corpus, self.spec, self.size = corpus, spec, batch
+        self._kind_draw = draw
         self._warm = np.random.default_rng([corpus.seed, _STREAM_WARMUP])
         pool_rng = np.random.default_rng([corpus.seed, _STREAM_POOL])
         self._pool = [self._draw(pool_rng, batch) for _ in range(pool_batches)]
@@ -239,9 +241,4 @@ class QueryStream:
         return self._pool[int(self._order[i])]
 
     def _draw(self, rng: np.random.Generator, B: int) -> QueryBatch:
-        c, s = self.corpus, self.spec
-        cl = rng.integers(0, len(c.cluster_size), B)
-        lens = _lengths(rng, B, s["words_mean"], s["min_words"], s["max_words"],
-                        s["length_dispersion"])
-        ids = _questions(rng, c.voc, c.core[cl], lens, s["head_share"], s["keep"])
-        return QueryBatch(texts_of(c.voc, ids, lens), cl)
+        return self._kind_draw(self.corpus, self.spec, rng, B)

@@ -1,11 +1,12 @@
 """The plain reference: exact hybrid search worked out again from the text.
 
-From the corpus and the query texts alone (and the hashing table the
-benchmark drew, which it hands to the program too), with the frozen text
-rules of ``textops.py`` and plain PyTorch:
+From the corpus and the query texts alone, with the frozen text rules of
+``textops.py`` and plain PyTorch:
 
-- embeddings: each text's hashing features gathered from the table,
-  weighted mean, L2-normalized; the dense score is the cosine;
+- embeddings: the configuration's encoder kind's reference embedder
+  (``encoders/<kind>.py`` ``Embedder``, built from the weights the
+  benchmark drew and handed to the program too), L2-normalized; the dense
+  score is the cosine, the product of query and document embeddings;
 - BM25: Okapi weights of every (term, document) pair,
   ``idf * tf (k1 + 1) / (tf + k1 (1 - b + b len / avg_len))`` with
   ``idf = log((N - df + 0.5) / (df + 0.5) + 1)``, summed over the query's
@@ -21,7 +22,6 @@ configuration states. The reference imports nothing of the program.
 
 from __future__ import annotations
 
-import copy
 from contextlib import contextmanager
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
@@ -29,8 +29,6 @@ import numpy as np
 import torch
 
 from harness import textops
-
-_EMBED_CHUNK = 32768  # documents embedded at a time
 
 
 @contextmanager
@@ -52,14 +50,7 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x0FFF + lsb) & ~0x1FFF).view(torch.float32)
 
 
-def _normalize(x: torch.Tensor) -> torch.Tensor:
-    return x / x.square().sum(dim=-1, keepdim=True).sqrt().clamp_min(1e-12)
-
-
 class Params(NamedTuple):
-    n_buckets: int
-    bigram_weight: float
-    max_tokens: int
     k1: float
     b: float
     w_s: float
@@ -67,38 +58,18 @@ class Params(NamedTuple):
 
 
 class Reference:
-    """Exact fused scores of query texts over one corpus."""
+    """Exact fused scores of query texts over one corpus. ``embedder`` has
+    ``embed(texts)``: [n, dim] float32, L2-normalized."""
 
-    def __init__(self, texts: Sequence[str], table: torch.Tensor, params: Params,
+    def __init__(self, texts: Sequence[str], embedder, params: Params,
                  precision: str = "fp32"):
         if precision not in ("fp32", "tf32"):
             raise ValueError(f"precision {precision!r}")
-        self.p, self.precision = params, precision
-        self.table = table.float()
-        self.device = table.device
-        hashed = textops.hash_texts(texts)
+        self.p, self.precision, self.embedder = params, precision, embedder
         self.n = len(texts)
-        self.docs = self._embed(hashed)
-        self._fit_bm25(hashed)
-
-    def _embed(self, hashed: textops.Hashed) -> torch.Tensor:
-        p, dev = self.p, self.device
-        f = textops.encoder_features(hashed, p.n_buckets, p.bigram_weight, p.max_tokens)
-        n = len(hashed.counts)
-        out = torch.zeros((n, self.table.shape[1]), dtype=torch.float32, device=dev)
-        denom = torch.zeros(n, dtype=torch.float32, device=dev)
-        bounds = np.searchsorted(f.text_of, np.arange(0, n + _EMBED_CHUNK, _EMBED_CHUNK))
-        order = np.argsort(f.text_of, kind="stable")
-        text_of, bucket, weight = f.text_of[order], f.bucket[order], f.weight[order]
-        for lo, hi in zip(bounds[:-1], bounds[1:]):
-            if hi <= lo:
-                continue
-            t = torch.from_numpy(text_of[lo:hi]).to(dev)
-            w = torch.from_numpy(weight[lo:hi]).to(dev)
-            rows = self.table[torch.from_numpy(bucket[lo:hi]).to(dev)] * w[:, None]
-            out.index_add_(0, t, rows)
-            denom.index_add_(0, t, w)
-        return _normalize(out / denom.clamp_min(1e-9)[:, None])
+        self.docs = embedder.embed(texts)
+        self.device = self.docs.device
+        self._fit_bm25(textops.hash_texts(texts))
 
     def _fit_bm25(self, hashed: textops.Hashed) -> None:
         p, dev = self.p, self.device
@@ -120,29 +91,10 @@ class Reference:
         self.post_doc = torch.from_numpy(d).to(dev)
         self.post_w = torch.from_numpy(w.astype(np.float32)).to(dev)
 
-    def with_precision(self, precision: str) -> "Reference":
-        """The same corpus (embeddings, BM25) scored in another precision."""
-        if precision not in ("fp32", "tf32"):
-            raise ValueError(f"precision {precision!r}")
-        other = copy.copy(self)
-        other.precision = precision
-        return other
-
     def dense(self, queries: Sequence[str]) -> torch.Tensor:
         """[B, n] cosines."""
-        p = self.p
-        hq = textops.hash_texts(queries)
-        f = textops.encoder_features(hq, p.n_buckets, p.bigram_weight, p.max_tokens)
-        B, dev = len(queries), self.device
-        q = torch.zeros((B, self.table.shape[1]), dtype=torch.float32, device=dev)
-        den = torch.zeros(B, dtype=torch.float32, device=dev)
-        t = torch.from_numpy(f.text_of).to(dev)
-        w = torch.from_numpy(f.weight).to(dev)
-        q.index_add_(0, t, self.table[torch.from_numpy(f.bucket).to(dev)] * w[:, None])
-        den.index_add_(0, t, w)
-        q = _normalize(q / den.clamp_min(1e-9)[:, None])
-        docs = self.docs
-        if self.precision == "tf32" and dev.type != "cuda":
+        q, docs = self.embedder.embed(queries), self.docs
+        if self.precision == "tf32" and self.device.type != "cuda":
             q, docs = round_tf32(q), round_tf32(docs)
         with _matmul_precision(self.precision == "tf32"):
             return q @ docs.T

@@ -7,13 +7,11 @@ copy of each rule it needs and imports nothing of the program:
 - tokens: lowercase ``[a-z0-9_]+`` runs of ASCII text, an English stopword
   set removed;
 - a token's identity: the 64-bit FNV-1a hash of its bytes; a bigram's: the
-  hash of ``"a_b"`` for two consecutive kept tokens;
-- the hashing encoder's features: per text its unigram buckets (weight 1)
-  then its bigram buckets (weight ``bigram_weight``), cut at
-  ``max_tokens``, bucket = hash mod ``n_buckets``.
+  hash of ``"a_b"`` for two consecutive kept tokens.
 
-These are the rules as the benchmark was written against them; a test holds
-them to the program's on sample text, so a change on either side shows.
+These are the rules as the benchmark was written against them; a test
+holds them to the program's on sample text, so a change on either side
+shows. An encoder kind's own rules sit in its file under ``encoders/``.
 """
 
 from __future__ import annotations
@@ -105,36 +103,3 @@ def hash_texts(texts: Sequence[str]) -> Hashed:
         hb = (h[a] ^ np.uint64(ord("_"))) * np.uint64(FNV_PRIME)
         bi = _fnv_continue(hb, lower, starts[a + 1], lens[a + 1])
     return Hashed(h, counts, bi)
-
-
-class Features(NamedTuple):
-    """The hashing encoder's features of many texts, flat."""
-
-    text_of: np.ndarray  # [F] int64
-    bucket: np.ndarray  # [F] int64
-    weight: np.ndarray  # [F] float32
-
-
-def encoder_features(hashed: Hashed, n_buckets: int, bigram_weight: float,
-                     max_tokens: int) -> Features:
-    """Per text: its unigram buckets (weight 1), then its bigram buckets
-    (weight ``bigram_weight``), the first ``max_tokens`` of them kept."""
-    counts = hashed.counts
-    n = len(counts)
-    nb = np.uint64(n_buckets)
-    uni_text = np.repeat(np.arange(n, dtype=np.int64), counts)
-    uni_pos = np.arange(len(uni_text), dtype=np.int64) - np.repeat(
-        np.cumsum(counts) - counts, counts)
-    bi_counts = np.maximum(counts - 1, 0)
-    bi_text = np.repeat(np.arange(n, dtype=np.int64), bi_counts)
-    bi_pos = (np.arange(len(bi_text), dtype=np.int64)
-              - np.repeat(np.cumsum(bi_counts) - bi_counts, bi_counts)
-              + counts[bi_text])
-    keep_u = uni_pos < max_tokens
-    keep_b = bi_pos < max_tokens
-    text_of = np.concatenate([uni_text[keep_u], bi_text[keep_b]])
-    bucket = np.concatenate([(hashed.hashes[keep_u] % nb).astype(np.int64),
-                             (hashed.bigrams[keep_b] % nb).astype(np.int64)])
-    weight = np.concatenate([np.ones(int(keep_u.sum()), np.float32),
-                             np.full(int(keep_b.sum()), bigram_weight, np.float32)])
-    return Features(text_of, bucket, weight)

@@ -4,8 +4,8 @@
         --seconds <s> --trace <0|1>
 
 from the root of a checkout, on a machine with an NVIDIA card. The cell's
-configuration, traffic, limits and metrics are found by name from
-``BENCHMARK.json`` (``harness/cell.py``). The last line of standard output
+configuration, traffic, encoder and query kinds, limits and metrics are
+found by name from ``BENCHMARK.json`` (``harness/cell.py``). The last line of standard output
 is one JSON object (``correct``, ``attempted``, ``failed``, ``metrics``,
 ``device``, with ``--trace 1`` ``breakdown``, and ``checks`` last: each
 number the check compared beside its limit); the last lines of standard

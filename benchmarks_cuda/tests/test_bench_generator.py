@@ -16,6 +16,13 @@ N_DOCS = 65536
 N_BATCHES = 80
 
 
+def _query_draw(tr):
+    """The draw of the traffic mix's query kind, from ``queries/``."""
+    from harness import kinds
+
+    return kinds.load(BENCH / "queries", tr["queries"]["kind"]).draw
+
+
 @pytest.fixture(scope="module")
 def drawn():
     from harness.corpus import QueryStream, make_corpus
@@ -24,7 +31,8 @@ def drawn():
     spec = dict(cfg["corpus"], n_docs=N_DOCS)
     corpus = make_corpus(spec)
     tr = json.loads((BENCH / "traffic" / "dup.json").read_text())
-    stream = QueryStream(corpus, tr["queries"], 256, 2**31 + 5, N_BATCHES)
+    stream = QueryStream(corpus, tr["queries"], 256, 2**31 + 5, N_BATCHES,
+                         _query_draw(tr))
     return cfg, corpus, [stream.batch(i) for i in range(N_BATCHES)]
 
 
@@ -73,9 +81,10 @@ def test_every_seed_serves_the_same_batches_in_another_order():
     seed = 2**33 + 1  # more than 32 bits
     a, b = make_corpus(spec), make_corpus(spec)
     assert a.texts == b.texts
-    qa = QueryStream(a, tr["queries"], 64, seed, 4)
-    qb = QueryStream(b, tr["queries"], 64, seed, 4)
-    qc = QueryStream(a, tr["queries"], 64, seed + 1, 4)
+    draw = _query_draw(tr)
+    qa = QueryStream(a, tr["queries"], 64, seed, 4, draw)
+    qb = QueryStream(b, tr["queries"], 64, seed, 4, draw)
+    qc = QueryStream(a, tr["queries"], 64, seed + 1, 4, draw)
     qa.warmup()  # warm-up draws do not move the window's batches
     assert qa.batch(3).texts == qb.batch(3).texts
     pool = sorted(tuple(qa.batch(i).texts) for i in range(4))

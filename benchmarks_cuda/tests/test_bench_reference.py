@@ -8,7 +8,9 @@
   check, comes out not correct; the float32 reference in its place, correct;
 - a served document swapped for another leaves its band, and a row that
   names a document twice or is not sorted is bad;
-- the reference modules load nothing of the program and nothing of JAX.
+- the reference modules and every encoder and query kind file load
+  nothing of the program and nothing of JAX, nor does each configuration's
+  reference embedder when it draws and embeds.
 """
 
 import json
@@ -31,6 +33,28 @@ SAMPLE = [
 ]
 
 
+def _hashing():
+    from harness import kinds
+
+    return kinds.load(BENCH / "encoders", "hashing")
+
+
+def _paraphrases(corpus, B, seed):
+    """The first batch of ``traffic/dup.json``'s queries over ``corpus``."""
+    from harness import kinds
+    from harness.corpus import QueryStream
+
+    tr = json.loads((BENCH / "traffic" / "dup.json").read_text())
+    draw = kinds.load(BENCH / "queries", tr["queries"]["kind"]).draw
+    return QueryStream(corpus, tr["queries"], B, seed, 1, draw).batch(0).texts
+
+
+def _encoder(n_buckets):
+    """A configuration's ``encoder`` block of the hashing kind."""
+    return {"encoder": {"kind": "hashing", "dim": 384, "n_buckets": n_buckets,
+                        "bigram_weight": 0.5, "max_tokens": 256, "table_seed": 0}}
+
+
 def test_frozen_text_rules_agree_with_the_program():
     from harness import textops
     from hybridsearch_tpu_torch.models.encoder import HashingEncoder
@@ -50,7 +74,7 @@ def test_frozen_text_rules_agree_with_the_program():
     assert np.array_equal(mine.bigrams, theirs.bigrams)
     enc = HashingEncoder(dim=8, n_buckets=97, bigram_weight=0.5, max_tokens=5, device="cpu")
     ids, w = enc.features(SAMPLE)
-    f = textops.encoder_features(mine, 97, 0.5, 5)
+    f = _hashing().encoder_features(mine, 97, 0.5, 5)
     for i in range(len(SAMPLE)):
         keep = w[i] > 0
         at = f.text_of == i
@@ -58,18 +82,19 @@ def test_frozen_text_rules_agree_with_the_program():
         assert w[i][keep].tolist() == f.weight[at].tolist()
 
 
-def _brute(texts, queries, table, p):
-    """float64 NumPy from the formulas, token by token."""
+def _brute(texts, queries, table, e, p):
+    """float64 NumPy from the formulas, token by token; ``e`` the hashing
+    encoder's block."""
     from harness import textops
 
     table = table.double().numpy()
 
     def embed(text):
         toks = textops.tokens(text)
-        feats = [(textops.fnv1a(t) % p.n_buckets, 1.0) for t in toks]
-        feats += [(textops.fnv1a(a + "_" + b) % p.n_buckets, p.bigram_weight)
+        feats = [(textops.fnv1a(t) % e["n_buckets"], 1.0) for t in toks]
+        feats += [(textops.fnv1a(a + "_" + b) % e["n_buckets"], e["bigram_weight"])
                   for a, b in zip(toks, toks[1:])]
-        feats = feats[:p.max_tokens]
+        feats = feats[:e["max_tokens"]]
         if not feats:
             return np.zeros(table.shape[1])
         v = sum(w * table[b] for b, w in feats) / sum(w for _b, w in feats)
@@ -106,19 +131,19 @@ def _brute(texts, queries, table, p):
 
 
 def test_reference_matches_a_float64_brute_force():
-    from harness.corpus import QueryStream, make_corpus
+    from harness.corpus import make_corpus
     from harness.reference import Params, Reference
 
     cfg = json.loads((BENCH / "configs" / "beir-quora.clustered.json").read_text())
     corpus = make_corpus(dict(cfg["corpus"], n_docs=300))
-    tr = json.loads((BENCH / "traffic" / "dup.json").read_text())
-    queries = QueryStream(corpus, tr["queries"], 12, 3, 1).batch(0).texts + SAMPLE[:2]
+    queries = _paraphrases(corpus, 12, 3) + SAMPLE[:2]
     texts = corpus.texts + SAMPLE
     g = torch.Generator().manual_seed(9)
     table = torch.randn((512, 384), generator=g) / np.sqrt(384)
-    p = Params(512, 0.5, 256, 1.5, 0.75, 0.7, 0.3)
-    got = Reference(texts, table, p).fused(queries).double().numpy()
-    want = _brute(texts, queries, table, p)
+    p = Params(1.5, 0.75, 0.7, 0.3)
+    enc = _encoder(512)
+    got = Reference(texts, _hashing().Embedder(enc, table), p).fused(queries).double().numpy()
+    want = _brute(texts, queries, table, enc["encoder"], p)
     assert np.abs(got - want).max() < 2e-6
 
 
@@ -144,16 +169,16 @@ def test_control_through_the_runs_own_check(tiny_bench, precision, correct):
 def test_a_document_swapped_leaves_its_band():
     """Served rows whose documents are swapped for others (scores kept)
     leave the band that holds on every row, certified or not."""
-    from harness.corpus import QueryStream, make_corpus
+    from harness.corpus import make_corpus
     from harness.reference import Params, Reference, judge, served_arrays
 
     cfg = json.loads((BENCH / "configs" / "beir-quora.clustered.json").read_text())
     corpus = make_corpus(dict(cfg["corpus"], n_docs=2000))
-    tr = json.loads((BENCH / "traffic" / "dup.json").read_text())
-    queries = QueryStream(corpus, tr["queries"], 16, 5, 1).batch(0).texts
+    queries = _paraphrases(corpus, 16, 5)
     g = torch.Generator().manual_seed(3)
     table = torch.randn((4096, 384), generator=g) / np.sqrt(384)
-    ref = Reference(corpus.texts, table, Params(4096, 0.5, 256, 1.5, 0.75, 0.7, 0.3))
+    ref = Reference(corpus.texts, _hashing().Embedder(_encoder(4096), table),
+                    Params(1.5, 0.75, 0.7, 0.3))
     index_of = {t: i for i, t in reversed(list(enumerate(corpus.texts)))}
     rows = ref.topk_rows(queries, 10, corpus.texts)
     good = judge(ref, queries, served_arrays(rows, 16, 10, index_of), 10)
@@ -176,13 +201,42 @@ def test_a_repeated_or_unsorted_row_is_bad():
     assert s.malformed.tolist() == [False, True, True]
 
 
+LOADS = """
+import json, sys
+from pathlib import Path
+
+bench = Path(sys.argv[1])
+sys.path.insert(0, str(bench))
+import torch
+import harness.corpus, harness.kernel_bounds, harness.kinds, harness.reference, harness.textops
+
+load = harness.kinds.load
+kinds = [load(p.parent, p.stem) for d in ("encoders", "queries")
+         for p in sorted((bench / d).glob("*.py"))]
+spec = json.loads((bench.parent / "BENCHMARK.json").read_text())
+shapes = []
+for c in spec["configs"]:
+    cfg = json.loads((bench.parent / c["file"]).read_text())
+    kind = load(bench / "encoders", cfg["encoder"]["kind"])
+    weights = kind.draw(cfg, torch.device("cpu"))
+    shapes.append(list(kind.Embedder(cfg, weights).embed(json.loads(sys.argv[2])).shape))
+print(json.dumps({"kinds": len(kinds), "shapes": shapes,
+                  "modules": sorted({m.split(".")[0] for m in sys.modules})}))
+"""
+
+
 def test_reference_loads_nothing_of_the_program_or_jax():
-    code = ("import sys; sys.path.insert(0, %r); "
-            "import harness.reference, harness.textops, harness.corpus, "
-            "harness.kernel_bounds; "
-            "print(sorted({m.split('.')[0] for m in sys.modules}))" % str(BENCH))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         check=True, cwd=str(BENCH.parent)).stdout
-    tops = set(eval(out))
-    assert not tops & {"jax", "jaxlib", "flax", "hybridsearch_tpu",
-                       "hybridsearch_tpu_torch"}
+    """Every encoder and query kind file is loaded whole, ``program``
+    uncalled (it imports the program inside itself); every configuration's
+    encoder kind draws its weights and its reference embedder embeds."""
+    out = subprocess.run([sys.executable, "-c", LOADS, str(BENCH), json.dumps(SAMPLE)],
+                         capture_output=True, text=True, check=True,
+                         cwd=str(BENCH.parent)).stdout
+    got = json.loads(out.strip().splitlines()[-1])
+    assert got["kinds"] == len(list(BENCH.glob("encoders/*.py"))) + len(
+        list(BENCH.glob("queries/*.py"))) >= 2
+    configs = json.loads((BENCH.parent / "BENCHMARK.json").read_text())["configs"]
+    assert len(got["shapes"]) == len(configs)
+    assert all(n == len(SAMPLE) for n, _dim in got["shapes"])
+    assert not set(got["modules"]) & {"jax", "jaxlib", "flax", "hybridsearch_tpu",
+                                      "hybridsearch_tpu_torch"}
