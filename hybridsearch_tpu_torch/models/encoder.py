@@ -13,9 +13,11 @@ texts to a float32 tensor [len(texts), dim] on its device:
 - ``ByteTrigramEncoder``: the same gather-mean over hashed UTF-8 byte
   trigrams, for any script.
 - ``MiniLMEncoder`` (``models/minilm.py``): the transformer bi-encoder.
+- ``DeepseekV2Encoder`` (``models/deepseek_v2.py``): a DeepSeek-V2 decoder,
+  last-token pooled, at its hidden width.
 
 ``default_encoder`` picks MiniLM when a checkpoint of the requested width is
-found, else hashing.
+found, else hashing; ``kind="deepseek_v2"`` serves the decoder.
 """
 
 from __future__ import annotations
@@ -169,13 +171,27 @@ def default_encoder(dim: int = 384, kind: str = "auto", device: DeviceLike = Non
     """MiniLM with a checkpoint's weights if one is found, else the hashing
     encoder, on ``device``.
 
-    ``HST_ENCODER`` (hashing|minilm|auto) overrides an "auto" kind. In auto
-    mode a discovered checkpoint is served only when its width is ``dim``
-    (the embedding space is a contract with the index built on it); one of
-    another width is skipped with a warning. A discovered checkpoint that
-    fails to load raises: there is no silent fallback."""
+    ``HST_ENCODER`` (hashing|minilm|deepseek_v2|auto) overrides an "auto"
+    kind. In auto mode a discovered checkpoint is served only when its
+    width is ``dim`` (the embedding space is a contract with the index
+    built on it); one of another width is skipped with a warning. A
+    discovered checkpoint that fails to load raises: there is no silent
+    fallback.
+
+    ``deepseek_v2``: ``DeepseekV2Encoder`` with ``kwargs`` (``config``, the
+    published DeepSeek-V2-Lite by default; ``state_dict`` under the public
+    names, or weights drawn from ``seed``); ``dim`` must be its hidden
+    width."""
     if kind == "auto":
         kind = os.environ.get("HST_ENCODER", "auto")
+    if kind == "deepseek_v2":
+        from hybridsearch_tpu_torch.models.deepseek_v2 import DeepseekV2Config, DeepseekV2Encoder
+
+        width = kwargs.get("config", DeepseekV2Config()).hidden_size
+        if width != dim:
+            raise ValueError(f"the DeepSeek-V2 encoder is {width} wide and {dim} was asked "
+                             "for: set the index's width to the trunk's")
+        return DeepseekV2Encoder(device=device, **kwargs)
     if kind in ("auto", "minilm"):
         from hybridsearch_tpu_torch.models.minilm import (
             MiniLMEncoder,

@@ -1,9 +1,13 @@
 """Tracing and per-stage query-path metrics.
 
   - StageTimer: lock-protected rolling latency/rate statistics per named
-    stage (search_batch, encode, hybrid_sparse, ladder.rung, ...) over the
-    window of time their last samples cover, surfaced through stats;
-  - Counters: named monotonic counters (e.g. the ladders' certified rows);
+    stage (search_batch, encode, hybrid_sparse, ladder.rung, ...; inside
+    encode a decoder encoder's encoder.tokenize and encoder.forward, and
+    moe.route and moe.experts once an MoE layer) over the window of time
+    their last samples cover, surfaced through stats;
+  - Counters: named monotonic counters (e.g. the ladders' certified rows;
+    encoder_texts, encoder_tokens, encoder_tokens_padded and
+    moe_tokens_routed, each known on the host at tokenization);
   - trace_span: context manager recording into a StageTimer and labelling
     the stage on a torch.profiler timeline (record_function) when a
     profiling session is active;
